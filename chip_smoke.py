@@ -9,24 +9,28 @@ port's ``ServingPlane`` and checks it against the port's host path.
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Kernels against their plain versions, bit-equal, with times: the
-   in-place probe on a 2^20-slot map, the windowed probe on a 2^24-slot
-   wrap-padded map with collision chains longer than a 256-slot window,
-   the row gather (N = 4096 x 32 ids, D in {1, 8, 9}) and the row
-   scatter (unique ids). Each kernel's time is printed beside its bound
-   (bytes over 3.35 TB/s), its plain version's time and, for the copies,
-   the one-call PyTorch equivalent (``library_ms``, never used by the
-   port).
+1. Kernels against their plain versions, bit-equal: the in-place probe
+   on a 2^20-slot map and the windowed probe on a 2^24-slot wrap-padded
+   map, each with a crafted collision cluster longer than a 256-slot
+   window; the row gather (N = 4096 x 32 ids, D in {1, 8, 9}) and the
+   row scatter (unique ids). The copies are timed here, beside their
+   bound (bytes over 3.35 TB/s), their plain version's time and the
+   one-call PyTorch equivalent (``library_ms``, never used by the port).
 2. The slice: FM_FTRL (32 fields, embed 8, groups w:1 + v:8, feature
    space 2^22), 2 slave shards x 2 replicas, 8 partitions. All 2^22 ids
    get seeded rows through ``convert.load_serve_state``, so each replica
    map has 2^24 slots (windowed probe) while the serve caches stay small
    (in-place probe). Requests: cold at batch 4096, warm at 64..4096, and
-   90%-hit requests each followed by warm reads — the second of those
-   re-uploads dirty cache rows through ``embedding_scatter``. Served rows
-   must be bit-equal, and predictions within 1e-5, to a ``numpy``-backend
-   plane on the host; all four kernels must have launched.
-3. A JSON line of per-kernel numbers, the card's name and power limit
+   rounds of a 90%-hit request, a warm read that syncs the cache mirror
+   (from the second round on through ``embedding_scatter``) and a warm
+   read. The launch counters are read around these predicts alone; all
+   four kernels must have launched there. Then predictions must agree
+   within 1e-5, and served rows be bit-equal, with a ``numpy``-backend
+   plane on the host.
+3. The probes timed on the slice's own mirrors: the cache's key table
+   under a warm request and a replica's under the cold request's ids
+   that replica owns — bit-equal to the plain version and the host map.
+4. A JSON line of per-kernel numbers, the card's name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -160,8 +164,61 @@ def _row(name, source, replaces, err, kernel, plain, library, nbytes,
     return row
 
 
+PROBES = {"hashmap_probe": "src/repro/kernels/hashmap_probe.py:171",
+          "hashmap_probe_hbm": "src/repro/kernels/hashmap_probe.py:339"}
+
+
+def _probe_fns(name):
+    from repro_torch.kernels import hashmap_probe as hm
+    from repro_torch.kernels import ref
+    return getattr(hm, name), getattr(ref, name)
+
+
+def check_probe(name, keys, ids, shift: int, host_map) -> int:
+    """Kernel ``name`` against its plain version and the host map on one
+    batch: ``found`` equal everywhere, ``pos`` where found. Returns the
+    number of ids found."""
+    import torch
+    fn, plain = _probe_fns(name)
+    pos, found = fn(keys, ids, shift=shift)
+    ppos, pfound = plain(keys, ids, shift=shift)
+    hpos, hfound = host_map._probe(ids.cpu().numpy())
+    f = found.cpu().numpy()
+    if not (torch.equal(found, pfound) and (f == hfound).all()):
+        raise AssertionError(f"{name}: found differs from plain/host "
+                             f"({int((f != hfound).sum())} ids)")
+    if not (torch.equal(pos[found], ppos[found])
+            and (pos.cpu().numpy()[f] == hpos[hfound]).all()):
+        raise AssertionError(f"{name}: pos differs where found")
+    return int(f.sum())
+
+
+def probe_row(name, keys, ids, shift: int, host_map, what: str) -> dict:
+    """Check probe ``name`` on one of the slice's own tables and batches,
+    then time it there. Bound: ids in, pos + found out, one 32-byte
+    sector per id at its home slot, one 8-slot window (64 B) more for
+    each id the home slot does not resolve."""
+    import torch
+
+    from repro_torch.kernels import ref
+    fn, plain = _probe_fns(name)
+    n_found = check_probe(name, keys, ids, shift, host_map)
+    n = ids.shape[0]
+    k_home = keys[ref.home_slots(torch.where(ids <= ref.TOMB, 0, ids),
+                                 shift)]
+    tail = int(((k_home != ids) & (k_home != ref.EMPTY)
+                & (ids > ref.TOMB)).sum().item())
+    nbytes = n * (8 + 4 + 1) + n * 32 + tail * 64
+    return _row(name, "hashmap_probe.cu", PROBES[name], 0,
+                lambda: fn(keys, ids, shift=shift),
+                lambda: plain(keys, ids, shift=shift), None, nbytes,
+                f"{what}: {1 << (64 - shift)} slots, {n} ids ({n_found} "
+                f"found, {tail} past home)")
+
+
 def phase_kernels(dev, rng) -> list[dict]:
-    """Each kernel against its plain version on the card, bit-equal."""
+    """Each kernel against its plain version on the card, bit-equal; the
+    copies timed (the probes are timed on the slice's own tables)."""
     import torch
 
     from repro_torch.kernels import embedding_lookup as el
@@ -170,45 +227,20 @@ def phase_kernels(dev, rng) -> list[dict]:
     n = REQ_BATCH * FIELDS
     rows = []
 
-    for name, fn, plain, cap_pow, replaces in (
-            ("hashmap_probe", hm.hashmap_probe, ref.hashmap_probe, 20,
-             "src/repro/kernels/hashmap_probe.py:171"),
-            ("hashmap_probe_hbm", hm.hashmap_probe_hbm,
-             ref.hashmap_probe_hbm, 24,
-             "src/repro/kernels/hashmap_probe.py:339")):
+    for name, cap_pow in (("hashmap_probe", 20), ("hashmap_probe_hbm", 24)):
         m, q = probe_case(cap_pow, (1 << cap_pow) // 5, n, rng)
-        shift = int(m.shift)
         keys = torch.from_numpy(m.key_table.copy()).to(dev)
         if name == "hashmap_probe_hbm":
             keys = hm.wrap_pad(keys, cap=m.capacity)
-        ids = torch.from_numpy(q).to(dev)
-        pos, found = fn(keys, ids, shift=shift)
-        ppos, pfound = plain(keys, ids, shift=shift)
-        torch.cuda.synchronize()
-        hpos, hfound = m._probe(q)
-        f = found.cpu().numpy()
-        if not (torch.equal(found, pfound) and (f == hfound).all()):
-            raise AssertionError(f"{name}: found differs from plain/host "
-                                 f"({int((f != hfound).sum())} ids)")
-        err = int((pos[found] - ppos[found]).abs().max().item()) \
-            if bool(found.any()) else 0
-        if err or not (pos.cpu().numpy()[f] == hpos[hfound]).all():
-            raise AssertionError(f"{name}: pos differs where found")
-        # bound: ids in, pos + found out, one 32-byte sector per id at its
-        # home slot, one 8-slot window (64 B) more for ids not resolved
-        # there
-        k_home = keys[ref.home_slots(torch.where(ids <= ref.TOMB, 0, ids),
-                                     shift)]
-        tail = int(((k_home != ids) & (k_home != ref.EMPTY)
-                    & (ids > ref.TOMB)).sum().item())
-        nbytes = n * (8 + 4 + 1) + n * 32 + tail * 64
-        rows.append(_row(
-            name, "hashmap_probe.cu", replaces, err,
-            lambda: fn(keys, ids, shift=shift),
-            lambda: plain(keys, ids, shift=shift), None, nbytes,
-            f"{1 << cap_pow} slots, {n} ids ({int(found.sum())} found, "
-            f"{tail} past home)"))
-        del keys, ids, pos, found, ppos, pfound, k_home
+        ids, shift = torch.from_numpy(q).to(dev), int(m.shift)
+        n_found = check_probe(name, keys, ids, shift, m)
+        fn = _probe_fns(name)[0]
+        crafted_ms = _device_ms(lambda: fn(keys, ids, shift=shift))
+        print(f"kernel {name} at {1 << cap_pow} slots, {n} ids with a "
+              f"crafted collision cluster ({n_found} found): bit-equal to "
+              f"its plain version and the host map; {crafted_ms:.5f} ms on "
+              f"the device", flush=True)
+        del keys, ids
 
     v_rows = 1 << 21
     for d in (1, 8, 9):
@@ -330,20 +362,34 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
         req = req.copy()
         fresh = rng.random(req.shape) < 0.1
         req[fresh] = rng.integers(0, feature_space, size=int(fresh.sum()))
-        requests += [(f"90%-hit {batch}", req)] + [(f"warm {batch}", req)] * 2
+        # the read after a fill syncs the cache's device mirror
+        requests += [(f"90%-hit {batch}", req), (f"post-fill {batch}", req),
+                     (f"warm {batch}", req)]
 
+    # the main path: predicts alone between the counters' reset and read
     lat: dict[str, list] = {}
     per_request: dict[str, list] = {}       # launches of each predict
-    max_dev = 0.0
+    preds = []
     ops.reset_launches()
     for label, r in requests:
         before = ops.launch_counts()
         t = time.perf_counter()
-        p = plane.predict(r)
+        preds.append(plane.predict(r))
         lat.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
         after = ops.launch_counts()
         per_request.setdefault(label, []).append(
             tuple(after[k] - before[k] for k in after))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    summed = np.sum([c for v in per_request.values() for c in v], axis=0)
+    if tuple(summed) != tuple(launches.values()):
+        raise AssertionError(f"launches {launches} are not the sum over "
+                             f"the predicts {tuple(summed)}")
+
+    # comparisons with the host path; they launch kernels of their own
+    max_dev = 0.0
+    for (label, r), p in zip(requests, preds):
         want = host.predict(r)
         if p.shape != (len(r),) or not np.isfinite(p).all():
             raise AssertionError(f"{label}: predictions not finite of shape "
@@ -352,13 +398,12 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
         if not np.allclose(p, want, rtol=1e-5, atol=1e-5):
             raise AssertionError(f"{label}: predictions differ from the "
                                  f"host path by {np.abs(p - want).max():.3g}")
+    for r in {id(r): r for _, r in requests}.values():
         got_rows, want_rows = plane.serve_rows(r), host.serve_rows(r)
         for g in groups:
             if not np.array_equal(got_rows[g], want_rows[g]):
-                raise AssertionError(f"{label}: served {g} rows differ")
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = ops.launch_counts()
+                raise AssertionError(f"served {g} rows differ from the "
+                                     f"host path")
 
     scn, hscn = plane.scenario(), host.scenario()
     for key in ("hits", "misses"):
@@ -386,13 +431,34 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
     profiles = {b: profile_predicts(plane, cold[:b])
                 for b in (warm_batches[0], warm_batches[-1])} \
         if device.type == "cuda" else {}
+
+    # each probe's table and batch as the path gives them: the cache's
+    # key table under the last warm request, and a replica's under the
+    # cold request's ids its shard owns; keyed by the kernel each
+    # mirror's placement takes
+    rep, table = next((rep, t) for rs in plane.replica_sets
+                      for rep in rs.replicas for t in rep.tables.values()
+                      if t._dev is not None)
+    ucold = np.unique(cold)
+    owned = ucold[plan.slave_shard(ucold) == rep.shard_id]
+    probe_inputs = {}
+    for t, q, what in (
+            (scn.cache.table, requests[-1][1].reshape(-1),
+             f"serve cache, warm request at batch {batch}"),
+            (table, owned, f"replica of shard {rep.shard_id}, the cold "
+                           f"request's ids it owns")):
+        name = {"vmem": "hashmap_probe",
+                "hbm": "hashmap_probe_hbm"}[t._dev.placement]
+        probe_inputs[name] = (t._dev.keys, torch.from_numpy(q).to(device),
+                              t._dev.shift, t._map, what)
     return {"launches": launches, "placements": placements,
             "latency_ms": lat, "launches_per_predict": per_request,
             "profiles": profiles, "max_pred_dev": max_dev, "load_s": load_s,
             "mirror_bytes": mirror_bytes,
             "cache": cache_stats, "cache_mirror": cache_mirror,
             "shard_pulled_rows": plane.shard_pulled_rows,
-            "device_blocks": device_blocks, "requests": len(requests)}
+            "device_blocks": device_blocks, "requests": len(requests),
+            "probe_inputs": probe_inputs}
 
 
 def main() -> int:
@@ -453,13 +519,17 @@ def main() -> int:
     print(f"  shard_pulled_rows {res['shard_pulled_rows']}, device_blocks "
           f"{res['device_blocks']}, placements {sorted(res['placements'])}, "
           f"table bytes on the device {res['mirror_bytes']}")
-    print(f"  launches on the slice: {res['launches']}")
+    print(f"  launches in the slice's predicts: {res['launches']}")
     missing = [k for k, v in res["launches"].items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the slice: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched in the slice's "
+                             f"predicts: {missing}")
     if res["placements"] != {"vmem", "hbm"}:
         raise AssertionError(f"placements taken: {res['placements']}")
+
+    probes = res.pop("probe_inputs")
+    kernels = [probe_row(k, *probes[k]) for k in PROBES] + kernels
+    del probes
     print("kernels: " + ", ".join(ops.KERNELS))
     for row in kernels:
         row["launches"] = res["launches"][row["name"]]

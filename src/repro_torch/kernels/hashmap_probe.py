@@ -53,7 +53,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(keys: torch.Tensor, ids: torch.Tensor, shift: int,
-           min_len: int) -> int:
+           pad: int) -> int:
+    """The capacity, after checking the kernel's exact layout: ``cap +
+    pad`` int64 key slots and int64 ids, 1-D and contiguous."""
     cap = 1 << (64 - int(shift))
     if not 16 <= cap <= 1 << 31:
         raise ValueError(f"shift {shift}: capacity must be in [2^4, 2^31]")
@@ -61,9 +63,9 @@ def _check(keys: torch.Tensor, ids: torch.Tensor, shift: int,
         if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int64 tensor,"
                              f" got {t.dtype} {tuple(t.shape)}")
-    if keys.shape[0] < min_len:
-        raise ValueError(f"key table has {keys.shape[0]} slots, "
-                         f"needs {min_len}")
+    if keys.shape[0] != cap + pad:
+        raise ValueError(f"key table has {keys.shape[0]} slots, the kernel "
+                         f"reads exactly {cap + pad}")
     return cap
 
 
@@ -78,8 +80,7 @@ def hashmap_probe(keys: torch.Tensor, ids: torch.Tensor, *,
     """Probe by walking the key table in place (the "vmem" placement).
 
     Args:
-      keys: (C,) int64 — the map's key table, C = ``2**(64 - shift)``
-        (a longer, wrap-padded table works too: only C slots are read).
+      keys: (C,) int64 — the map's key table, C = ``2**(64 - shift)``.
       ids: (N,) int64 query ids.
       shift: the map's Fibonacci shift.
 
@@ -87,7 +88,7 @@ def hashmap_probe(keys: torch.Tensor, ids: torch.Tensor, *,
     """
     if _build.on_cpu(keys, ids):
         return ref.hashmap_probe(keys, ids, shift=shift)
-    cap = _check(keys, ids, shift, 1 << (64 - int(shift)))
+    cap = _check(keys, ids, shift, 0)
     pos, found = _outputs(ids)
     if ids.shape[0] == 0:
         return pos, found
@@ -108,22 +109,15 @@ def hashmap_probe_hbm(keys: torch.Tensor, ids: torch.Tensor, *,
     ``VMEM_SLOT_BOUND`` or tables pinned to the "hbm" placement.
 
     Args:
-      keys: (C,) or (C + min(256, C),) int64 — exact capacity (padded
-        here) or already wrap-padded by ``wrap_pad`` (the device mirror
-        keeps it padded, so steady-state calls pad nothing).
+      keys: (C + min(256, C),) int64 — the key table wrap-padded by
+        ``wrap_pad`` (the device mirror keeps it so).
       ids: (N,) int64 query ids.
       shift: the map's Fibonacci shift; C = ``2**(64 - shift)``.
     """
     if _build.on_cpu(keys, ids):
         return ref.hashmap_probe_hbm(keys, ids, shift=shift)
-    cap = 1 << (64 - int(shift))
-    w = min(_DMA_WINDOW, cap)
-    if keys.shape[0] == cap:
-        keys = wrap_pad(keys, cap=cap, window=w)
-    _check(keys, ids, shift, cap + w)
-    if keys.shape[0] != cap + w:
-        raise ValueError(f"key table must be cap ({cap}) or wrap-padded "
-                         f"(cap + {w}) long, got {keys.shape[0]}")
+    w = min(_DMA_WINDOW, 1 << (64 - int(shift)))
+    cap = _check(keys, ids, shift, w)
     pos, found = _outputs(ids)
     if ids.shape[0] == 0:
         return pos, found

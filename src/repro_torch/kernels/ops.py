@@ -52,11 +52,12 @@ def hashmap_probe(keys: torch.Tensor, ids: torch.Tensor, *, shift: int,
                   placement: str = "auto"):
     """Placement-routed probe: ``"vmem"`` walks the table in place,
     ``"hbm"`` reads 256-slot windows of the wrap-padded table, ``"auto"``
-    picks by capacity. ``keys`` may be wrap-padded either way.
-    Returns ``(pos int32, found bool)``."""
+    picks by capacity. ``keys`` is in the resolved placement's layout:
+    exact capacity for ``"vmem"``, wrap-padded for ``"hbm"`` (as
+    ``_DeviceMirror`` keeps it). Returns ``(pos int32, found bool)``."""
     if resolve_placement(shift, placement) == "hbm":
         return _hm.hashmap_probe_hbm(keys, ids, shift=shift)
-    return _hm.hashmap_probe(keys[:1 << (64 - int(shift))], ids, shift=shift)
+    return _hm.hashmap_probe(keys, ids, shift=shift)
 
 
 def fused_lookup(keys: torch.Tensor, slot_of: torch.Tensor,

@@ -25,6 +25,12 @@ _DMA_WINDOW = 256                   # kernels.hashmap_probe._DMA_WINDOW
 _FIB = 0x9E3779B97F4A7C15 - (1 << 64)
 
 
+def _check_len(keys: torch.Tensor, want: int, layout: str) -> None:
+    if keys.dim() != 1 or keys.shape[0] != want:
+        raise ValueError(f"key table must be {layout}: {want} slots, got "
+                         f"shape {tuple(keys.shape)}")
+
+
 def home_slots(ids: torch.Tensor, shift: int) -> torch.Tensor:
     """Fibonacci home slots, bit-equal to ``core.hashmap.home_slots``:
     the top ``64 - shift`` bits of ``id · ⌊2^64/φ⌋ mod 2^64``. The int64
@@ -40,11 +46,10 @@ def hashmap_probe(keys: torch.Tensor, ids: torch.Tensor, *,
     the shrinking unresolved set. In a window, the first hit wins and a
     hit anywhere beats an EMPTY; a window with an EMPTY and no hit ends
     the walk as not-found; TOMB is neither, so the walk goes on. Query
-    ids ≤ TOMB are never found. ``keys`` may be wrap-padded: only the
-    first ``cap`` slots are read."""
+    ids ≤ TOMB are never found. ``keys`` is the exact-capacity table."""
     cap = 1 << (64 - int(shift))
     imask = cap - 1
-    keys = keys[:cap]
+    _check_len(keys, cap, "exact-capacity")
     bad = ids <= TOMB
     q = torch.where(bad, torch.zeros_like(ids), ids)
     home = home_slots(q, shift)
@@ -92,15 +97,11 @@ def hashmap_probe_hbm(keys: torch.Tensor, ids: torch.Tensor, *, shift: int,
     later passes check ``window // 8`` groups from offset 0. The lowest
     group holding a hit or an EMPTY decides, a hit in it beating an
     EMPTY; unresolved ids advance past the groups checked. ``keys`` is
-    the exact-capacity table or one already wrap-padded."""
+    the table wrap-padded by ``wrap_pad`` with the same ``window``."""
     cap = 1 << (64 - int(shift))
     imask = cap - 1
     w = min(window, cap)
-    if keys.shape[0] == cap:
-        keys = wrap_pad(keys, cap=cap, window=w)
-    if keys.shape[0] != cap + w:
-        raise ValueError(f"key table must be cap ({cap}) or wrap-padded "
-                         f"(cap + {w}) long, got {keys.shape[0]}")
+    _check_len(keys, cap + w, "wrap-padded")
     bad = ids <= TOMB
     home = home_slots(torch.where(bad, torch.zeros_like(ids), ids), shift)
     pos = home.clone()

@@ -36,6 +36,8 @@ def test_probe_kernels_match_plain_on_card(cuda, placement):
     qs = torch.from_numpy(np.concatenate(
         [ids, ids + 1, np.array([-2 ** 63, -2 ** 63 + 1])])).to(cuda)
     keys = torch.from_numpy(m.key_table.copy()).to(cuda)
+    if placement == "hbm":
+        keys = port_ref.wrap_pad(keys, cap=m.capacity)
     before = port_ops.launch_counts()
     pos, found = port_ops.hashmap_probe(keys, qs, shift=int(m.shift),
                                         placement=placement)

@@ -121,10 +121,13 @@ def test_plain_probe_matches_reference(case, placement):
                                            shift=int(m.shift),
                                            placement=placement)
     r_pos, r_found = np.asarray(r_pos), np.asarray(r_found)
-    plain = port_ref.hashmap_probe if placement == "vmem" \
-        else port_ref.hashmap_probe_hbm
-    pos, found = plain(torch.from_numpy(m.key_table.copy()),
-                       torch.from_numpy(qs), shift=int(m.shift))
+    keys = torch.from_numpy(m.key_table.copy())
+    if placement == "vmem":
+        plain = port_ref.hashmap_probe
+    else:
+        plain = port_ref.hashmap_probe_hbm
+        keys = port_ref.wrap_pad(keys, cap=m.capacity)
+    pos, found = plain(keys, torch.from_numpy(qs), shift=int(m.shift))
     pos, found = pos.numpy(), found.numpy()
     np.testing.assert_array_equal(found, r_found)
     np.testing.assert_array_equal(pos[found], r_pos[r_found])
@@ -140,9 +143,10 @@ def test_windowed_probe_chains_cross_small_windows(window):
     walk does (the reference pins its kernel the same way)."""
     m, qs = _chain_case()
     h_pos, h_found = m._probe(qs)
+    keys = port_ref.wrap_pad(torch.from_numpy(m.key_table.copy()),
+                             cap=m.capacity, window=window)
     pos, found = port_ref.hashmap_probe_hbm(
-        torch.from_numpy(m.key_table.copy()), torch.from_numpy(qs),
-        shift=int(m.shift), window=window)
+        keys, torch.from_numpy(qs), shift=int(m.shift), window=window)
     np.testing.assert_array_equal(found.numpy(), h_found)
     np.testing.assert_array_equal(pos.numpy()[h_found], h_pos[h_found])
 

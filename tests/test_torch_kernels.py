@@ -63,10 +63,12 @@ def test_fused_lookup_matches_reference(placement):
     r_rows, r_found, r_slot = ref_ops.fused_lookup(
         klo, khi, slot_of, arena, qlo, qhi, shift=int(m.shift),
         placement=placement)
+    keys = torch.from_numpy(m.key_table.copy())
+    if port_ops.resolve_placement(m.shift, placement) == "hbm":
+        keys = port_hm.wrap_pad(keys, cap=m.capacity)
     rows, found, slot = port_ops.fused_lookup(
-        torch.from_numpy(m.key_table.copy()), torch.from_numpy(slot_of),
-        torch.from_numpy(arena), torch.from_numpy(qs), shift=int(m.shift),
-        placement=placement)
+        keys, torch.from_numpy(slot_of), torch.from_numpy(arena),
+        torch.from_numpy(qs), shift=int(m.shift), placement=placement)
     np.testing.assert_array_equal(found.numpy(), np.asarray(r_found))
     np.testing.assert_array_equal(slot.numpy(), np.asarray(r_slot))
     np.testing.assert_array_equal(rows.numpy(), np.asarray(r_rows))
@@ -86,11 +88,16 @@ def test_placement_routing_matches_reference():
 
 def test_wrappers_reject_bad_inputs_without_assert():
     """Kernel wrappers raise ValueError — never AssertionError, which
-    ``ReplicaSet.read`` would take for a dead replica."""
+    ``ReplicaSet.read`` would take for a dead replica. A key table not in
+    the placement's exact layout is one such input."""
     keys = torch.full((16,), -2 ** 63, dtype=torch.int64)
+    q = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError):
-        port_hm.hashmap_probe_hbm(keys[:10], torch.zeros(3, dtype=torch.int64),
-                                  shift=60)
+        port_hm.hashmap_probe_hbm(keys[:10], q, shift=60)
+    with pytest.raises(ValueError):
+        port_hm.hashmap_probe_hbm(keys, q, shift=60)      # not wrap-padded
+    with pytest.raises(ValueError):
+        port_hm.hashmap_probe(port_hm.wrap_pad(keys, cap=16), q, shift=60)
     with pytest.raises(ValueError):
         port_el.embedding_lookup(torch.zeros(4, 2),
                                  torch.zeros(2, dtype=torch.int32).to("meta"))
@@ -98,9 +105,10 @@ def test_wrappers_reject_bad_inputs_without_assert():
 
 def test_empty_batches():
     keys = torch.full((16,), -2 ** 63, dtype=torch.int64)
-    for placement in ("vmem", "hbm"):
+    for placement, table in (("vmem", keys),
+                             ("hbm", port_hm.wrap_pad(keys, cap=16))):
         pos, found = port_ops.hashmap_probe(
-            keys, torch.zeros(0, dtype=torch.int64), shift=60,
+            table, torch.zeros(0, dtype=torch.int64), shift=60,
             placement=placement)
         assert pos.shape == (0,) and found.shape == (0,)
     rows = port_ops.embedding_lookup(torch.zeros(4, 9),
