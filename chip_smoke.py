@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: builds the
-serving path's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version at the shapes the path gives it,
-then serves the paper's FM-FTRL CTR model at full width through the
-port's ``ServingPlane`` and checks it against the port's host path.
+port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
+against its plain PyTorch version at the shapes the path gives it, then
+runs the paper's online-learning loop for the FM-FTRL CTR model at full
+width — train on master shards, stream through the int8 codec to the
+serving replicas, serve from the streamed rows — and checks it against
+the port's host path.
 
     python3 chip_smoke.py
 
@@ -16,21 +18,37 @@ Phases (any failure exits non-zero and prints no result line):
    row scatter (unique ids). The copies are timed here, beside their
    bound (bytes over 3.35 TB/s), their plain version's time and the
    one-call PyTorch equivalent (``library_ms``, never used by the port).
-2. The slice: FM_FTRL (32 fields, embed 8, groups w:1 + v:8, feature
-   space 2^22), 2 slave shards x 2 replicas, 8 partitions. All 2^22 ids
-   get seeded rows through ``convert.load_serve_state``, so each replica
-   map has 2^24 slots (windowed probe) while the serve caches stay small
-   (in-place probe). Requests: cold at batch 4096, warm at 64..4096, and
-   rounds of a 90%-hit request, a warm read that syncs the cache mirror
-   (from the second round on through ``embedding_scatter``) and a warm
-   read. The launch counters are read around these predicts alone; all
-   four kernels must have launched there. Then predictions must agree
-   within 1e-5, and served rows be bit-equal, with a ``numpy``-backend
-   plane on the host.
-3. The probes timed on the slice's own mirrors: the cache's key table
-   under a warm request and a replica's under the cold request's ids
-   that replica owns — bit-equal to the plain version and the host map.
-4. A JSON line of per-kernel numbers, the card's name and power limit
+2. The loop: FM_FTRL (32 fields, embed 8, groups w:1 + v:8 with FTRL
+   slots (z, n), feature space 2^22) on 4 master shards, 2 slave shards
+   x 2 replicas, 8 partitions, int8 codec, realtime gather. The ids are
+   2^22 distinct splitmix64 hashes, so the maps' probes meet collisions.
+   ``convert.load_train_state`` puts seeded (z, n) on the masters; a
+   bootstrap flush streams every master row (Pusher → ``quantize_rows``
+   → queue → Scatter → ``dequantize_rows`` → replica tables). A host
+   path of the same shape (``numpy`` PS and codec backends) is built and
+   loaded beside it.
+3. Serving over the streamed replicas, as the serving slice runs it:
+   cold at batch 4096, warm at 64..4096, and rounds of a 90%-hit
+   request, a warm read that syncs the cache mirror and a warm read. The
+   launch counters are reset before these predicts and read after them;
+   the four serving kernels must have launched there. Predictions agree
+   within 1e-5, and served rows are bit-equal, with the host plane. The
+   probes are then timed on the loop's own mirrors.
+4. Train → sync → serve: 16 ``TrainingPlane.train_batch`` steps of 4096
+   x 32 ids, each followed by a sync tick (collect → gather → push, then
+   a poll on every replica, whose ``on_apply`` invalidates the serving
+   caches), then post-update, post-fill and warm predicts. The counters
+   are reset before and read after; ``ftrl_row_update``,
+   ``quantize_rows`` and ``dequantize_rows`` must have launched. Then the
+   host masters apply
+   exactly the pushes the card's masters received (recorded here), and
+   master rows (w, z, n), queue records (ids, seq, meta, payload bytes),
+   replica rows and served rows must be bit-equal to the card's, with
+   predictions within 1e-5; the card's loss and row gradients for one
+   batch must match the CPU's within rtol 1e-5, atol 1e-6. The new
+   kernels are then held against their plain versions on the path's own
+   inputs and timed.
+5. A JSON line of per-kernel numbers, the card's name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -43,6 +61,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -55,6 +74,10 @@ REQ_BATCH, FIELDS = 4096, 32
 WARM_BATCHES = (64, 128, 256, 512, 1024, 2048, 4096)
 WARM_REPS = 8
 PARTIAL_ROUNDS = 3
+TRAIN_STEPS = 16
+SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
+                 "embedding_scatter")
+TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 
 
 def _call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -282,20 +305,123 @@ def phase_kernels(dev, rng) -> list[dict]:
     return rows
 
 
-def build_plane(cfg, plan, groups, state, backend: str, device):
-    """A serving plane over 2 x 2 slave replicas loaded with ``state``."""
-    from repro_torch.convert import load_serve_state
+def hashed_ids(count: int) -> np.ndarray:
+    """``count`` distinct 64-bit feature ids: the splitmix64 outputs for
+    the states golden * 1, 2, 3, ... (a bijection of the 64-bit integers),
+    without the hash map's EMPTY/TOMB sentinels — hashed ids as production
+    sends them, so the maps' home slots collide."""
+    x = np.arange(1, count + 3, dtype=np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    ids = x.view(np.int64)
+    return ids[ids > -2 ** 63 + 1][:count]
+
+
+def build_loop(cfg, plan, groups, backend: str, device):
+    """One side of the online-learning loop: FTRL master shards with
+    collectors, realtime gatherers and int8 pushers; 2 replicas of each
+    slave shard with a scatter each; the serving plane over the replicas
+    (every replica's ``on_apply`` wired to its invalidation hook); and,
+    on the card's side (``backend="torch"``), the training plane over the
+    masters. ``backend`` is both the PS and the codec backend."""
+    from repro_torch.core import streaming
     from repro_torch.core.fault_tolerance import ReplicaSet
-    from repro_torch.core.ps import SlaveShard
+    from repro_torch.core.ps import MasterShard, SlaveShard
+    from repro_torch.core.queue import PartitionedQueue
+    from repro_torch.core.transform import make_transform
+    from repro_torch.optim import get_optimizer
     from repro_torch.serving import ServingPlane
+    from repro_torch.training import TrainingPlane
+
+    opt = get_optimizer("ftrl", alpha=cfg.ftrl_alpha, beta=cfg.ftrl_beta,
+                        l1=cfg.ftrl_l1, l2=cfg.ftrl_l2)
+    queue = PartitionedQueue(plan.num_partitions)
+    transform = make_transform("int8", opt, backend=backend, device=device)
+    masters = [MasterShard(i, groups, opt, backend=backend, device=device)
+               for i in range(plan.num_master)]
+    cols = [streaming.Collector() for _ in masters]
+    for m, c in zip(masters, cols):
+        m.collector = c
     sets = [ReplicaSet([SlaveShard(sid, groups, backend=backend,
-                                   device=device) for _ in range(2)])
+                                   device=device, codec_backend=backend)
+                        for _ in range(2)])
             for sid in range(plan.num_slave)]
-    load_serve_state(sets, plan, state)
-    plane = ServingPlane(plan, sets, groups, ps_backend=backend,
-                         device=device)
-    plane.add_scenario(cfg)
-    return plane
+    scatters = []
+    for rs in sets:
+        for shard in rs.replicas:
+            sc = streaming.Scatter(shard, queue, plan)
+            rs.attach_scatter(shard, sc)
+            scatters.append(sc)
+    serving = ServingPlane(plan, sets, groups, ps_backend=backend,
+                           device=device)
+    serving.add_scenario(cfg)
+    for rs in sets:
+        for shard in rs.replicas:
+            shard.on_apply = serving.on_applied
+    training = None
+    if backend == "torch":
+        training = TrainingPlane(plan, masters, dict(groups), opt,
+                                 device=device)
+        training.add_scenario(cfg)
+    return SimpleNamespace(
+        masters=masters, collectors=cols, queue=queue, sets=sets,
+        gatherers=[streaming.Gatherer("realtime") for _ in masters],
+        pushers=[streaming.Pusher(m, queue, plan, transform)
+                 for m in masters],
+        scatters=scatters, serving=serving, training=training)
+
+
+def sync_tick(loop, t_event: float, now=None) -> int:
+    """collect → gather → push on every master (records stamped
+    ``t_event``), then a poll on every replica; each poll's staleness
+    clock reads ``now``, or the wall clock when it starts. Returns the
+    records pushed."""
+    n = 0
+    for col, gat, push in zip(loop.collectors, loop.gatherers, loop.pushers):
+        gat.offer(col.drain())
+        if gat.ready(t_event):
+            n += push.push(gat.flush(t_event), t_event)
+    for sc in loop.scatters:
+        sc.poll(now=time.perf_counter() if now is None else now)
+    return n
+
+
+def train_state(cfg, groups, ids: np.ndarray, seed: int) -> dict:
+    """Seeded master rows for ``convert.load_train_state``: z ~ N(0, 1.5²)
+    and n ~ U(0, 4), so |z| > l1 for many elements (an FM trained from
+    all-zero rows never moves v), and w the FTRL weights of (z, n)."""
+    from repro_torch.optim import FTRL
+    opt = FTRL(alpha=cfg.ftrl_alpha, beta=cfg.ftrl_beta, l1=cfg.ftrl_l1,
+               l2=cfg.ftrl_l2)
+    rng = np.random.default_rng(seed + 1)
+    state = {}
+    for g, dim in groups.items():
+        z = 1.5 * rng.standard_normal((len(ids), dim), dtype=np.float32)
+        n = 4.0 * rng.random((len(ids), dim), dtype=np.float32)
+        state[g] = (ids, opt._np_weights(z, n), {"z": z, "n": n})
+    return state
+
+
+def bootstrap(loop) -> int:
+    """Stream every master row to the replicas: each master's collector
+    records all its ids, then one sync tick. Returns the records pushed."""
+    for m, col in zip(loop.masters, loop.collectors):
+        for g, t in m.tables.items():
+            col.record(g, t.all_ids())
+    return sync_tick(loop, 0.0, now=0.0)
+
+
+def record_pushes(masters, log: list) -> None:
+    """Record every ``(master, group, ids, grads, step)`` push the masters
+    receive, in order, so a host path can apply exactly the same ones."""
+    for m in masters:
+        def push(group, ids, grads, *, step=None, m=m, real=m.push_grad):
+            log.append((m.shard_id, group, np.array(ids), np.array(grads),
+                        step))
+            real(group, ids, grads, step=step)
+        m.push_grad = push
 
 
 def profile_predicts(plane, req, reps: int = 8) -> dict:
@@ -325,35 +451,33 @@ def profile_predicts(plane, req, reps: int = 8) -> dict:
             "top": [(k[:60], us / 1e3 / reps) for k, us in dev[:6]]}
 
 
-def drive_slice(device, *, feature_space: int, batch: int, fields: int,
-                warm_batches, warm_reps: int, partial_rounds: int,
-                seed: int = SEED) -> dict:
-    """Serve FM_FTRL (``fields`` wide, ``feature_space`` ids) on a
-    ``torch``-backend plane on ``device`` and on a ``numpy``-backend plane
-    on the host; check rows bit-equal and predictions within 1e-5.
-    Returns the latencies and counters the report prints."""
+def check_preds(label: str, r: np.ndarray, p: np.ndarray,
+                want: np.ndarray) -> float:
+    """Predictions of request ``r``: finite, one per example, within 1e-5
+    of the host path's ``want``. Returns the largest deviation."""
+    if p.shape != (len(r),) or not np.isfinite(p).all():
+        raise AssertionError(f"{label}: predictions not finite of shape "
+                             f"({len(r)},)")
+    dev = float(np.abs(p - want).max())
+    if not np.allclose(p, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label}: predictions differ from the host "
+                             f"path by {dev:.3g}")
+    return dev
+
+
+def serve_phase(plane, host, plan, groups, pool: np.ndarray, rng, device, *,
+                batch: int, fields: int, warm_batches, warm_reps: int,
+                partial_rounds: int) -> dict:
+    """Serve FM_FTRL requests drawn from ``pool`` on the card's plane and
+    check them against the host plane: rows bit-equal, predictions within
+    1e-5, cache counters and replica pulls equal. The launch counters are
+    reset before the predicts and read right after them. Returns the
+    latencies and counters the report prints."""
     import torch
 
-    from repro_torch.configs.weips_ctr import FM_FTRL
-    from repro_torch.core.routing import RoutingPlan
     from repro_torch.kernels import ops
-    from repro_torch.models.ctr import groups_for
 
-    cfg = dataclasses.replace(FM_FTRL, fields=fields,
-                              feature_space=feature_space)
-    groups = groups_for(cfg)
-    plan = RoutingPlan(num_master=4, num_slave=2, num_partitions=8)
-    rng = np.random.default_rng(seed)
-    ids = np.arange(feature_space, dtype=np.int64)
-    state = {g: (ids, (0.05 * rng.standard_normal(
-        (feature_space, dim), dtype=np.float32))) for g, dim in groups.items()}
-    t0 = time.perf_counter()
-    host = build_plane(cfg, plan, groups, state, "numpy", "cpu")
-    plane = build_plane(cfg, plan, groups, state, "torch", device)
-    load_s = time.perf_counter() - t0
-    del state
-
-    cold = rng.integers(0, feature_space, size=(batch, fields))
+    cold = pool[rng.integers(0, len(pool), size=(batch, fields))]
     requests = [(f"cold {batch}", cold)]
     for b in warm_batches:
         requests += [(f"warm {b}", cold[:b])] * warm_reps
@@ -361,7 +485,8 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
     for _ in range(partial_rounds):
         req = req.copy()
         fresh = rng.random(req.shape) < 0.1
-        req[fresh] = rng.integers(0, feature_space, size=int(fresh.sum()))
+        req[fresh] = pool[rng.integers(0, len(pool),
+                                       size=int(fresh.sum()))]
         # the read after a fill syncs the cache's device mirror
         requests += [(f"90%-hit {batch}", req), (f"post-fill {batch}", req),
                      (f"warm {batch}", req)]
@@ -388,16 +513,8 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
                              f"the predicts {tuple(summed)}")
 
     # comparisons with the host path; they launch kernels of their own
-    max_dev = 0.0
-    for (label, r), p in zip(requests, preds):
-        want = host.predict(r)
-        if p.shape != (len(r),) or not np.isfinite(p).all():
-            raise AssertionError(f"{label}: predictions not finite of shape "
-                                 f"({len(r)},)")
-        max_dev = max(max_dev, float(np.abs(p - want).max()))
-        if not np.allclose(p, want, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"{label}: predictions differ from the "
-                                 f"host path by {np.abs(p - want).max():.3g}")
+    max_dev = max(check_preds(label, r, p, host.predict(r))
+                  for (label, r), p in zip(requests, preds))
     for r in {id(r): r for _, r in requests}.values():
         got_rows, want_rows = plane.serve_rows(r), host.serve_rows(r)
         for g in groups:
@@ -453,12 +570,347 @@ def drive_slice(device, *, feature_space: int, batch: int, fields: int,
                               t._dev.shift, t._map, what)
     return {"launches": launches, "placements": placements,
             "latency_ms": lat, "launches_per_predict": per_request,
-            "profiles": profiles, "max_pred_dev": max_dev, "load_s": load_s,
+            "profiles": profiles, "max_pred_dev": max_dev, "cold": cold,
             "mirror_bytes": mirror_bytes,
             "cache": cache_stats, "cache_mirror": cache_mirror,
             "shard_pulled_rows": plane.shard_pulled_rows,
             "device_blocks": device_blocks, "requests": len(requests),
             "probe_inputs": probe_inputs}
+
+
+def click_labels(ids: np.ndarray, rng) -> np.ndarray:
+    """Clicks with a learnable signal: each feature id's low bit moves
+    its example's logit by ±0.15."""
+    logit = ((ids & 1) * 0.3 - 0.15).sum(axis=1)
+    return (rng.random(len(ids)) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.float32)
+
+
+def train_phase(card, pool: np.ndarray, rng, device, *, steps: int,
+                batch: int, fields: int, requests: list) -> dict:
+    """``steps`` train steps on the card, each followed by a sync tick,
+    then ``requests`` predicted; the launch counters are reset before and
+    read right after. Records every push the masters receive."""
+    import torch
+
+    from repro_torch.kernels import ops
+    scn = card.training.scenario()
+    log: list = []
+    record_pushes(card.masters, log)
+    pushed = [(p.pushed_bytes, p.pushed_records) for p in card.pushers]
+    train_ms, tick_ms, t_events, metrics = [], [], [], []
+    for sc in card.scatters:
+        sc.staleness.reset()                    # drop the bootstrap's
+    ops.reset_launches()
+    for i in range(steps):
+        ids = pool[rng.integers(0, len(pool), size=(batch, fields))]
+        y = click_labels(ids, rng)
+
+        def step():
+            t0 = time.perf_counter()
+            m = card.training.train_batch(scn, ids, y, now=float(scn.step))
+            t_event = time.perf_counter()
+            sync_tick(card, t_event)
+            return m, t0, t_event, time.perf_counter()
+
+        if i < steps - 1:
+            m, t0, t_event, t_end = step()
+            train_ms.append((t_event - t0) * 1e3)
+            tick_ms.append((t_end - t_event) * 1e3)
+        else:           # the last step profiled, its times kept apart
+            staleness = _staleness(card.scatters)
+            (m, t0, t_event, t_end), prof = profile_step(step, device)
+            prof["train_ms"] = (t_event - t0) * 1e3
+            prof["tick_ms"] = (t_end - t_event) * 1e3
+        metrics.append(m)
+        t_events.append(t_event)
+    lat: dict[str, list] = {}
+    preds = []
+    for label, r in requests:
+        t = time.perf_counter()
+        preds.append(card.serving.predict(r))
+        lat.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    return {"launches": launches, "log": log, "t_events": t_events,
+            "train_ms": train_ms, "tick_ms": tick_ms, "metrics": metrics,
+            "predict_ms": lat, "preds": preds, "last_batch": (ids, y),
+            "pushed_bytes": sum(p.pushed_bytes for p in card.pushers)
+            - sum(b for b, _ in pushed),
+            "pushed_records": sum(p.pushed_records for p in card.pushers)
+            - sum(r for _, r in pushed),
+            "staleness_ms": {k: v * 1e3 for k, v in staleness.items()},
+            "profile": prof,
+            "dedup_ratio": scn.stats.dedup_ratio,
+            "gather_dedup": float(np.mean([g.stats.dedup_ratio
+                                           for g in card.gatherers]))}
+
+
+def profile_step(step, device):
+    """``step()`` under cProfile (host time by function) and, on the card,
+    ``torch.profiler`` (device-busy time: the CUDA kernels' and copies'
+    own time). Returns ``(step(), profile)``; the profilers slow the step,
+    so its times are reported apart from the latencies."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    pr = cProfile.Profile()
+    with profile(activities=acts) as tprof:
+        t = time.perf_counter()
+        pr.enable()
+        out = step()
+        pr.disable()
+        wall = time.perf_counter() - t
+    own = sorted(((f"{Path(f).name}:{fn}" if f != "~" else fn, v[2])
+                  for (f, _line, fn), v in pstats.Stats(pr).stats.items()),
+                 key=lambda kv: -kv[1])
+    busy = sum(e.self_device_time_total for e in tprof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, {"wall_ms": wall * 1e3,
+                 "busy_ms": busy / 1e3 if busy else None,
+                 "top": [(k[:70], tt * 1e3) for k, tt in own[:12]]}
+
+
+def _staleness(scatters) -> dict:
+    from repro_torch.core.monitor import PercentileRing
+    return PercentileRing.merged_percentiles(
+        [sc.staleness for sc in scatters], (50, 99))
+
+
+def replay(host, log: list, t_events: list) -> None:
+    """Apply the card's recorded pushes, step by step, to the host path's
+    masters, each step followed by a sync tick stamped like the card's."""
+    for step, t in enumerate(t_events):
+        for mid, group, ids, grads, st in log:
+            if st == step:
+                host.masters[mid].push_grad(group, ids, grads, step=st)
+        sync_tick(host, t, now=t)
+
+
+def _same(a: np.ndarray, b: np.ndarray, what: str) -> None:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            a.tobytes() != b.tobytes():
+        raise AssertionError(f"{what}: the card and the host path differ")
+
+
+def compare_loops(card, host, groups, requests, preds) -> dict:
+    """The card's loop against the host path's after the same pushes:
+    master rows, queue records, replica rows and served rows bit-equal,
+    predictions within 1e-5."""
+    n_rows = 0
+    for m, hm in zip(card.masters, host.masters):
+        for g in groups:
+            ids = np.sort(hm.tables[g].all_ids())
+            if len(m.tables[g]) != len(ids):
+                raise AssertionError(f"master {m.shard_id} {g}: row counts")
+            (w, s), (hw, hs) = m.tables[g].gather(ids), hm.tables[g].gather(ids)
+            for k, a, b in (("w", w, hw), ("z", s["z"], hs["z"]),
+                            ("n", s["n"], hs["n"])):
+                _same(a, b, f"master {m.shard_id} {g} {k}")
+            n_rows += len(ids)
+    n_rec = 0
+    for p in range(card.queue.num_partitions):
+        recs, hrecs = card.queue.consume(p, 0)[0], host.queue.consume(p, 0)[0]
+        if len(recs) != len(hrecs):
+            raise AssertionError(f"partition {p}: record counts differ")
+        for a, b in zip(recs, hrecs):
+            if (a.group, a.op, a.seq, a.producer, a.meta) != \
+                    (b.group, b.op, b.seq, b.producer, b.meta) or \
+                    sorted(a.payload) != sorted(b.payload):
+                raise AssertionError(f"partition {p}: record headers differ")
+            _same(a.ids, b.ids, f"partition {p} record ids")
+            for k in a.payload:
+                _same(a.payload[k], b.payload[k], f"partition {p} {k}")
+            n_rec += 1
+    for rs, hrs in zip(card.sets, host.sets):
+        for rep, hrep in zip(rs.replicas, hrs.replicas):
+            for g in groups:
+                a, b = rep.tables[g].snapshot(), hrep.tables[g].snapshot()
+                oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+                _same(a["ids"][oa], b["ids"][ob], f"replica {g} ids")
+                _same(a["w"][oa], b["w"][ob], f"replica {g} rows")
+    max_dev = 0.0
+    for (label, r), p in zip(requests, preds):
+        max_dev = max(max_dev, check_preds(label, r, p,
+                                           host.serving.predict(r)))
+        got, want_rows = card.serving.serve_rows(r), host.serving.serve_rows(r)
+        for g in groups:
+            _same(got[g], want_rows[g], f"{label}: served {g} rows")
+    return {"master_rows": n_rows, "records": n_rec,
+            "max_pred_dev": max_dev}
+
+
+def check_loss_grads(card, cfg, ids: np.ndarray, y: np.ndarray) -> float:
+    """The card's loss and row gradients for one batch against the same
+    computation in torch on the CPU, within rtol 1e-5, atol 1e-6. Returns
+    the largest absolute deviation."""
+    import torch
+
+    from repro_torch.models.ctr import weighted_loss_and_grads_fn
+    from repro_torch.serving.router import RowRouter
+    tp = card.training
+    scn = tp.scenario()
+    uniq, inverse = RowRouter.unique(ids)
+    rows = RowRouter.expand(tp.pull_unique(scn, uniq), inverse, ids.shape)
+    w = np.ones(len(y), np.float32)
+    on = {}
+    for dev in (tp.device, torch.device("cpu")):
+        fn = scn.loss_grads if dev == tp.device else \
+            weighted_loss_and_grads_fn(cfg)
+        loss, grads, _ = fn({k: torch.from_numpy(v).to(dev)
+                             for k, v in rows.items()}, {},
+                            torch.from_numpy(y).to(dev),
+                            torch.from_numpy(w).to(dev))
+        on[dev.type] = [loss.cpu().numpy()] + [grads[g].cpu().numpy()
+                                               for g in sorted(grads)]
+    dev = 0.0
+    for a, b in zip(on[tp.device.type], on["cpu"]):
+        if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+            raise AssertionError("loss or row grads differ from the CPU's")
+        dev = max(dev, float(np.abs(a - b).max()))
+    return dev
+
+
+def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
+    """The new kernels' inputs as the loop's last step gave them: the
+    largest group-"v" push to one master (its ids' (z, n) rows as they
+    stand after the step, and its gradients), the serve values that
+    master's pusher encoded from those rows, and the largest group-"v"
+    record of the last tick."""
+    import torch
+    last = max(e[4] for e in log)
+    mid, _g, ids, grads, _ = max(
+        (e for e in log if e[4] == last and e[1] == "v"),
+        key=lambda e: len(e[2]))
+    _, slots = card.masters[mid].tables["v"].gather(ids)
+    serve = card.pushers[mid].transform.serve_values(
+        np.empty((len(ids), 0), np.float32), slots)
+    rec = max((r for p in range(card.queue.num_partitions)
+               for r in card.queue.consume(p, 0)[0]
+               if r.group == "v" and r.meta["t"] == t_last),
+              key=lambda r: len(r.ids))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {"ftrl": (up(slots["z"]), up(slots["n"]), up(grads)),
+            "serve": up(serve),
+            "record": (up(rec.payload["q"]), up(rec.payload["scale"]))}
+
+
+def train_kernel_rows(inputs: dict, ftrl_kw: dict) -> list[dict]:
+    """Each new kernel against its plain version on the path's inputs,
+    bit-equal, then timed beside its byte bound."""
+    import torch
+
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import ftrl_row_update as fr
+    from repro_torch.kernels import ref
+    rows = []
+    z, n, g = inputs["ftrl"]
+    got, want = fr.ftrl_row_update(z, n, g, **ftrl_kw), \
+        ref.ftrl_row_update(z, n, g, **ftrl_kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("ftrl_row_update: not bit-equal")
+    b, d = z.shape
+    rows.append(_row("ftrl_row_update", "ftrl_row_update.cu",
+                     "src/repro/kernels/ftrl_row_update.py:38", 0.0,
+                     lambda: fr.ftrl_row_update(z, n, g, **ftrl_kw),
+                     lambda: ref.ftrl_row_update(z, n, g, **ftrl_kw), None,
+                     24 * b * d, f"{b}x{d} f32 rows, one master's push"))
+    x = inputs["serve"]
+    (q, s), (pq, ps) = dc.quantize_rows(x), ref.quantize_rows(x)
+    if not (torch.equal(q, pq) and torch.equal(s, ps)):
+        raise AssertionError("quantize_rows: not bit-equal")
+    b, d = x.shape
+    rows.append(_row("quantize_rows", "delta_codec.cu",
+                     "src/repro/kernels/delta_codec.py:36", 0.0,
+                     lambda: dc.quantize_rows(x),
+                     lambda: ref.quantize_rows(x), None,
+                     5 * b * d + 4 * b, f"{b}x{d} f32, one master's flush"))
+    q, s = inputs["record"]
+    out, want = dc.dequantize_rows(q, s), ref.dequantize_rows(q, s)
+    if not torch.equal(out, want):
+        raise AssertionError("dequantize_rows: not bit-equal")
+    b, d = q.shape
+    rows.append(_row("dequantize_rows", "delta_codec.cu",
+                     "src/repro/kernels/delta_codec.py:58", 0.0,
+                     lambda: dc.dequantize_rows(q, s),
+                     lambda: ref.dequantize_rows(q, s),
+                     lambda: torch.mul(q, s),
+                     5 * b * d + 4 * b, f"{b}x{d} int8, one record"))
+    return rows
+
+
+def drive_loop(device, *, feature_space: int, batch: int, fields: int,
+               warm_batches, warm_reps: int, partial_rounds: int,
+               train_steps: int, seed: int = SEED) -> dict:
+    """Run the online-learning loop for FM_FTRL (``fields`` wide,
+    ``feature_space`` hashed ids) on the card's side (``torch`` backends
+    on ``device``) and on the host path (``numpy`` backends), phases 2-4
+    of the module docstring. Returns the numbers the report prints and
+    the inputs the probes and the new kernels are timed on."""
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.convert import load_train_state
+    from repro_torch.core.routing import RoutingPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models.ctr import groups_for
+
+    cfg = dataclasses.replace(FM_FTRL, fields=fields,
+                              feature_space=feature_space)
+    groups = groups_for(cfg)
+    plan = RoutingPlan(num_master=4, num_slave=2, num_partitions=8)
+    rng = np.random.default_rng(seed)
+    pool = hashed_ids(feature_space)
+    t0 = time.perf_counter()
+    card = build_loop(cfg, plan, groups, "torch", device)
+    host = build_loop(cfg, plan, groups, "numpy", "cpu")
+    state = train_state(cfg, groups, pool, seed)
+    for side in (card, host):
+        load_train_state(side.masters, plan, state)
+    del state
+    load_s = time.perf_counter() - t0
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    boot_records = bootstrap(card)
+    boot_s = time.perf_counter() - t0
+    boot_launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    bootstrap(host)
+    host_boot_s = time.perf_counter() - t0
+
+    serve = serve_phase(card.serving, host.serving, plan, groups, pool, rng,
+                        device, batch=batch, fields=fields,
+                        warm_batches=warm_batches, warm_reps=warm_reps,
+                        partial_rounds=partial_rounds)
+    cold = serve.pop("cold")
+    # the first read after training re-pulls the invalidated rows, the
+    # next one syncs the cache mirror, the third is warm
+    requests = [(f"post-update {batch}", cold), (f"post-fill {batch}", cold),
+                (f"warm {batch}", cold)]
+    train = train_phase(card, pool, rng, device, steps=train_steps,
+                        batch=batch, fields=fields, requests=requests)
+    t0 = time.perf_counter()
+    replay(host, train["log"], train["t_events"])
+    host_train_s = time.perf_counter() - t0
+    compared = compare_loops(card, host, groups, requests, train["preds"])
+    loss_dev = check_loss_grads(card, cfg, *train["last_batch"])
+    inputs = train_kernel_inputs(card, train["log"], train["t_events"][-1],
+                                 device)
+    return {"serve": serve, "train": train, "compared": compared,
+            "loss_dev": loss_dev, "train_inputs": inputs,
+            "ftrl_kw": {"alpha": cfg.ftrl_alpha, "beta": cfg.ftrl_beta,
+                        "l1": cfg.ftrl_l1, "l2": cfg.ftrl_l2},
+            "boot": {"records": boot_records, "s": boot_s,
+                     "host_s": host_boot_s, "launches": boot_launches,
+                     "bytes": card.queue.produced_bytes
+                     - train["pushed_bytes"]},
+            "load_s": load_s, "host_train_s": host_train_s}
 
 
 def main() -> int:
@@ -493,21 +945,27 @@ def main() -> int:
 
     from repro_torch.configs.weips_ctr import FM_FTRL
     t = time.perf_counter()
-    res = drive_slice(dev, feature_space=FM_FTRL.feature_space,
-                      batch=REQ_BATCH, fields=FM_FTRL.fields,
-                      warm_batches=WARM_BATCHES, warm_reps=WARM_REPS,
-                      partial_rounds=PARTIAL_ROUNDS)
-    print(f"slice: FM_FTRL fields={FM_FTRL.fields} embed_dim="
-          f"{FM_FTRL.embed_dim} feature_space={FM_FTRL.feature_space}, "
-          f"{res['requests']} requests in {time.perf_counter() - t:.1f} s "
-          f"(state load {res['load_s']:.1f} s); served rows bit-equal to "
-          f"the host path, max prediction deviation "
-          f"{res['max_pred_dev']:.3g}", flush=True)
+    out = drive_loop(dev, feature_space=FM_FTRL.feature_space,
+                     batch=REQ_BATCH, fields=FM_FTRL.fields,
+                     warm_batches=WARM_BATCHES, warm_reps=WARM_REPS,
+                     partial_rounds=PARTIAL_ROUNDS, train_steps=TRAIN_STEPS)
+    res, tr, boot = out["serve"], out["train"], out["boot"]
+    print(f"loop: FM_FTRL fields={FM_FTRL.fields} embed_dim="
+          f"{FM_FTRL.embed_dim} feature_space={FM_FTRL.feature_space} "
+          f"hashed ids, 4 masters, 2 slave shards x 2 replicas, int8 codec, "
+          f"in {time.perf_counter() - t:.1f} s (state load "
+          f"{out['load_s']:.1f} s for both paths)", flush=True)
+    print(f"  bootstrap flush: {boot['records']} records, {boot['bytes']} "
+          f"bytes, {boot['s']:.2f} s on the card's path, {boot['host_s']:.2f}"
+          f" s on the host path; launches {boot['launches']}")
+    print(f"serving over the streamed replicas: {res['requests']} requests; "
+          f"served rows bit-equal to the host path, max prediction "
+          f"deviation {res['max_pred_dev']:.3g}", flush=True)
     for label, v in res["latency_ms"].items():
         counts = sorted(set(res["launches_per_predict"][label]))
         print(f"  predict {label:>12}: p50 {np.percentile(v, 50):.3f} ms, "
               f"p99 {np.percentile(v, 99):.3f} ms over {len(v)}; launches "
-              f"per predict (probe, probe_hbm, lookup, scatter) {counts}")
+              f"per predict ({', '.join(ops.KERNELS)}) {counts}")
     for b, prof in res["profiles"].items():
         busy = "not visible to torch.profiler" if prof["busy_ms"] is None \
             else (f"{prof['busy_ms']:.4f} ms "
@@ -519,20 +977,64 @@ def main() -> int:
     print(f"  shard_pulled_rows {res['shard_pulled_rows']}, device_blocks "
           f"{res['device_blocks']}, placements {sorted(res['placements'])}, "
           f"table bytes on the device {res['mirror_bytes']}")
-    print(f"  launches in the slice's predicts: {res['launches']}")
-    missing = [k for k, v in res["launches"].items() if v <= 0]
+    print(f"  launches in the serving predicts: {res['launches']}")
+    missing = [k for k in SERVE_KERNELS if res["launches"][k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched in the slice's "
+        raise AssertionError(f"kernels never launched in the serving "
                              f"predicts: {missing}")
     if res["placements"] != {"vmem", "hbm"}:
         raise AssertionError(f"placements taken: {res['placements']}")
 
+    cmp, m = out["compared"], tr["metrics"]
+    print(f"train -> sync -> serve: {len(tr['train_ms'])} steps of "
+          f"{REQ_BATCH} x {FM_FTRL.fields} ids; logloss {m[0]['logloss']:.4f}"
+          f" -> {m[-1]['logloss']:.4f}; per-batch dedup ratio "
+          f"{tr['dedup_ratio']:.4f}, gather dedup ratio "
+          f"{tr['gather_dedup']:.4f}; pushed {tr['pushed_records']} records, "
+          f"{tr['pushed_bytes']} bytes", flush=True)
+    for what, v in (("train step", tr["train_ms"]),
+                    ("sync tick", tr["tick_ms"])):
+        print(f"  {what:>10}: p50 {np.percentile(v, 50):.3f} ms, p99 "
+              f"{np.percentile(v, 99):.3f} ms over the {len(v)} unprofiled "
+              f"steps")
+    print(f"  event -> deployed staleness (scatter ring: train step's end "
+          f"to the start of each replica's poll): p50 "
+          f"{tr['staleness_ms']['p50']:.3f} ms, p99 "
+          f"{tr['staleness_ms']['p99']:.3f} ms")
+    prof = tr["profile"]
+    busy = "not visible to torch.profiler" if prof["busy_ms"] is None \
+        else (f"{prof['busy_ms']:.3f} ms "
+              f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy)")
+    print(f"  profiled last step: train {prof['train_ms']:.3f} ms + tick "
+          f"{prof['tick_ms']:.3f} ms, device {busy}; host time by function "
+          f"(own ms): " + ", ".join(f"{k} {ms:.2f}" for k, ms in prof["top"]))
+    for label, v in tr["predict_ms"].items():
+        print(f"  predict {label:>16}: p50 {np.percentile(v, 50):.3f} ms "
+              f"over {len(v)}")
+    print(f"  launches in train -> sync -> serve: {tr['launches']}")
+    missing = [k for k in TRAIN_KERNELS if tr["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in train -> sync -> "
+                             f"serve: {missing}")
+    print(f"  host path replayed the card's {len(tr['log'])} pushes in "
+          f"{out['host_train_s']:.1f} s: {cmp['master_rows']} master rows "
+          f"(w, z, n), {cmp['records']} queue records, every replica row and "
+          f"the served rows bit-equal; max prediction deviation "
+          f"{cmp['max_pred_dev']:.3g}; loss and row grads vs the CPU: max "
+          f"deviation {out['loss_dev']:.3g}", flush=True)
+
     probes = res.pop("probe_inputs")
     kernels = [probe_row(k, *probes[k]) for k in PROBES] + kernels
     del probes
-    print("kernels: " + ", ".join(ops.KERNELS))
     for row in kernels:
         row["launches"] = res["launches"][row["name"]]
+    new_rows = train_kernel_rows(out.pop("train_inputs"), out["ftrl_kw"])
+    for row in new_rows:
+        row["launches"] = tr["launches"][row["name"]]
+    kernels += new_rows
+    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the serving "
+          "kernels' from the serving predicts, the others' from train -> "
+          "sync -> serve)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

@@ -7,6 +7,8 @@ Pallas kernel on a ported path is a CUDA C++ kernel for ``sm_90a`` under
 needs neither ``nvcc`` nor a GPU: off the card, each kernel wrapper runs
 its plain PyTorch version on CPU tensors.
 
-Ported so far: the serving path (probe -> gather -> FM predict) through
-``serving.ServingPlane`` over slave replica sets.
+Ported so far: the online-learning loop's main path — train (FTRL on
+master shards, ``training.TrainingPlane``), sync (the int8 delta stream,
+``core.streaming``) and serve (``serving.ServingPlane`` over the slave
+replica sets the stream feeds).
 """

@@ -1,15 +1,19 @@
-"""Carry serve state across into the port.
+"""Carry state across into the port in bulk, outside the sync stream.
 
-Until the port has its own sync stream, serving replicas get their rows
-installed in bulk: ``load_serve_state`` takes the columnar serve state
-the JAX package produces (``WeiPSCluster._serve_state()["groups"]``, or
-a ``SparseTable.snapshot()``'s ``ids``/``w`` per group) as plain NumPy,
-routes each group's rows to the slave shards that own them with one
-argsort pass, writes them into every replica of those shards, and
-installs the dense bank — the way the reference cluster rebuilds its
-replicas from a checkpoint (``WeiPSCluster._load_serve_rows`` and
-``_apply_dense_state``). Tests use it to make both packages serve
-identical state; ``chip_smoke.py`` uses it to load seeded rows.
+The port deploys rows to its serving replicas through its own sync
+stream (``core/streaming.py``: Pusher → int8 codec → queue → Scatter).
+These two loaders install columnar state as plain NumPy — the columns the
+JAX package produces (``SparseTable.snapshot()``'s ``ids``/``w``/``slots``
+per group, or ``WeiPSCluster._serve_state()["groups"]``) — routed to the
+owning shards with one argsort pass per group:
+
+* ``load_train_state`` — master rows ``(ids, w, {"z": z, "n": n})`` onto
+  their owner masters; the sync stream then deploys them.
+* ``load_serve_state`` — serve rows straight into every replica of their
+  slave shard, plus the dense bank, the way the reference cluster
+  rebuilds its replicas from a checkpoint (``WeiPSCluster._load_serve_rows``
+  and ``_apply_dense_state``). Tests use it to make both packages serve
+  identical state.
 """
 
 from __future__ import annotations
@@ -19,6 +23,57 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.routing import RoutingPlan, owner_segments
+
+
+def _columns(g: str, ids, rows) -> tuple[np.ndarray, np.ndarray]:
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    rows = np.ascontiguousarray(rows, dtype=np.float32)
+    if ids.ndim != 1 or rows.ndim != 2 or len(rows) != len(ids):
+        raise ValueError(f"group {g!r}: ids {ids.shape} and rows "
+                         f"{rows.shape} are not (N,) and (N, dim)")
+    return ids, rows
+
+
+def load_train_state(masters: list, plan: RoutingPlan,
+                     groups: dict[str, tuple],
+                     dense: Optional[dict[str, np.ndarray]] = None) -> None:
+    """Install training rows on their owner master shards.
+
+    Args:
+      masters: the master shards, indexed by shard id.
+      plan: the routing plan that assigns ids to master shards.
+      groups: ``{group: (ids int64 (N,), w float32 (N, dim), slots)}``
+        with ``slots`` ``{name: float32 (N, dim)}`` naming every optimizer
+        slot of the group's tables (FTRL: ``z`` and ``n``); ids unique
+        within a group.
+      dense: ``{name: ndarray}`` dense tensors, pushed to master 0 (its
+        collector, if attached, records them for the stream).
+
+    An empty table takes the probe-free bulk insert; a table holding rows
+    takes ensure + write. Touch statistics start at 0.
+    """
+    for g, (ids, w, slots) in groups.items():
+        ids, w = _columns(g, ids, w)
+        slots = {k: _columns(g, ids, v)[1] for k, v in slots.items()}
+        if not len(ids):
+            continue
+        for mid, idx in owner_segments(plan.master_shard(ids)):
+            t = masters[mid].tables[g]
+            if set(slots) != set(t.slot_names):
+                raise ValueError(f"group {g!r}: slots {sorted(slots)} do "
+                                 f"not match the table's {t.slot_names}")
+            seg_ids = ids.take(idx, mode="clip")
+            seg_w = w.take(idx, axis=0, mode="clip")
+            seg_slots = {k: v.take(idx, axis=0, mode="clip")
+                         for k, v in slots.items()}
+            if len(t) == 0:
+                zero = np.zeros(len(idx), np.int64)
+                t.load_rows({"ids": seg_ids, "w": seg_w, "slots": seg_slots,
+                             "last_touch": zero, "touch_count": zero})
+            else:
+                t.write_rows(t.ensure(seg_ids), seg_w, seg_slots)
+    for name, value in (dense or {}).items():
+        masters[0].push_dense(name, np.asarray(value, np.float32))
 
 
 def load_serve_state(replica_sets: list, plan: RoutingPlan,
@@ -42,11 +97,7 @@ def load_serve_state(replica_sets: list, plan: RoutingPlan,
     for shard in replicas:
         by_sid.setdefault(shard.shard_id, []).append(shard)
     for g, (ids, rows) in groups.items():
-        ids = np.ascontiguousarray(ids, dtype=np.int64)
-        rows = np.ascontiguousarray(rows, dtype=np.float32)
-        if ids.ndim != 1 or rows.ndim != 2 or len(rows) != len(ids):
-            raise ValueError(f"group {g!r}: ids {ids.shape} and rows "
-                             f"{rows.shape} are not (N,) and (N, dim)")
+        ids, rows = _columns(g, ids, rows)
         if not len(ids):
             continue
         for sid, idx in owner_segments(plan.slave_shard(ids)):

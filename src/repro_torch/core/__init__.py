@@ -1,2 +1,3 @@
 """Parameter-server core of the port: hash map, routing, sparse tables,
-slave shards, replica sets and the latency monitor's percentile ring."""
+master and slave shards, replica sets, the train→serve transform, the
+queue and the sync stream, the feature filter and the monitors."""

@@ -1,5 +1,11 @@
 """Parameter-server storage of the port: row-addressable sparse tables
-(arena-backed) and dense banks, composed into slave (serving) shards.
+(arena-backed) and dense banks, composed into master (training) and
+slave (serving) shards.
+
+Master shards hold *training* state: parameter rows plus optimizer slots
+(FTRL ``z, n``). Slave shards hold *serving* state only: the inference
+weights the sync stream delivers — the paper's heterogeneous-parameter
+split (§1.2.1).
 
 The host side is the reference's: an ``IdHashMap`` resolves int64 ids
 to arena slots and NumPy arrays stay authoritative. ``backend`` selects
@@ -8,13 +14,14 @@ the row engine:
   * ``"numpy"`` — NumPy fancy indexing on the host; the reference path.
   * ``"torch"`` — a lazily-synced device mirror of the key table, the
     slot map and the arenas (``_DeviceMirror``) on ``device``: serve
-    lookups run probe → gather on the device (``ops.fused_lookup``)
+    lookups run probe → gather on the device (``ops.fused_lookup``) and
+    FTRL pushes probe → gather → FTRL → scatter (``ops.fused_ftrl_apply``)
     through the hand-written kernels on CUDA, through their plain
     versions on ``device="cpu"``.
 
-Not ported yet: ``MasterShard`` and the fused FTRL route (training
-slice), ``SlaveShard.apply``/``apply_batch`` with ``core/transform.py``
-and delta checkpoints (sync slice).
+Not ported yet (checkpoint slice): ``SparseTable.delta_snapshot``,
+``DenseBank.snapshot_delta`` and ``MasterShard.snapshot`` /
+``delta_snapshot`` / ``load_table_rows`` / ``load_snapshot``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.core.hashmap import EMPTY as _NO_ID
 from repro_torch.core.hashmap import IdHashMap
 from repro_torch.kernels import hashmap_probe as _hm
 from repro_torch.kernels import ops
+from repro_torch.optim import FTRL, Optimizer
 
 PS_BACKENDS = ("numpy", "torch")
 
@@ -167,6 +175,11 @@ class _DeviceMirror:
                                           _upload(host[k][dirty], self.device))
                 self.arena_bytes_uploaded += len(dirty) * row_bytes
         self._synced_mut = t._mut
+
+    def mark_synced(self) -> None:
+        """Record that the device arenas already hold the table's state at
+        the current clock (a fused kernel chain just wrote both sides)."""
+        self._synced_mut = self._t._mut
 
     def metrics(self) -> dict:
         return {"syncs": self.syncs,
@@ -439,6 +452,40 @@ class SparseTable:
         touched this table)."""
         return self._dev.metrics() if self._dev is not None else None
 
+    def fused_ftrl_update(self, ids: np.ndarray, sl: np.ndarray,
+                          grads: np.ndarray, *, alpha: float, beta: float,
+                          l1: float, l2: float, step: int = 0) -> np.ndarray:
+        """The fused sparse training hot path (torch backend): probe →
+        gather → FTRL → scatter over the device mirror
+        (``ops.fused_ftrl_apply``), no host hop between stages. ``ids``
+        must be unique and already resolved to arena slots ``sl``
+        (``ensure`` ran: row creation stays host-side). The kernel
+        chain's row outputs are written back to the host arrays at
+        ``sl`` — both sides hold identical bits, so the mirror marks
+        itself synced and the next batch uploads nothing but ids and
+        grads. Returns the new serve weights ``w'`` for the rows.
+
+        Raises ``RuntimeError`` if an id is absent from the map; the
+        chain has then written arena row 0, so the mirror's arenas are
+        dropped and the next sync re-uploads them."""
+        mir = self._mirror()
+        mir.sync()
+        z2, n2, w2, found = ops.fused_ftrl_apply(
+            mir.keys, mir.slot_of, mir.arenas["z"], mir.arenas["n"],
+            mir.arenas["w"], _upload(np.asarray(ids, np.int64), self.device),
+            _upload(np.asarray(grads, np.float32), self.device),
+            shift=mir.shift, alpha=alpha, beta=beta, l1=l1, l2=l2,
+            placement=mir.placement)
+        if not bool(found.all()):
+            mir.arenas = {}
+            raise RuntimeError("fused_ftrl_update on ids absent from the "
+                               "map (run ensure first)")
+        w_np = w2.cpu().numpy().astype(self.dtype, copy=False)
+        self.write_rows(sl, w_np, {"z": z2.cpu().numpy(),
+                                   "n": n2.cpu().numpy()}, step=step)
+        mir.mark_synced()
+        return w_np
+
     def all_ids(self) -> np.ndarray:
         live = self._id_of[:self._top]
         return live[live != _NO_ID]
@@ -524,22 +571,171 @@ class DenseBank:
                    versions=dict(snap["versions"]))
 
 
-class SlaveShard:
-    """Serving-side PS shard: inference weights only. This slice ports the
-    read side; stream application (``apply``/``apply_batch``) comes with
-    the sync slice, and until then serve state is installed with
-    ``repro_torch.convert.load_serve_state``."""
+class MasterShard:
+    """Training-side PS shard: sparse groups with optimizer slots + a dense
+    bank. Gradient pushes update rows through the optimizer and notify the
+    collector (dirty ids only — paper §4.1.1). ``backend``/``device`` are
+    the tables' row engine; under ``"torch"`` an FTRL store takes the
+    fused device route."""
 
     def __init__(self, shard_id: int, groups: dict[str, int],
+                 optimizer: Optimizer, collector=None,
                  backend: str = "torch", device="cuda"):
+        """groups: {group_name: row_dim}"""
+        self.shard_id = shard_id
+        self.optimizer = optimizer
+        self.backend = backend
+        self.device = device
+        self.tables = {g: self._new_table(dim) for g, dim in groups.items()}
+        self.dense = DenseBank()
+        self.collector = collector
+        self.step = 0
+        self.fused_batches = 0      # pushes taken by the fused device path
+        self.alive = True
+
+    def _new_table(self, dim: int) -> SparseTable:
+        slots = tuple(sorted(self.optimizer.init_slots(
+            np.zeros((dim,), np.float32)).keys()))
+        return SparseTable(dim, slots, backend=self.backend,
+                           device=self.device)
+
+    def _check_alive(self) -> None:
+        if not self.alive:
+            raise RuntimeError(f"master shard {self.shard_id} is down")
+
+    def add_group(self, group: str, dim: int) -> None:
+        """Create a new sparse group online (an isolated training
+        scenario's namespaced tables). Idempotent for an existing group of
+        the same dim."""
+        if group in self.tables:
+            if self.tables[group].dim != dim:
+                raise ValueError(f"group {group!r} exists with dim "
+                                 f"{self.tables[group].dim}")
+            return
+        self.tables[group] = self._new_table(dim)
+
+    def pull(self, group: str, ids: np.ndarray, *, create: bool = True):
+        """Trainer pull: current *training* weights for ids. Reads ``w``
+        alone: without ``create`` the torch backend answers it with the
+        device probe → gather, where the reference also gathers the
+        optimizer slots and drops them."""
+        self._check_alive()
+        w, _ = self.tables[group].gather(ids, create=create, slot_names=())
+        return w
+
+    def apply_batch(self, group: str, ids: np.ndarray, grads: np.ndarray,
+                    *, step: Optional[int] = None) -> np.ndarray:
+        """The fused PS hot path: one batched hash → gather → optimizer
+        update → scatter pass for a whole minibatch. Duplicate ids are
+        deduplicated with their gradients summed (the sparse-grad
+        semantics). Returns the unique ids touched."""
+        self._check_alive()
+        t = self.tables[group]
+        st = self.step if step is None else step
+        ids = np.asarray(ids, dtype=np.int64)
+        grads = np.asarray(grads, dtype=np.float32)
+        uniq, inv, counts = np.unique(ids, return_inverse=True,
+                                      return_counts=True)
+        if len(uniq) != len(ids):
+            # segment-sum duplicate-id grads (sort + reduceat)
+            order = np.argsort(inv, kind="stable")
+            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            grads = np.add.reduceat(
+                grads.take(order, axis=0, mode="clip"), starts, axis=0)
+        elif len(ids) > 1 and not (ids[1:] >= ids[:-1]).all():
+            # unique but unsorted: slots are resolved for sorted ``uniq``,
+            # so grad rows must be permuted to match
+            grads = grads.take(np.argsort(inv, kind="stable"), axis=0,
+                               mode="clip")
+        sl = t.ensure(uniq)
+        if (self.backend == "torch" and isinstance(self.optimizer, FTRL)
+                and t.slot_names == ("n", "z")):
+            # fused device route: ensure resolved/created the rows on the
+            # host (authoritative side), then probe→gather→FTRL→scatter
+            # runs as one kernel chain over the table's device mirror
+            o = self.optimizer
+            t.fused_ftrl_update(uniq, sl, grads, alpha=o.alpha, beta=o.beta,
+                                l1=o.l1, l2=o.l2, step=st)
+            self.fused_batches += 1
+        else:
+            w, slots = t.read_rows(sl)
+            new_w, new_slots = self.optimizer.update_rows(
+                w, slots, grads, st, backend=self.backend,
+                device=self.device)
+            t.write_rows(sl, new_w.astype(t.dtype, copy=False), new_slots,
+                         step=st)
+        self.step = st + 1
+        if self.collector is not None:
+            self.collector.record(group, uniq, "upsert")
+        return uniq
+
+    def push_grad(self, group: str, ids: np.ndarray, grads: np.ndarray,
+                  *, step: Optional[int] = None) -> None:
+        """Apply gradient rows through the optimizer; record dirty ids."""
+        self.apply_batch(group, ids, grads, step=step)
+
+    def push_dense(self, name: str, value: np.ndarray,
+                   slots: Optional[dict] = None) -> None:
+        self._check_alive()
+        self.dense.put(name, value, slots)
+        if self.collector is not None:
+            self.collector.record_dense(name)
+
+    def delete_rows(self, group: str, ids: np.ndarray) -> None:
+        """Feature-filter expiry: remove rows and emit delete records."""
+        self.tables[group].evict(ids)
+        if self.collector is not None:
+            self.collector.record(group, ids, "delete")
+
+    def register_metrics(self, reg, prefix: str = "") -> None:
+        """Publish this shard's counters into a
+        ``repro_torch.obs.metrics.MetricsRegistry`` (per-table
+        ``_DeviceMirror`` counters under ``<prefix>device_mirror``)."""
+        from repro_torch.obs.metrics import join
+        reg.register(join(prefix, "step"), lambda: self.step)
+        reg.register(join(prefix, "fused_batches"),
+                     lambda: self.fused_batches)
+        reg.register(join(prefix, "rows"),
+                     lambda: {g: len(t) for g, t in self.tables.items()})
+        reg.register(join(prefix, "device_mirror"),
+                     lambda: {g: m for g, t in self.tables.items()
+                              if (m := t.mirror_metrics()) is not None})
+
+    def kill(self) -> None:
+        self.alive = False
+
+    def clear(self) -> None:
+        for g, t in list(self.tables.items()):
+            self.tables[g] = SparseTable(t.dim, t.slot_names, dtype=t.dtype,
+                                         backend=t.backend,
+                                         device=self.device)
+        self.dense = DenseBank()
+
+
+class SlaveShard:
+    """Serving-side PS shard: inference weights only, idempotent versioned
+    application of stream records (last-writer-wins by ``seq``).
+    ``codec_backend`` is the decode engine (``core/transform.py``): the
+    ``"torch"`` int8 decode runs the ``dequantize_rows`` kernel on
+    ``device``."""
+
+    def __init__(self, shard_id: int, groups: dict[str, int],
+                 backend: str = "torch", device="cuda",
+                 codec_backend: str = "torch"):
         self.shard_id = shard_id
         self.backend = backend
         self.device = device
+        self.codec_backend = codec_backend
+        if codec_backend == "torch":
+            resolve_device(device)          # raise now, not at first decode
         self.tables = {g: SparseTable(dim, backend=backend, device=device)
                        for g, dim in groups.items()}
         self.dense: dict[str, np.ndarray] = {}
         self.dense_versions: dict[str, int] = {}
-        # (group, producer, partition) -> last applied seq (stream LWW)
+        # (group, producer, partition) -> last applied seq, for LWW
+        # idempotence. Keyed per partition stream: ids route to
+        # partitions deterministically, so partitions are independent
+        # ordered streams.
         self._applied_seq: dict[tuple[str, int, int], int] = {}
         # serving-plane invalidation hook, called with (group, ids, op)
         # for every applied sparse batch
@@ -547,6 +743,96 @@ class SlaveShard:
         self.alive = True
         self.applied_records = 0
         self.skipped_records = 0
+
+    @staticmethod
+    def _seq_key(record) -> tuple[str, int, int]:
+        return (record.group, record.producer,
+                record.meta.get("partition", -1))
+
+    def _check_alive(self) -> None:
+        if not self.alive:
+            raise RuntimeError(f"slave shard {self.shard_id} is down")
+
+    def _decode(self, record) -> np.ndarray:
+        from repro_torch.core.transform import decode_record
+        return decode_record(record, backend=self.codec_backend,
+                             device=self.device)
+
+    def apply(self, record) -> bool:
+        """Apply one stream record; returns False if skipped (stale)."""
+        self._check_alive()
+        key = self._seq_key(record)
+        last = self._applied_seq.get(key, -1)
+        # strictly-older records are stale (LWW). Equal-seq records are
+        # sibling chunks of the SAME flush covering disjoint ids (or exact
+        # redeliveries, which are idempotent full-value upserts) — apply.
+        if record.seq < last:
+            self.skipped_records += 1
+            return False
+        if record.group.startswith("dense/"):
+            name = record.group[len("dense/"):]
+            ver = int(record.ids[0])
+            if self.dense_versions.get(name, -1) < ver:
+                self.dense[name] = self._decode(record)
+                self.dense_versions[name] = ver
+        elif record.op == "delete":
+            self.tables[record.group].evict(record.ids)
+            if self.on_apply is not None:
+                self.on_apply(record.group, record.ids, "delete")
+        else:
+            self.tables[record.group].scatter(record.ids,
+                                              self._decode(record))
+            if self.on_apply is not None:
+                self.on_apply(record.group, record.ids, "upsert")
+        self._applied_seq[key] = max(last, record.seq)
+        self.applied_records += 1
+        return True
+
+    def apply_batch(self, records: list) -> list:
+        """Batched idempotent application of a poll's worth of records:
+        sparse upserts are coalesced per group into ONE decoded value block
+        and ONE ``SparseTable.scatter`` (concatenation preserves arrival
+        order, so overlapping ids within the batch resolve last-writer-wins
+        exactly like sequential ``apply``). Dense records and deletes keep
+        the singleton ``apply`` path. Returns the records applied (stale
+        ones are skipped and counted)."""
+        self._check_alive()
+        applied: list = []
+        rows: dict[str, tuple[list, list]] = {}
+
+        def flush(group) -> None:
+            ids_l, val_l = rows.pop(group)
+            ids = ids_l[0] if len(ids_l) == 1 else np.concatenate(ids_l)
+            vals = val_l[0] if len(val_l) == 1 else \
+                np.concatenate(val_l, axis=0)
+            self.tables[group].scatter(ids, vals)
+            if self.on_apply is not None:
+                self.on_apply(group, ids, "upsert")
+
+        for rec in records:
+            if rec.group.startswith("dense/") or rec.op == "delete":
+                # a delete must not overtake coalesced-but-unwritten
+                # upserts for its group (the deferred scatter would
+                # resurrect the evicted rows) — flush those first
+                if rec.op == "delete" and rec.group in rows:
+                    flush(rec.group)
+                if self.apply(rec):
+                    applied.append(rec)
+                continue
+            key = self._seq_key(rec)
+            last = self._applied_seq.get(key, -1)
+            if rec.seq < last:
+                self.skipped_records += 1
+                continue
+            ids_l, val_l = rows.setdefault(rec.group, ([], []))
+            ids_l.append(rec.ids)
+            val_l.append(self._decode(rec))
+            self._applied_seq[key] = max(last, rec.seq)
+            self.applied_records += 1
+            applied.append(rec)
+        for group in list(rows):
+            flush(group)
+        return applied
 
     def add_group(self, group: str, dim: int) -> None:
         """Create a new serve group online. Idempotent for an existing

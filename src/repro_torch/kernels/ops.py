@@ -4,26 +4,35 @@ reference's jitted ``kernels/ops.py``.
 Where the reference picks interpret mode off the TPU, the port dispatches
 on the tensors' device inside each wrapper: CUDA tensors launch the
 hand-written kernels, CPU tensors run the plain versions in
-``kernels/ref.py``. ``fused_lookup`` chains probe → slot translate →
-gather without a host hop, as the reference's jit does.
+``kernels/ref.py``. ``fused_lookup`` (serve) and ``fused_ftrl_apply``
+(train) chain probe → slot translate → gather (→ FTRL → scatter) without
+a host hop, as the reference's jits do.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import delta_codec as _dc
 from repro_torch.kernels import embedding_lookup as _el
+from repro_torch.kernels import ftrl_row_update as _ftrl
 from repro_torch.kernels import hashmap_probe as _hm
 
 embedding_lookup = _el.embedding_lookup
 embedding_scatter = _el.embedding_scatter
+ftrl_row_update = _ftrl.ftrl_row_update
+quantize_rows = _dc.quantize_rows
+dequantize_rows = _dc.dequantize_rows
 
-# every hand-written kernel wrapper on the serving path, each with its
+# every hand-written kernel wrapper of the port, each with its
 # ``launches`` counter
 KERNELS = {"hashmap_probe": _hm.hashmap_probe,
            "hashmap_probe_hbm": _hm.hashmap_probe_hbm,
            "embedding_lookup": _el.embedding_lookup,
-           "embedding_scatter": _el.embedding_scatter}
+           "embedding_scatter": _el.embedding_scatter,
+           "ftrl_row_update": _ftrl.ftrl_row_update,
+           "quantize_rows": _dc.quantize_rows,
+           "dequantize_rows": _dc.dequantize_rows}
 
 
 def launch_counts() -> dict[str, int]:
@@ -73,3 +82,32 @@ def fused_lookup(keys: torch.Tensor, slot_of: torch.Tensor,
     rows = torch.where(found[:, None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     return rows, found, slot
+
+
+def fused_ftrl_apply(keys: torch.Tensor, slot_of: torch.Tensor,
+                     z_arena: torch.Tensor, n_arena: torch.Tensor,
+                     w_arena: torch.Tensor, ids: torch.Tensor,
+                     grads: torch.Tensor, *, shift: int, alpha: float,
+                     beta: float, l1: float, l2: float,
+                     placement: str = "auto"):
+    """The sparse training hot path against a device-resident table
+    mirror: probe → slot translate → gather ``(z, n)`` → FTRL row update
+    → scatter ``(z', n', w')`` back into the arenas, no host hop.
+
+    ``ids`` must be UNIQUE and PRESENT in the map (``MasterShard`` runs
+    ``ensure`` first); ``found`` is returned so the caller can check it
+    — a missing id reads and writes arena row 0. The port updates the
+    three arenas IN PLACE where the reference donates them to its jit
+    and returns new ones. Returns ``(z', n', w', found)``: the row
+    outputs (B, D) for the host-authoritative arrays, and the (B,) found
+    mask."""
+    pos, found = hashmap_probe(keys, ids, shift=shift, placement=placement)
+    slot = torch.where(found, slot_of[pos], torch.zeros_like(pos))
+    z = embedding_lookup(z_arena, slot)
+    n = embedding_lookup(n_arena, slot)
+    z2, n2, w2 = ftrl_row_update(z, n, grads, alpha=alpha, beta=beta,
+                                 l1=l1, l2=l2)
+    embedding_scatter(z_arena, slot, z2)
+    embedding_scatter(n_arena, slot, n2)
+    embedding_scatter(w_arena, slot, w2)
+    return z2, n2, w2, found

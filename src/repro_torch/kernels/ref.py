@@ -1,10 +1,18 @@
-"""Plain PyTorch versions of the serving path's four kernels — the
-counterparts the CPU tests hold against the JAX package and that
-``chip_smoke.py`` holds each CUDA kernel against on the card.
+"""Plain PyTorch versions of the port's kernels — the counterparts the
+CPU tests hold against the JAX package and that ``chip_smoke.py`` holds
+each CUDA kernel against on the card.
 
 They run on any device. The kernel wrappers (``kernels/hashmap_probe.py``,
-``kernels/embedding_lookup.py``) call them for tensors that lie on the
-CPU; for CUDA tensors the wrappers launch the hand-written kernels.
+``kernels/embedding_lookup.py``, ``kernels/ftrl_row_update.py``,
+``kernels/delta_codec.py``) call them for tensors that lie on the CPU;
+for CUDA tensors the wrappers launch the hand-written kernels.
+
+The FTRL and int8 codec versions repeat their kernel's arithmetic op for
+op in float32, bit-equal to the NumPy routes (``FTRL.update_rows``,
+``Int8Transform._quantize_np``): every scalar is a 0-dim float32 tensor
+on the data's device, rounded from the Python float once, so no op takes
+a CPU-scalar shortcut (PyTorch's CUDA true divide by a CPU scalar
+multiplies by its reciprocal instead).
 
 Hash-probe contract (both placements): ``keys`` is an ``IdHashMap`` key
 table as int64 (``EMPTY``/``TOMB`` sentinels included), ``ids`` the int64
@@ -152,3 +160,77 @@ def embedding_scatter(table: torch.Tensor, ids: torch.Tensor,
     ``table.dtype``); ids UNIQUE. Returns ``table``."""
     table[ids.long()] = updates.to(table.dtype)
     return table
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to float32 once, as a 0-dim tensor beside ``like``."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded to nearest, as IEEE (NumPy, the
+    card's ``__fsqrt_rn``) rounds it. PyTorch's CPU ``sqrt`` is a
+    vectorised approximation that misses by an ulp on some inputs, so
+    the root comes from float64 and is then corrected: ``r`` is right
+    exactly when ``x`` lies between the squares of the midpoints to its
+    float32 neighbours, and those squares are exact in float64 (a
+    25-bit midpoint squares to 50 bits)."""
+    x64 = x.double()
+    r = torch.sqrt(x64).float()             # within one float32 ulp
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    hi = (r.double() + up.double()) * 0.5
+    r = torch.where(x64 > hi * hi, up, r)
+    down = torch.nextafter(r, torch.zeros_like(r))
+    lo = (r.double() + down.double()) * 0.5
+    return torch.where((r > 0) & (x64 < lo * lo), down, r)
+
+
+def ftrl_weights(z: torch.Tensor, n: torch.Tensor, *, alpha, beta, l1,
+                 l2) -> torch.Tensor:
+    """FTRL serve weights from ``(z, n)`` in ``FTRL._np_weights``' op
+    order: ``denom = ((sqrt(n) + beta) / alpha) + l2``, ``w = (sign(z) *
+    l1 - z) / denom``, +0 where ``|z| <= l1``. The hyper-parameters are
+    floats or 0-dim float32 tensors on ``z``'s device."""
+    a, b, c1, c2 = (p if isinstance(p, torch.Tensor) else _f32(p, z)
+                    for p in (alpha, beta, l1, l2))
+    denom = sqrt_rn(n) + b
+    denom = denom / a
+    denom = denom + c2
+    w = torch.sign(z) * c1 - z
+    w = w / denom
+    return torch.where(z.abs() > c1, w, torch.zeros((), dtype=torch.float32,
+                                                    device=z.device))
+
+
+def ftrl_row_update(z: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
+                    alpha: float = 0.05, beta: float = 1.0, l1: float = 1.0,
+                    l2: float = 1.0):
+    """FTRL-proximal on (B, D) rows, float32: ``w`` from ``(z, n)``,
+    ``n' = n + g*g``, ``sigma = (sqrt(n') - sqrt(n)) / alpha``,
+    ``z' = (z + g) - sigma*w``, ``w'`` from ``(z', n')``. Returns
+    ``(z', n', w')``, bit-equal to ``FTRL.update_rows(backend="numpy")``
+    (square roots through ``sqrt_rn``)."""
+    z, n, g = (t.to(torch.float32) for t in (z, n, g))
+    p = {k: _f32(v, z) for k, v in
+         (("alpha", alpha), ("beta", beta), ("l1", l1), ("l2", l2))}
+    w_old = ftrl_weights(z, n, **p)
+    n_new = n + g * g
+    sigma = (sqrt_rn(n_new) - sqrt_rn(n)) / p["alpha"]
+    z_new = (z + g) - sigma * w_old
+    return z_new, n_new, ftrl_weights(z_new, n_new, **p)
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8: ``scale = max(absmax * f32(1/127), 1e-12)``,
+    ``q = clip(round_half_even(x / scale), -127, 127)``. ``x`` (B, D) ->
+    ``(q int8 (B, D), scale float32 (B, 1))``."""
+    x = x.to(torch.float32)
+    s = torch.maximum(x.abs().amax(dim=-1, keepdim=True)
+                      * _f32(1.0 / 127.0, x), _f32(1e-12, x))
+    q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q`` int8 (B, D) times ``scale`` (B, 1) -> float32 (B, D)."""
+    return q.to(torch.float32) * scale.to(torch.float32)

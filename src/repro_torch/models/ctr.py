@@ -8,19 +8,20 @@ dense MLP for DNN. The serve path feeds ``predict_block_fn`` the serve
 cache's combined-group block on the plane's device.
 
 Dense products are ``torch.matmul`` in full float32: PyTorch's default
-``torch.backends.cuda.matmul.allow_tf32 = False``, which the predict
-factories state by setting it. Sums run in another order than XLA's, so
-the port agrees with the reference to ``rtol=1e-5, atol=1e-6`` in fp32,
-not bit for bit.
-
-Not ported yet (training slice): ``init_dense`` and the loss and gradient
-functions.
+``torch.backends.cuda.matmul.allow_tf32 = False``, which the predict and
+loss factories state by setting it. Sums run in another order than
+XLA's, and gradients come from ``torch.autograd`` where the reference
+uses ``jax.value_and_grad``, so the port agrees with the reference to
+``rtol=1e-5, atol=1e-6`` in fp32, not bit for bit. ``init_dense`` draws
+from an explicit ``torch.Generator``: the same seed gives other numbers
+than ``jax.random``, so tests carry dense tensors across.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.weips_ctr import CTRConfig
@@ -63,8 +64,30 @@ def dense_shapes(cfg: CTRConfig) -> dict[str, tuple[int, ...]]:
     return out
 
 
+def init_dense(cfg: CTRConfig,
+               generator: torch.Generator) -> dict[str, np.ndarray]:
+    """Initial dense head (DNN MLP) as float32 NumPy arrays: weights
+    N(0, 1/fan_in) drawn from ``generator`` (a CPU generator), hidden
+    biases 0.1 and the output bias 0 — embedding rows start at zero on
+    the PS, so zero hidden biases would leave every ReLU at 0 with zero
+    gradient and the DNN would never learn."""
+    shapes = dense_shapes(cfg)
+    n_layers = sum(1 for n in shapes if n.startswith("mlp/w"))
+    out = {}
+    for name, shape in shapes.items():
+        if name.startswith("mlp/b"):
+            i = int(name[len("mlp/b"):])
+            out[name] = np.full(shape, 0.1 if i < n_layers - 1 else 0.0,
+                                np.float32)
+        else:
+            out[name] = (torch.randn(shape, generator=generator,
+                                     dtype=torch.float32)
+                         * shape[0] ** -0.5).numpy()
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Forward — pure functions of the gathered rows
+# Forward / loss — functions of the gathered rows
 # ---------------------------------------------------------------------------
 
 
@@ -132,3 +155,61 @@ def predict_block_fn(cfg: CTRConfig,
         return torch.sigmoid(f(rows, dense))
 
     return predict
+
+
+def _bce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-example logistic loss in the reference's stable form, with
+    JAX's gradients at logits == 0, which fresh all-zero rows hit
+    exactly: ``maximum`` (not ``relu``) splits its gradient half and
+    half as ``jnp.maximum`` does, and ``|x|`` takes slope 1 at 0 as
+    ``jnp.abs`` does (``Tensor.abs`` takes 0)."""
+    abs_l = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * y
+            + torch.log1p(torch.exp(-abs_l)))
+
+
+def _value_and_grads(loss_of, rows: dict, dense: dict):
+    """``loss_of(rows, dense)`` and its gradients with respect to every
+    row and dense tensor, through ``torch.autograd``; gradient dicts in
+    sorted key order, as JAX returns them."""
+    rows = {k: rows[k].detach().requires_grad_(True) for k in sorted(rows)}
+    dense = {k: dense[k].detach().requires_grad_(True)
+             for k in sorted(dense)}
+    val = loss_of(rows, dense)
+    leaves = [*rows.values(), *dense.values()]
+    grads = torch.autograd.grad(val, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return (val.detach(), dict(zip(rows, grads[:len(rows)])),
+            dict(zip(dense, grads[len(rows):])))
+
+
+def loss_and_grads_fn(cfg: CTRConfig) -> Callable:
+    """``(rows, dense, y) -> (mean loss, row grads, dense grads)`` on the
+    tensors' device, in full fp32."""
+    f = _LOGITS[cfg.model_type]
+    _full_fp32()
+
+    def loss_and_grads(rows, dense, y):
+        return _value_and_grads(
+            lambda r, d: _bce(f(r, d), y).mean(), rows, dense)
+
+    return loss_and_grads
+
+
+def weighted_loss_and_grads_fn(cfg: CTRConfig) -> Callable:
+    """Per-example-weighted BCE — the training plane's step: ``(rows,
+    dense, y, w) -> (loss, row grads, dense grads)`` with loss
+    ``sum(w * bce) / max(sum(w), 1e-9)``. Weights carry negative-
+    downsampling corrections and the pad-to-bucket zeros, which remove
+    padded examples from the loss and every gradient."""
+    f = _LOGITS[cfg.model_type]
+    _full_fp32()
+
+    def loss_and_grads(rows, dense, y, w):
+        def loss_of(r, d):
+            per = _bce(f(r, d), y)
+            return (w * per).sum() / torch.clamp_min(w.sum(), 1e-9)
+        return _value_and_grads(loss_of, rows, dense)
+
+    return loss_and_grads
