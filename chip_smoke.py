@@ -5,7 +5,9 @@ against its plain PyTorch version at the shapes the path gives it, then
 runs the paper's online-learning loop for the FM-FTRL CTR model at full
 width — train on master shards, stream through the int8 codec to the
 serving replicas, serve from the streamed rows — and checks it against
-the port's host path.
+the port's host path; then serves qwen2-1.5b at full width (prefill and
+greedy decode with hot weight swaps) and checks it against the same
+model on the plain attention.
 
     python3 chip_smoke.py
 
@@ -48,13 +50,36 @@ Phases (any failure exits non-zero and prints no result line):
    batch must match the CPU's within rtol 1e-5, atol 1e-6. The new
    kernels are then held against their plain versions on the path's own
    inputs and timed.
-5. A JSON line of per-kernel numbers, the card's name and power limit
+5. LM serving, qwen2-1.5b at full width (28 layers, random weights from
+   the seed). First ``flash_attention`` and ``decode_attention`` against
+   their plain versions at the path's shapes (prefill q (4, 12, 2048,
+   128) causal in bf16 and f32, a ragged S = 1000, a full (non-causal)
+   case; decode q (4, 12, 128) against a (4, 4096, 2, 128) cache, mixed
+   lengths 1..4096), within 2e-5 (f32) and 2e-2 (bf16). Then, with the
+   counters reset before and read after: ``make_prefill_step`` on 4 x
+   2048 tokens in float32 (logits within 1e-3 of the plain path's) and
+   in bf16 (timed; logits within the bound ``BF16_LOGIT_BOUND`` set in
+   PERF.md); ``launch.serve``'s own run (batch 4, 32 steps, max_len 64,
+   float32 cache, a hot swap every 8 steps) through the ``ServeDriver``
+   it builds; and a decode against a long cache seeded up to position
+   4000 of 4096 (the reference has no prefill-to-cache path; seeding is
+   the cut that puts the kernel at a real length). Decode is compared
+   teacher-forced: the plain path replays the kernel path's tokens,
+   params and positions on its own copy of the cache, logits at every
+   step within the bf16 bound; greedy agreement is printed, not held.
+   ``flash_attention`` must launch 28 times a forward and
+   ``decode_attention`` 28 times a step. Both are then timed beside
+   their bound, their plain versions and
+   ``torch.nn.functional.scaled_dot_product_attention`` (never used by
+   the port).
+6. A JSON line of per-kernel numbers, the card's name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -169,18 +194,22 @@ def probe_case(cap_pow: int, n_live: int, n_query: int,
 
 
 def _row(name, source, replaces, err, kernel, plain, library, nbytes,
-         shape) -> dict:
+         shape, *, flops: float = 0.0, peak: float = 1.0,
+         agreement: str = "bit-equal to its plain version") -> dict:
     """Time a kernel that already matched its plain version, and print
-    and return its entry of the result line."""
+    and return its entry of the result line. The bound is the larger of
+    ``nbytes`` over the memory rate and ``flops`` over ``peak``."""
+    by_ops = flops / peak * 1e3 > _bound_ms(nbytes)
     row = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{source}",
            "replaces": replaces, "max_abs_err": float(err),
            "ms": _device_ms(kernel), "call_ms": _call_ms(kernel),
            "plain_ms": _call_ms(plain, iters=3, warmup=1),
-           "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+           "bound_ms": flops / peak * 1e3 if by_ops else _bound_ms(nbytes),
+           "bound_by": "operations" if by_ops else "bytes",
            "library_ms": _device_ms(library) if library else None}
     lib = "" if library is None else f", library {row['library_ms']:.5f}"
-    print(f"kernel {name} at {shape}: bit-equal to its plain version; "
+    print(f"kernel {name} at {shape}: {agreement}; "
           f"{row['ms']:.5f} ms on the device ({row['call_ms']:.5f} per "
           f"Python call), bound {row['bound_ms']:.5f}, plain "
           f"{row['plain_ms']:.5f}{lib}", flush=True)
@@ -913,6 +942,432 @@ def drive_loop(device, *, feature_space: int, batch: int, fields: int,
             "load_s": load_s, "host_train_s": host_train_s}
 
 
+
+# ---------------------------------------------------------------------------
+# LM serving: qwen2-1.5b prefill and greedy decode with hot swap
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-1.5b"
+PREFILL_BATCH, PREFILL_LEN, PREFILL_REPS = 4, 2048, 5
+SERVE_ARGV = ("--arch", LM_ARCH, "--batch", "4", "--steps", "32",
+              "--max-len", "64", "--hot-swap-every", "8",
+              "--seed", str(SEED))
+LONG_LEN, LONG_POS, LONG_STEPS = 4096, 4000, 32
+LM_KERNELS = ("flash_attention", "decode_attention")
+BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+F32_PEAK_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+F32_LOGIT_ATOL = 1e-3               # float32 logits, kernel vs plain path
+# bfloat16 logits, kernel vs plain path: the two attentions agree to fp32
+# rounding, but a bf16 rounding of an attention output can flip and travel
+# through 28 layers; the bound is set in PERF.md before the first run
+BF16_LOGIT_BOUND = 1.0
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's attention through the plain versions instead of
+    the kernels, on any device: the path the kernel path is held against.
+    The model calls ``ops.flash_attention`` / ``ops.decode_attention`` by
+    attribute, so swapping them is enough; the kernels' counters do not
+    move."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention = ref.flash_attention
+    ops.decode_attention = ref.decode_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _logit_dev(a, b, vocab: int) -> tuple[float, float]:
+    """Largest |a - b| over the real vocabulary columns, and the share of
+    rows whose greedy token agrees."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    dev = float((a - b).abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return dev, agree
+
+
+def profile_call(fn, device) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (CPU + CUDA): wall time, the
+    device-busy time (the CUDA kernels' and copies' own time), the top
+    device entries, and the host's kernel launches and stream syncs.
+    ``busy_ms`` is None when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = time.perf_counter() - t
+    ka = prof.key_averages()
+    dev = sorted(((e.key, e.self_device_time_total) for e in ka
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    count = lambda *names: sum(e.count for e in ka if e.key in names)
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": sum(t for _, t in dev) / 1e3 if dev else None,
+            "top": [(k[:50], t / 1e3) for k, t in dev[:6]],
+            "launches": count("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaLaunchKernelExC", "cuLaunchKernelEx"),
+            "syncs": count("cudaStreamSynchronize", "cudaDeviceSynchronize")}
+
+
+def _profile_line(label: str, prof: dict) -> str:
+    busy = "not visible to torch.profiler" if prof["busy_ms"] is None \
+        else (f"{prof['busy_ms']:.3f} ms "
+              f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy)")
+    return (f"  profiled {label}: wall {prof['wall_ms']:.3f} ms, device "
+            f"{busy}; {prof['launches']} kernel launches and "
+            f"{prof['syncs']} stream syncs from the host; top "
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in prof["top"]))
+
+
+def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
+    """``make_prefill_step`` on ``tokens``: once in float32 (the params
+    cast) and ``reps`` timed times in the config's bf16 on the kernel
+    path, each against the plain path on the same params and tokens,
+    then once more profiled. ``forwards`` counts the kernel path's
+    forwards (a warm-up included)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import make_prefill_step
+    fa = ops.KERNELS["flash_attention"]
+    batch = {"tokens": tokens}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = _tree_map(lambda t: t.float(), params)
+    step32 = make_prefill_step(cfg32)
+    before = fa.launches
+    kernel = step32(p32, batch)
+    _sync(device)
+    per_forward = fa.launches - before
+    with plain_attention():
+        plain = step32(p32, batch)
+    f32_dev, f32_agree = _logit_dev(kernel, plain, cfg.vocab_size)
+    del p32, kernel, plain
+    step = make_prefill_step(cfg)
+    ms = []
+    for _ in range(reps + 1):                   # the first warms up
+        t0 = time.perf_counter()
+        kernel = step(params, batch)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with plain_attention():
+        plain = step(params, batch)
+    bf16_dev, bf16_agree = _logit_dev(kernel, plain, cfg.vocab_size)
+    if not (torch.isfinite(kernel[..., :cfg.vocab_size]).all()
+            and kernel.shape == (*tokens.shape, cfg.padded_vocab)):
+        raise AssertionError("prefill logits not finite of shape (B, S, V)")
+    del kernel, plain
+    prof = profile_call(lambda: step(params, batch), device)
+    return {"per_forward": per_forward, "forwards": len(ms) + 2,
+            "f32_dev": f32_dev, "f32_agree": f32_agree, "bf16_dev": bf16_dev,
+            "bf16_agree": bf16_agree, "ms": ms[1:], "profile": prof}
+
+
+def _recording(step_fn, records: list):
+    """``step_fn`` that also keeps each step's params, tokens, positions
+    and logits, so the plain path can replay the kernel path's steps."""
+    def step(params, cache, tokens, pos):
+        logits, cache = step_fn(params, cache, tokens, pos)
+        records.append((params, tokens, pos, logits))
+        return logits, cache
+    return step
+
+
+def decode_run(cfg, driver, params, args, gen, device) -> dict:
+    """``launch.serve.run`` on ``driver`` (hot swaps and all), then the
+    plain path teacher-forced: each recorded step replayed with the same
+    params, tokens and positions on a copy of the cache as it stood before
+    the run, its logits compared with the kernel path's."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step
+    records: list = []
+    driver.step_fn = _recording(driver.step_fn, records)
+    plain_cache = _tree_map(lambda t: t.clone(), driver.cache)
+    t0 = time.perf_counter()
+    tokens, lat = serve.run(driver, params, args, gen)
+    wall = time.perf_counter() - t0
+    devs, agree = [], []
+    with plain_attention():
+        for p, tok, pos, logits in records:
+            plain, plain_cache = decode_step(p, cfg, plain_cache, tok, pos)
+            d, a = _logit_dev(logits, plain, cfg.vocab_size)
+            devs.append(d)
+            agree.append(a)
+    if tokens.shape != (args.batch, args.steps) or not (
+            (0 <= tokens) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"decode tokens of shape {tokens.shape} or out "
+                             f"of the vocabulary")
+    _sync(device)
+    return {"lat_ms": [x * 1e3 for x in lat], "wall_s": wall,
+            "max_dev": max(devs), "agree": float(np.mean(agree)),
+            "steps": len(records)}
+
+
+def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
+             prefill_reps: int, long_len: int, long_pos: int,
+             long_steps: int, seed: int = SEED) -> dict:
+    """The LM serving path through its entry points: ``launch.serve``
+    builds the model and its ``ServeDriver`` from ``serve_argv``;
+    ``make_prefill_step`` runs a prefill of ``prefill_batch`` x
+    ``prefill_len`` tokens (float32 and bf16); the launcher's own decode
+    run follows, then a decode against a long cache seeded up to
+    ``long_pos`` of ``long_len``. Each is held against the plain path.
+    The launch counters are reset before and read after the whole path."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.predictor import ServeDriver
+
+    args = serve.parse_args([*serve_argv, "--device", device.type])
+    cfg, params, driver, gen = serve.build(args)
+    data = torch.Generator(device=device).manual_seed(seed + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (prefill_batch, prefill_len),
+                           generator=data, device=device)
+    long_args = serve.parse_args([*serve_argv, "--device", device.type,
+                                  "--steps", str(long_steps),
+                                  "--max-len", str(long_len)])
+    long_driver = ServeDriver(cfg=cfg, params=params, batch=long_args.batch,
+                              max_len=long_len, cache_dtype=torch.float32,
+                              device=device)
+    for seg in long_driver.cache["segments"]:       # K/V of a long context
+        for kv in seg.values():
+            for t in kv.values():
+                t[:, :, :long_pos] = torch.randn(
+                    t[:, :, :long_pos].shape, generator=data,
+                    device=device)
+    long_driver.pos = torch.full((long_args.batch,), long_pos,
+                                 dtype=torch.int32, device=device)
+    sizes = {"param_bytes": _tree_bytes(params),
+             "cache_bytes": _tree_bytes(driver.cache)
+             + _tree_bytes(long_driver.cache)}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    prefill = prefill_phase(cfg, params, tokens, prefill_reps, device)
+    after_prefill = ops.launch_counts()
+    serve_run = decode_run(cfg, driver, params, args, gen, device)
+    after_serve = ops.launch_counts()
+    long_run = decode_run(cfg, long_driver, params, long_args, gen, device)
+    launches = ops.launch_counts()
+    serve_run["launches"] = after_serve["decode_attention"] \
+        - after_prefill["decode_attention"]
+    long_run["launches"] = launches["decode_attention"] \
+        - after_serve["decode_attention"]
+    if device.type == "cuda":
+        sizes["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # one more step of the long run, profiled (after the comparisons)
+    tok = torch.zeros((long_args.batch, 1), dtype=torch.int32, device=device)
+    long_run["profile"] = profile_call(lambda: long_driver.step(tok), device)
+    # the path's own attention inputs for the kernels' timing rows: a
+    # layer's q, k, v at the prefill's shapes, and a layer's cache of the
+    # long run with its first step's lengths
+    cache0 = long_driver.cache["segments"][0]["pos0"]
+    return {"cfg": cfg, "prefill": prefill, "serve": serve_run,
+            "long": long_run, "launches": launches, "sizes": sizes,
+            "layers": cfg.num_layers,
+            "decode_inputs": (cache0["k"][0], cache0["v"][0],
+                              long_pos + 1)}
+
+
+def _attn_inputs(b, h, g, s, d, dtype, gen, device):
+    """q (B, H, S, D), k, v (B, G, S, D) as the model hands them to the
+    kernel: transposed views of (B, S, heads, D) projections."""
+    import torch
+    return tuple(torch.randn((b, s, n, d), generator=gen, device=device)
+                 .to(dtype).transpose(1, 2) for n in (h, g, g))
+
+
+def _check_close(name: str, got, want, tol: float) -> float:
+    """``got`` within ``rtol = atol = tol`` of ``want`` elementwise;
+    returns the largest absolute deviation."""
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"{name}: deviates from its plain version by "
+                             f"{float(diff.max()):.3g}, over rtol=atol={tol}")
+    return float(diff.max())
+
+
+def check_lm_kernels(cfg, device) -> list[str]:
+    """Both LM kernels against their plain versions at the path's shapes,
+    within 2e-5 (float32) and 2e-2 (bf16) relative and absolute."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    h, g, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    lines = []
+    for s, causal, dtype in ((PREFILL_LEN, True, torch.bfloat16),
+                             (PREFILL_LEN, True, torch.float32),
+                             (1000, True, torch.bfloat16),
+                             (1000, True, torch.float32),
+                             (PREFILL_LEN, False, torch.bfloat16)):
+        q, k, v = _attn_inputs(PREFILL_BATCH, h, g, s, d, dtype, gen, device)
+        dev = _check_close("flash_attention",
+                           fa.flash_attention(q, k, v, causal=causal),
+                           ref.flash_attention(q, k, v, causal=causal),
+                           tol[dtype])
+        lines.append(f"flash_attention ({PREFILL_BATCH}, {h}, {s}, {d}) "
+                     f"{'causal' if causal else 'full'} {str(dtype)[6:]}: "
+                     f"max deviation {dev:.3g}")
+    lengths = torch.tensor([1, LONG_LEN, 2048, LONG_POS + 1],
+                           dtype=torch.int32, device=device)
+    for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                              (torch.bfloat16, torch.float32),
+                              (torch.bfloat16, torch.bfloat16)):
+        q = torch.randn((4, h, d), generator=gen, device=device).to(q_dtype)
+        k, v = (torch.randn((4, LONG_LEN, g, d), generator=gen,
+                            device=device).to(kv_dtype) for _ in range(2))
+        dev = _check_close("decode_attention",
+                           da.decode_attention(q, k, v, lengths),
+                           ref.decode_attention(q, k, v, lengths),
+                           tol[q_dtype])
+        lines.append(f"decode_attention q (4, {h}, {d}) {str(q_dtype)[6:]} "
+                     f"vs cache (4, {LONG_LEN}, {g}, {d}) "
+                     f"{str(kv_dtype)[6:]}, lengths {lengths.tolist()}: "
+                     f"max deviation {dev:.3g}")
+    _sync(device)
+    return lines
+
+
+def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
+    """Each LM kernel timed at the path's shapes beside its plain version,
+    its bound and ``scaled_dot_product_attention`` (the yardstick the port
+    never calls): flash at the prefill's bf16 shapes, decode against the
+    long run's float32 cache at its first step's lengths."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    b, h, g, d, s = (PREFILL_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim, PREFILL_LEN)
+    q, k, v = _attn_inputs(b, h, g, s, d, torch.bfloat16, gen, device)
+    err = _check_close("flash_attention", fa.flash_attention(q, k, v),
+                       ref.flash_attention(q, k, v), 2e-2)
+    rows = [_row("flash_attention", "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:70", err,
+                 lambda: fa.flash_attention(q, k, v),
+                 lambda: ref.flash_attention(q, k, v),
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, enable_gqa=True),
+                 2 * 2 * (b * h + b * g) * s * d,
+                 f"q ({b}, {h}, {s}, {d}), k, v ({b}, {g}, {s}, {d}) bf16, "
+                 f"causal", flops=2.0 * b * h * s * s * d,
+                 peak=BF16_PEAK_FLOPS, agreement="within 2e-2 of its plain "
+                 "version")]
+    ck, cv, length = decode_inputs
+    n = ck.shape[0]
+    qd = torch.randn((n, h, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    lengths = torch.full((n,), length, dtype=torch.int32, device=device)
+    err = _check_close("decode_attention",
+                       da.decode_attention(qd, ck, cv, lengths),
+                       ref.decode_attention(qd, ck, cv, lengths), 2e-2)
+    q4 = qd.float()[:, :, None]
+    k4, v4 = (t[:, :length].transpose(1, 2) for t in (ck, cv))
+    rows.append(_row("decode_attention", "decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:63", err,
+                     lambda: da.decode_attention(qd, ck, cv, lengths),
+                     lambda: ref.decode_attention(qd, ck, cv, lengths),
+                     lambda: F.scaled_dot_product_attention(
+                         q4, k4, v4, enable_gqa=True),
+                     2 * n * length * g * d * 4 + 2 * n * h * d * 2,
+                     f"q ({n}, {h}, {d}) bf16 vs cache ({n}, "
+                     f"{ck.shape[1]}, {g}, {d}) f32, lengths {length}",
+                     flops=4.0 * n * length * h * d, peak=F32_PEAK_FLOPS,
+                     agreement="within 2e-2 of its plain version"))
+    return rows
+
+
+def report_lm(lm: dict) -> None:
+    """Print the LM phase's numbers and hold them to their limits."""
+    cfg, pre, n = lm["cfg"], lm["prefill"], lm["layers"]
+    launches = lm["launches"]
+    p50 = float(np.percentile(pre["ms"], 50))
+    print(f"LM serving: {cfg.name} at full width ({n} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+          f"vocab {cfg.vocab_size}), random weights from seed {SEED}; "
+          f"params {lm['sizes']['param_bytes']} bytes, KV caches "
+          f"{lm['sizes']['cache_bytes']} bytes, peak device memory "
+          f"{lm['sizes'].get('peak_bytes')} bytes", flush=True)
+    print(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN} bf16: p50 {p50:.3f} ms "
+          f"over {len(pre['ms'])} ({PREFILL_BATCH * PREFILL_LEN / p50 * 1e3:.0f}"
+          f" tokens/s); flash_attention launches per forward "
+          f"{pre['per_forward']} ({pre['forwards']} forwards on the kernel "
+          f"path); logits vs the plain path: float32 max "
+          f"deviation {pre['f32_dev']:.3g} (limit {F32_LOGIT_ATOL}), bf16 "
+          f"{pre['bf16_dev']:.3g} (limit {BF16_LOGIT_BOUND}); greedy tokens "
+          f"agree {pre['f32_agree']:.4f} (f32), {pre['bf16_agree']:.4f} "
+          f"(bf16)")
+    for label, run in (("launcher's run (max_len 64)", lm["serve"]),
+                       (f"long cache (pos {LONG_POS} of {LONG_LEN})",
+                        lm["long"])):
+        lat = run["lat_ms"]
+        print(f"  decode, {label}: {run['steps']} steps, p50 "
+              f"{np.percentile(lat, 50):.3f} ms, p99 "
+              f"{np.percentile(lat, 99):.3f} ms per step (4 tokens/step: "
+              f"{4 / np.percentile(lat, 50) * 1e3:.1f} tokens/s), "
+              f"{run['wall_s']:.2f} s with hot swaps; decode_attention "
+              f"launches {run['launches']} ({run['launches'] / run['steps']:g}"
+              f" per step); teacher-forced logits vs the plain path: max "
+              f"deviation {run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), "
+              f"greedy tokens agree {run['agree']:.4f}", flush=True)
+    print(_profile_line(f"bf16 prefill ({PREFILL_BATCH} x {PREFILL_LEN})",
+                        pre["profile"]))
+    print(_profile_line(f"decode step at length {LONG_POS + LONG_STEPS + 1}",
+                        lm["long"]["profile"]))
+    print(f"  launches in the LM path: {launches}")
+    want = {"flash_attention": n * pre["forwards"],
+            "decode_attention": n * (lm["serve"]["steps"]
+                                     + lm["long"]["steps"])}
+    if pre["per_forward"] != n or {k: launches[k] for k in want} != want:
+        raise AssertionError(f"LM launches {launches}, want {want} and "
+                             f"{n} per forward")
+    if pre["f32_dev"] > F32_LOGIT_ATOL:
+        raise AssertionError(f"float32 prefill logits deviate by "
+                             f"{pre['f32_dev']:.3g}")
+    worst = max(pre["bf16_dev"], lm["serve"]["max_dev"],
+                lm["long"]["max_dev"])
+    if worst > BF16_LOGIT_BOUND:
+        raise AssertionError(f"bf16 logits deviate by {worst:.3g}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1032,9 +1487,29 @@ def main() -> int:
     for row in new_rows:
         row["launches"] = tr["launches"][row["name"]]
     kernels += new_rows
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    lm_cfg = get_config(LM_ARCH)
+    print(f"LM kernels against their plain versions at {LM_ARCH}'s shapes:",
+          flush=True)
+    for line in check_lm_kernels(lm_cfg, dev):
+        print(f"  {line}")
+    lm = drive_lm(dev, SERVE_ARGV, prefill_batch=PREFILL_BATCH,
+                  prefill_len=PREFILL_LEN, prefill_reps=PREFILL_REPS,
+                  long_len=LONG_LEN, long_pos=LONG_POS,
+                  long_steps=LONG_STEPS)
+    report_lm(lm)
+    lm_rows = lm_kernel_rows(lm["cfg"], lm.pop("decode_inputs"), dev)
+    for row in lm_rows:
+        row["launches"] = lm["launches"][row["name"]]
+    kernels += lm_rows
+    print(f"LM phase in {time.perf_counter() - t:.1f} s", flush=True)
     print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the serving "
-          "kernels' from the serving predicts, the others' from train -> "
-          "sync -> serve)")
+          "kernels' from the serving predicts, the train and sync kernels' "
+          "from train -> sync -> serve, the attention kernels' from the LM "
+          "path)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

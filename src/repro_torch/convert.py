@@ -1,5 +1,8 @@
 """Carry state across into the port in bulk, outside the sync stream.
 
+``load_lm_params`` carries an LM's parameter tree (the JAX package's
+``models.init_params`` output, as NumPy arrays) into the port's tensors.
+
 The port deploys rows to its serving replicas through its own sync
 stream (``core/streaming.py``: Pusher → int8 codec → queue → Scatter).
 These two loaders install columnar state as plain NumPy — the columns the
@@ -21,7 +24,10 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.ps import resolve_device
 from repro_torch.core.routing import RoutingPlan, owner_segments
 
 
@@ -109,3 +115,57 @@ def load_serve_state(replica_sets: list, plan: RoutingPlan,
         for name, t in (dense or {}).items():
             shard.dense[name] = np.asarray(t, np.float32).reshape(1, -1)
             shard.dense_versions[name] = (dense_versions or {}).get(name, 0)
+
+
+def _lm_tensor(a, device: torch.device) -> torch.Tensor:
+    """One parameter leaf as a tensor of the same dtype on ``device``. A
+    JAX bfloat16 array reaches NumPy as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses: it goes through float32 (exact for
+    bfloat16) and back."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def load_lm_params(cfg: ModelConfig, params: dict, device="cuda") -> dict:
+    """The port's parameter dict from the reference's LM parameter tree.
+
+    Args:
+      cfg: the model config both trees were built for.
+      params: the reference's ``init_params(cfg, key)`` tree (or any tree
+        of the same nesting), leaves as NumPy or JAX arrays: ``embed``,
+        ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"][name]``
+        stacked on a leading ``repeats`` axis, and ``lm_head`` when the
+        head is untied.
+      device: where the tensors go (default the card; raises without one).
+    Returns the same nesting with tensors of the leaves' dtypes.
+    """
+    dev = resolve_device(device)
+    want = {"embed", "final_norm", "segments"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(params) != want:
+        raise ValueError(f"{cfg.name}: parameter keys {sorted(params)}, "
+                         f"want {sorted(want)}")
+    embed_shape = tuple(np.shape(params["embed"]))
+    if embed_shape != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"{cfg.name}: embed {embed_shape}, want "
+                         f"{(cfg.padded_vocab, cfg.d_model)}")
+    if len(params["segments"]) != len(cfg.segments):
+        raise ValueError(f"{cfg.name}: {len(params['segments'])} segments, "
+                         f"want {len(cfg.segments)}")
+
+    def convert(tree, repeats):
+        if isinstance(tree, dict):
+            return {k: convert(v, repeats) for k, v in tree.items()}
+        if np.shape(tree)[:1] != (repeats,):
+            raise ValueError(f"{cfg.name}: layer leaf of shape "
+                             f"{np.shape(tree)} is not stacked on "
+                             f"{repeats} repeats")
+        return _lm_tensor(tree, dev)
+
+    out = {k: _lm_tensor(params[k], dev) for k in want - {"segments"}}
+    out["segments"] = [convert(sp, seg.repeats) for sp, seg in
+                       zip(params["segments"], cfg.segments)]
+    return out

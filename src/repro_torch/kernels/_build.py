@@ -10,8 +10,9 @@ loads a stale library), at first use, and is loaded with ``ctypes``:
 
 Nothing here runs at import, so ``import repro_torch`` works on a host
 with no CUDA toolkit; asking for a kernel there raises ``RuntimeError``.
-The wrappers share ``on_cpu`` (device dispatch) and ``launch`` (stream,
-device guard and launch-error check) from here.
+The wrappers share ``on_cpu`` (device dispatch), ``launch`` (stream,
+device guard and launch-error check), ``rows_aligned`` and
+``DTYPE_CODES`` from here.
 """
 
 from __future__ import annotations
@@ -29,9 +30,12 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("hashmap_probe", "embedding_lookup", "ftrl_row_update",
-           "delta_codec")
+           "delta_codec", "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the C interfaces' dtype codes (float32 and bfloat16 kernels)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -117,3 +121,13 @@ def launch(name: str, cfunc, device: torch.device, *args) -> None:
         rc = cfunc(*args, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its last axis is contiguous and every row starts on a
+    16-byte boundary (the kernels' vector loads), else a contiguous copy."""
+    word = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % word == 0 for st in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

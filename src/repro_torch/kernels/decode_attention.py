@@ -1,0 +1,109 @@
+"""Single-token GQA attention against a ragged KV cache (flash-decode)
+wrapper — counterpart of the reference's Pallas
+``kernels/decode_attention.py``.
+
+The port's ``models/attention.py`` ``decode_self_attention`` calls it for
+global layers against a full-precision cache, where the reference's model
+writes the same function inline. The CUDA kernel
+(``csrc/decode_attention.cu``) reads only the cache rows below each
+sequence's length and takes q and the cache in their own dtypes (float32
+or bfloat16 each).
+
+The wrapper dispatches on its tensors' device: CPU tensors take the
+plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
+raise — there is no fallback). ``decode_attention.launches`` counts its
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+HEAD_DIMS = (64, 128, 256)                  # the kernel's instantiations
+SMEM_LIMIT = 232_448                # bytes of shared memory a block may use
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                     ctypes.c_float, p]
+    lib.decode_attention.restype = ctypes.c_int
+    lib.decode_attention_smem_bytes.argtypes = [i, i]
+    lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """One query token per sequence against its first ``lengths[b]`` cache
+    rows.
+
+    Args:
+      q: (B, H, D) queries, NOT pre-scaled (``D^-0.5`` is applied inside,
+        on float32 values); float32 or bfloat16.
+      k, v: (B, S, G, D) cache with ``H % G == 0``; head h reads group
+        ``h // (H // G)``; float32 or bfloat16 (may differ from q's).
+      lengths: (B,) integer valid lengths, each in ``[1, S]``. The TPU
+        kernel returns zeros for a length of 0 where the reference's
+        plain attention returns the mean of V, so 0 is refused: on the
+        CPU with ``ValueError``; on the card the kernel fails a
+        device-side assert, raised as ``RuntimeError`` at the next
+        synchronisation (a host-side check would read the lengths back
+        on every call, and no decode step could be captured in a CUDA
+        graph).
+    Returns (B, H, D) in ``q.dtype``.
+    """
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, H, D) and k, v one (B, S, G, D) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, d = q.shape
+    s, g = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d) or g < 1 or h % g:
+        raise ValueError(f"cache {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}: need (B, S, G, D), H % G == 0")
+    if lengths.shape != (b,) or lengths.dtype.is_floating_point:
+        raise ValueError(f"lengths must be (B,) integers, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    if _build.on_cpu(q, k, v, lengths):
+        if b and not bool(((lengths >= 1) & (lengths <= s)).all()):
+            raise ValueError(f"lengths must lie in [1, {s}], got "
+                             f"{lengths.tolist()}")
+        return ref.decode_attention(q, k, v, lengths)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported on the card "
+                         f"({HEAD_DIMS})")
+    codes = _build.DTYPE_CODES
+    if q.dtype not in codes or k.dtype not in codes or v.dtype != k.dtype:
+        raise ValueError(f"q and the cache must be float32 or bfloat16 "
+                         f"(k and v alike), got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    smem = _lib().decode_attention_smem_bytes(d, h // g)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{h // g} query heads per KV group at D={d} need "
+                         f"{smem} bytes of shared memory (limit "
+                         f"{SMEM_LIMIT})")
+    q, k, v = (_build.rows_aligned(x) for x in (q, k, v))
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(1))
+    _build.launch("decode_attention", _lib().decode_attention, q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  lengths.data_ptr(), out.data_ptr(), strides, b, h, g, s, d,
+                  codes[q.dtype], codes[k.dtype], d ** -0.5)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -6,15 +6,18 @@ on the tensors' device inside each wrapper: CUDA tensors launch the
 hand-written kernels, CPU tensors run the plain versions in
 ``kernels/ref.py``. ``fused_lookup`` (serve) and ``fused_ftrl_apply``
 (train) chain probe → slot translate → gather (→ FTRL → scatter) without
-a host hop, as the reference's jits do.
+a host hop, as the reference's jits do. ``flash_attention`` (prefill) and
+``decode_attention`` (decode) are the LM serving path's kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import delta_codec as _dc
 from repro_torch.kernels import embedding_lookup as _el
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ftrl_row_update as _ftrl
 from repro_torch.kernels import hashmap_probe as _hm
 
@@ -23,6 +26,8 @@ embedding_scatter = _el.embedding_scatter
 ftrl_row_update = _ftrl.ftrl_row_update
 quantize_rows = _dc.quantize_rows
 dequantize_rows = _dc.dequantize_rows
+flash_attention = _fa.flash_attention
+decode_attention = _da.decode_attention
 
 # every hand-written kernel wrapper of the port, each with its
 # ``launches`` counter
@@ -32,7 +37,9 @@ KERNELS = {"hashmap_probe": _hm.hashmap_probe,
            "embedding_scatter": _el.embedding_scatter,
            "ftrl_row_update": _ftrl.ftrl_row_update,
            "quantize_rows": _dc.quantize_rows,
-           "dequantize_rows": _dc.dequantize_rows}
+           "dequantize_rows": _dc.dequantize_rows,
+           "flash_attention": _fa.flash_attention,
+           "decode_attention": _da.decode_attention}
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,8 +4,15 @@ each CUDA kernel against on the card.
 
 They run on any device. The kernel wrappers (``kernels/hashmap_probe.py``,
 ``kernels/embedding_lookup.py``, ``kernels/ftrl_row_update.py``,
-``kernels/delta_codec.py``) call them for tensors that lie on the CPU;
-for CUDA tensors the wrappers launch the hand-written kernels.
+``kernels/delta_codec.py``, ``kernels/flash_attention.py``,
+``kernels/decode_attention.py``) call them for tensors that lie on the
+CPU; for CUDA tensors the wrappers launch the hand-written kernels.
+
+The attention versions compute what the TPU kernels compute (fp32 scores
+of a query scaled on fp32 values, a -1e30 mask, fp32 softmax, the
+denominator clamped at 1e-30) as whole-row softmaxes; the kernels' online
+softmax sums in another order, so the two agree within a tolerance, not
+bit for bit.
 
 The FTRL and int8 codec versions repeat their kernel's arithmetic op for
 op in float32, bit-equal to the NumPy routes (``FTRL.update_rows``,
@@ -234,3 +241,50 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``q`` int8 (B, D) times ``scale`` (B, 1) -> float32 (B, D)."""
     return q.to(torch.float32) * scale.to(torch.float32)
+
+
+_NEG_INF = -1e30                    # the attention kernels' mask value
+
+
+def _softmax_v(scores: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
+    """``softmax(scores) . v`` as the attention kernels finish it: ``p =
+    exp(s - max)``, ``l = sum(p)``, ``(p . v) / max(l, 1e-30)``, in
+    float32."""
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum(eq, p, v.float()) / den
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention with the flash kernel's arithmetic. q (B, H, S, D);
+    k, v (B, G, T, D) with H = G * m, head h reading KV group h // m.
+    Scores are ``(q * D^-0.5) . k`` in float32 (q scaled on float32
+    values); causal masks key index > query index with -1e30; the softmax
+    and P.V run in float32; the output is cast to ``q.dtype``."""
+    b, h, s, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, g, h // g, s, d) * _f32(d ** -0.5, q)
+    scores = torch.einsum("bgmsd,bgtd->bgmst", qf, k.float())
+    if causal:
+        keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, _NEG_INF)
+    out = _softmax_v(scores, v, "bgmst,bgtd->bgmsd")
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """One query token per sequence against a KV cache, with the decode
+    kernel's arithmetic. q (B, H, D); k, v (B, S, G, D); lengths (B,):
+    cache rows ``>= lengths[b]`` score -1e30. Scores ``(q * D^-0.5) . k``,
+    softmax and P.V in float32; the output (B, H, D) in ``q.dtype``."""
+    b, h, d = q.shape
+    s, g = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, g, h // g, d) * _f32(d ** -0.5, q)
+    scores = torch.einsum("bgmd,bsgd->bgms", qf, k.float())
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(q.device, torch.long)[:, None])
+    scores = scores.masked_fill(~valid[:, None, None, :], _NEG_INF)
+    out = _softmax_v(scores, v, "bgms,bsgd->bgmd")
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,1 +1,9 @@
-"""CTR models (LR / FM / DNN) in PyTorch."""
+"""The paper's sparse CTR models (LR / FM / DNN, ``models.ctr``) and the
+LM serving path (``models.model``: dense attention + MLP stacks) in
+PyTorch."""
+from repro_torch.models.model import (decode_step, forward, head_logits,
+                                      init_cache, init_params,
+                                      lm_head_weights)
+
+__all__ = ["decode_step", "forward", "head_logits", "init_cache",
+           "init_params", "lm_head_weights"]

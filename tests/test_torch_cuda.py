@@ -136,3 +136,102 @@ def test_fused_ftrl_apply_on_card_matches_cpu_chain(cuda):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert torch.equal(a, b)
     assert bool(outs["cuda"][-1].all())               # every id found
+
+
+def _tol(dtype):
+    """2e-5 in float32 (summation order only), 2e-2 where the output is
+    rounded to bfloat16 — the reference's own kernel tolerances."""
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,g,s,t,d", [
+    (2, 4, 2, 256, 256, 64),          # GQA 2:1, whole tiles
+    (1, 12, 2, 1000, 1000, 128),      # qwen2-1.5b heads, ragged S
+    (2, 4, 4, 100, 77, 128),          # MHA, ragged S != T
+    (1, 8, 1, 130, 130, 256),         # MQA, the wide head
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, t, d,
+                                                      causal, dtype):
+    from repro_torch.kernels import flash_attention as port_fa
+    gen = torch.Generator(device=cuda).manual_seed(b * s + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, h, s, d), (b, g, t, d), (b, g, t, d)))
+    before = port_fa.flash_attention.launches
+    got = port_fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert port_fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = port_ref.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    # (B, S, H, D) projections passed as transposed views: same result,
+    # written in the views' layout
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (k, v))
+    strided = port_fa.flash_attention(qt, kt, vt, causal=causal)
+    assert strided.stride() == qt.stride()
+    assert torch.equal(strided, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,g,s,d", [
+    (4, 12, 2, 512, 128),             # qwen2-1.5b heads
+    (3, 4, 2, 300, 64),               # reduced configs' head dim
+    (2, 28, 4, 257, 128),             # qwen2-7b: 7 heads per group
+])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_decode_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, d,
+                                                       q_dtype, kv_dtype):
+    from repro_torch.kernels import decode_attention as port_da
+    gen = torch.Generator(device=cuda).manual_seed(b * s + d)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(q_dtype)
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda)
+            .to(kv_dtype) for _ in range(2))
+    lengths = torch.tensor([1, s, 65, 64][:b], device=cuda,
+                           dtype=torch.int32)          # mixed, 1 and S
+    before = port_da.decode_attention.launches
+    got = port_da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert port_da.decode_attention.launches == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    want = port_ref.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(q_dtype),
+                               atol=_tol(q_dtype))
+    # rows past a sequence's length are never read
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lengths.tolist()):
+        k2[i, n:], v2[i, n:] = 1e6, float("nan")
+    assert torch.equal(port_da.decode_attention(q, k2, v2, lengths), got)
+
+
+@pytest.mark.cuda
+def test_decode_attention_length_zero_fails_on_card(cuda):
+    """A length of 0 fails the kernel's device-side assert and surfaces as
+    a RuntimeError at the next synchronisation. In a child process: the
+    assert leaves that process's CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    script = (
+        "import torch\n"
+        "from repro_torch.kernels import decode_attention as da\n"
+        "q = torch.zeros(1, 2, 64, device='cuda')\n"
+        "k = torch.zeros(1, 8, 1, 64, device='cuda')\n"
+        "da.decode_attention(q, k, k, torch.zeros(1, dtype=torch.int32,\n"
+        "                                         device='cuda'))\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert "raised:" in out.stdout, out.stdout + out.stderr
+    assert "assert" in out.stdout.lower()

@@ -1,0 +1,219 @@
+"""The port's LM serving path against the JAX package's, on the CPU, at
+``reduced(get_config(arch), layers_per_segment=2)`` for qwen2-1.5b (tied
+head) and qwen2-7b (untied ``lm_head``).
+
+The reference's ``init_params`` tree is perturbed leaf by leaf with
+seeded numpy noise (so the zero-initialised norms and QKV biases take
+part) and carried into the port with ``convert.load_lm_params``; both
+packages then run the same tokens. The port's wrappers run the plain
+attention versions on CPU tensors. Float32 throughout: logits agree
+within ``rtol=1e-4, atol=1e-4`` (sums in another order through two
+layers and the vocab projection).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro.serving.predictor import ServeDriver as JaxServeDriver
+from repro.serving.predictor import make_serve_step as jax_make_serve_step
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import load_lm_params
+from repro_torch.kernels import ops as port_ops
+from repro_torch.launch import serve as port_serve
+from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.serving.predictor import ServeDriver, make_serve_step
+
+ARCHS = ["qwen2-1.5b", "qwen2-7b"]
+RTOL = ATOL = 1e-4
+
+
+def _cfgs(arch):
+    jcfg = jax_reduced(jax_get_config(arch), layers_per_segment=2)
+    cfg = reduced(get_config(arch), layers_per_segment=2)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)  # a copy
+    return jcfg, cfg
+
+
+def _params(jcfg, seed: int):
+    """The reference's parameters with every leaf perturbed, as numpy."""
+    rng = np.random.default_rng(seed)
+    tree = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    return jax.tree.map(
+        lambda a: np.asarray(a) + 0.1 * rng.standard_normal(
+            a.shape, dtype=np.float32), tree)
+
+
+def _close(got: torch.Tensor, want) -> float:
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    return float(np.abs(got.numpy() - want).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_load_lm_params_carries_every_leaf(arch):
+    jcfg, cfg = _cfgs(arch)
+    tree = _params(jcfg, 0)
+    params = load_lm_params(cfg, tree, device="cpu")
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    flat_j = jax.tree_util.tree_leaves_with_path(tree)
+    for path, leaf in flat_j:
+        node = params
+        for k in path:
+            node = node[getattr(k, "key", getattr(k, "idx", None))]
+        assert node.dtype == torch.float32
+        np.testing.assert_array_equal(node.numpy(), leaf)
+    # bfloat16 leaves (ml_dtypes in numpy) go through float32, exactly
+    bf = jnp.asarray(tree["final_norm"]).astype(jnp.bfloat16)
+    got = load_lm_params(cfg, {**tree, "final_norm": np.asarray(bf)},
+                         device="cpu")["final_norm"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(bf.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_match_reference(arch):
+    jcfg, cfg = _cfgs(arch)
+    tree = _params(jcfg, 1)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                               size=(2, 24)).astype(np.int32)
+    want, _ = jax_forward(jax.tree.map(jnp.asarray, tree), jcfg,
+                          jnp.asarray(tokens))
+    before = port_ops.launch_counts()
+    got, metrics = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
+                           torch.from_numpy(tokens))
+    assert port_ops.launch_counts() == before         # plain versions
+    assert got.shape == (2, 24, cfg.padded_vocab)
+    assert float(metrics["moe_aux"]) == 0.0
+    _close(got, want)
+    hidden, _ = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
+                        torch.from_numpy(tokens), return_hidden=True)
+    assert hidden.shape == (2, 24, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_logits_match_reference(arch):
+    """Eight decode steps of the same tokens from an empty cache; the
+    cache the port updates in place equals the reference's new cache."""
+    jcfg, cfg = _cfgs(arch)
+    tree = _params(jcfg, 3)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = load_lm_params(cfg, tree, device="cpu")
+    b, max_len = 3, 12
+    jcache = jax_init_cache(jcfg, b, max_len, dtype=jnp.float32)
+    cache = init_cache(cfg, b, max_len, dtype=torch.float32, device="cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             size=(8, b, 1)).astype(np.int32)
+    for t in range(8):
+        pos = np.full((b,), t, np.int32)
+        want, jcache = jax_decode_step(jparams, jcfg, jcache,
+                                       jnp.asarray(toks[t]), jnp.asarray(pos))
+        got, cache2 = decode_step(params, cfg, cache, torch.from_numpy(toks[t]),
+                                  torch.from_numpy(pos))
+        assert cache2 is cache
+        _close(got, want)
+    for seg, jseg in zip(cache["segments"], jcache["segments"]):
+        for k in ("k", "v"):
+            np.testing.assert_allclose(seg["pos0"][k].numpy(),
+                                       np.asarray(jseg["pos0"][k]),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def _recording(step_fn, log: list):
+    def step(params, cache, tokens, pos):
+        logits, cache = step_fn(params, cache, tokens, pos)
+        log.append(np.array(logits))
+        return logits, cache
+    return step
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_driver_with_hot_swap_matches_reference(arch):
+    """Two ``generate`` calls with a ``hot_swap`` between them: greedy
+    tokens equal, every step's logits within tolerance (the largest
+    deviation is printed; ``pytest -s`` shows it)."""
+    jcfg, cfg = _cfgs(arch)
+    trees = [_params(jcfg, 5), _params(jcfg, 6)]
+    jlog, log = [], []
+    jdrv = JaxServeDriver(cfg=jcfg, params=jax.tree.map(jnp.asarray,
+                                                        trees[0]),
+                          batch=2, max_len=16, cache_dtype=jnp.float32,
+                          step_fn=_recording(jax_make_serve_step(jcfg, jit=False),
+                                             jlog))
+    drv = ServeDriver(cfg=cfg, params=load_lm_params(cfg, trees[0], "cpu"),
+                      batch=2, max_len=16, cache_dtype=torch.float32,
+                      step_fn=_recording(make_serve_step(cfg), log),
+                      device="cpu")
+    prompt = np.array([[3], [7]], np.int32)
+    want = [jdrv.generate(jnp.asarray(prompt), 4)]
+    got = [drv.generate(torch.from_numpy(prompt), 4)]
+    jdrv.hot_swap(jax.tree.map(jnp.asarray, trees[1]))
+    drv.hot_swap(load_lm_params(cfg, trees[1], "cpu"))
+    want.append(jdrv.generate(jnp.asarray(want[0][:, -1:]), 4))
+    got.append(drv.generate(torch.from_numpy(got[0][:, -1:]), 4))
+    for g, w in zip(got, want):
+        assert g.shape == (2, 4)                   # a fresh accumulator
+        np.testing.assert_array_equal(g, w)
+    dev = max(_close(torch.from_numpy(a), b) for a, b in zip(log, jlog))
+    assert len(log) == 8
+    print(f"{arch}: max logit deviation over 8 steps {dev:.3g}")
+
+
+def test_head_logits_mask_the_padded_vocab():
+    """A vocabulary that is no multiple of 256 pads the table; the pad
+    columns are -1e30 in both packages (the reduced configs' 512 pads
+    nothing)."""
+    from repro.models.model import head_logits as jax_head_logits
+    from repro_torch.models import head_logits
+    jcfg, cfg = (dataclasses.replace(c, vocab_size=500) for c in
+                 _cfgs("qwen2-7b"))
+    assert cfg.padded_vocab == 512
+    rng = np.random.default_rng(8)
+    head = rng.standard_normal((512, cfg.d_model), dtype=np.float32)
+    x = rng.standard_normal((2, 3, cfg.d_model), dtype=np.float32)
+    want = np.asarray(jax_head_logits(jnp.asarray(head), jcfg,
+                                      jnp.asarray(x)))
+    got = head_logits(torch.from_numpy(head), cfg, torch.from_numpy(x))
+    assert (got[..., 500:] == -1e30).all() and (want[..., 500:] == -1e30).all()
+    _close(got, want)
+
+
+def test_serve_launcher_runs_reduced_on_cpu(capsys):
+    tokens = port_serve.main(["--reduced", "--device", "cpu", "--steps", "9",
+                              "--hot-swap-every", "4"])
+    cfg = reduced(get_config("qwen2-1.5b"))
+    assert tokens.shape == (4, 9) and tokens.dtype == np.int32
+    assert ((0 <= tokens) & (tokens < cfg.vocab_size)).all()
+    out = capsys.readouterr().out
+    assert out.count("hot-swapped serve weights") == 2
+    assert "generated shape=(4, 9)" in out
+
+
+def test_unported_configs_and_modes_raise():
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("gemma3-4b")
+    cfg = reduced(get_config("qwen2-1.5b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="positions"):
+        forward(params, cfg, tokens, positions=torch.arange(4)[None])
+    with pytest.raises(NotImplementedError, match="int8"):
+        init_cache(cfg, 1, 8, device="cpu", kv_quant=True)
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(IndexError):                  # past the cache
+        decode_step(params, cfg, cache, tokens[:, :1],
+                    torch.tensor([8], dtype=torch.int32))
+    with pytest.raises(ValueError, match="lengths must lie"):   # length 0
+        decode_step(params, cfg, cache, tokens[:, :1],
+                    torch.tensor([-1], dtype=torch.int32))
