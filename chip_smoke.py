@@ -7,7 +7,9 @@ width — train on master shards, stream through the int8 codec to the
 serving replicas, serve from the streamed rows — and checks it against
 the port's host path; then serves qwen2-1.5b at full width (prefill and
 greedy decode with hot weight swaps) and checks it against the same
-model on the plain attention.
+model on the plain attention; then trains qwen2-1.5b at full width with
+Adam, streams it to a serving replica and hot-swaps the replica's params
+into a decoding driver.
 
     python3 chip_smoke.py
 
@@ -68,11 +70,34 @@ Phases (any failure exits non-zero and prints no result line):
    params and positions on its own copy of the cache, logits at every
    step within the bf16 bound; greedy agreement is printed, not held.
    ``flash_attention`` must launch 28 times a forward and
-   ``decode_attention`` 28 times a step. Both are then timed beside
-   their bound, their plain versions and
+   ``decode_attention`` 28 times a step, ``embedding_lookup`` (the token
+   gather) once a forward and once a step. Both attentions are then
+   timed beside their bound, their plain versions and
    ``torch.nn.functional.scaled_dot_product_attention`` (never used by
    the port).
-6. A JSON line of per-kernel numbers, the card's name and power limit
+6. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
+   ``embedding_scatter_add`` against its plain version, bit-equal, in
+   float32 and bf16, on a (151936, 1536) table with one ``lm_batches``
+   batch's 4 x 1024 token ids and with 4096 rows of one id. Then one
+   float32 train step's loss and gradients on the kernel path against the
+   plain path (``plain_attention()`` also swaps the token gather and its
+   gradient): loss within rtol ``F32_LOSS_RTOL``, the embed, layer-0
+   ``wq`` and last-layer ``w_down`` gradients within ``F32_GRAD_BOUND``
+   of their largest magnitude. Then, with the counters reset before and
+   read after, ``launch.train``'s own run (``TRAIN_ARGV``: 8 steps of 4 x
+   1024, cast16, a sync period of 5 on a clock that counts steps, so one
+   periodic flush and the final one): ``embedding_scatter_add`` and
+   ``embedding_lookup`` once a step, ``flash_attention`` 56 times a step
+   (28 forward, 28 in remat's recompute); the replica's staleness against
+   the trained params under 2e-3. Step p50 / p99, tokens/s, ``mfu`` (model
+   FLOPs over step time over 989 TFLOP/s), peak memory and each flush's
+   time, records and bytes are printed. Last, a ``ServeDriver`` started
+   on the initial params decodes 4 steps, hot-swaps in the replica's
+   ``device_params`` and decodes 8 more: logits finite, 28
+   ``decode_attention`` launches a step. The scatter-add is then timed on
+   one batch's ids beside its bound, its plain version and
+   ``Tensor.index_add_`` (never used by the port).
+7. A JSON line of per-kernel numbers, the card's name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -963,21 +988,26 @@ F32_LOGIT_ATOL = 1e-3               # float32 logits, kernel vs plain path
 BF16_LOGIT_BOUND = 1.0
 
 
+LM_PLAIN = ("flash_attention", "decode_attention", "embedding_lookup",
+            "embedding_scatter_add")
+
+
 @contextlib.contextmanager
 def plain_attention():
-    """Route the model's attention through the plain versions instead of
-    the kernels, on any device: the path the kernel path is held against.
-    The model calls ``ops.flash_attention`` / ``ops.decode_attention`` by
-    attribute, so swapping them is enough; the kernels' counters do not
-    move."""
+    """Route the LM's kernels — both attentions, the token gather and its
+    gradient — through their plain versions, on any device: the path the
+    kernel path is held against. The model calls them as attributes of
+    ``kernels.ops``, so swapping those is enough; the kernels' counters
+    do not move."""
     from repro_torch.kernels import ops, ref
-    saved = ops.flash_attention, ops.decode_attention
-    ops.flash_attention = ref.flash_attention
-    ops.decode_attention = ref.decode_attention
+    saved = {name: getattr(ops, name) for name in LM_PLAIN}
+    for name in LM_PLAIN:
+        setattr(ops, name, getattr(ref, name))
     try:
         yield
     finally:
-        ops.flash_attention, ops.decode_attention = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 def _tree_map(fn, tree):
@@ -1353,9 +1383,10 @@ def report_lm(lm: dict) -> None:
     print(_profile_line(f"decode step at length {LONG_POS + LONG_STEPS + 1}",
                         lm["long"]["profile"]))
     print(f"  launches in the LM path: {launches}")
+    steps = lm["serve"]["steps"] + lm["long"]["steps"]
     want = {"flash_attention": n * pre["forwards"],
-            "decode_attention": n * (lm["serve"]["steps"]
-                                     + lm["long"]["steps"])}
+            "decode_attention": n * steps,
+            "embedding_lookup": pre["forwards"] + steps}
     if pre["per_forward"] != n or {k: launches[k] for k in want} != want:
         raise AssertionError(f"LM launches {launches}, want {want} and "
                              f"{n} per forward")
@@ -1366,6 +1397,272 @@ def report_lm(lm: dict) -> None:
                 lm["long"]["max_dev"])
     if worst > BF16_LOGIT_BOUND:
         raise AssertionError(f"bf16 logits deviate by {worst:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# LM training: qwen2-1.5b with Adam, streamed to a serving replica
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS_LM = 4, 1024, 8
+# the launcher's flags; the sync clock is the step count (``clock`` below),
+# so a period of 5 flushes after step 5 and the final flush follows
+TRAIN_ARGV = ("--arch", LM_ARCH, "--steps", str(TRAIN_STEPS_LM), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--codec", "cast16",
+              "--sync-period", "5", "--seed", str(SEED), "--log-every", "4")
+SWAP_DECODE_STEPS = 8
+STALENESS_BOUND = 2e-3              # the reference's cast16 bound
+F32_LOSS_RTOL = 1e-5                # float32 step, kernel vs plain path
+# float32 gradients, kernel vs plain path: max |deviation| over the
+# largest |gradient| of the leaf; the bound is set in PERF.md before the
+# first run
+F32_GRAD_BOUND = 1e-3
+# (label, leaf path, layer of a stacked leaf)
+GRAD_LEAVES = (("embed", "embed", None),
+               ("layer 0 wq", "segments/0/pos0/mixer/wq", 0),
+               ("last layer w_down", "segments/0/pos0/ffn/w_down", -1))
+
+
+def _batch_ids(cfg, device):
+    """The token ids of one ``lm_batches`` batch as the launcher draws
+    them (its bigram structure repeats tokens)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    tokens = next(lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                             seed=SEED))
+    return torch.from_numpy(tokens).to(device)
+
+
+def check_scatter_add(cfg, device) -> list[str]:
+    """``embedding_scatter_add`` against its plain version, bit-equal, in
+    float32 and bfloat16: on a (vocab, d_model) N(0, 1) table with one
+    batch's token ids and N(0, 1) updates, and with 4096 rows of one
+    id."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    ids = _batch_ids(cfg, device).reshape(-1)
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                            device=device).to(dtype)
+        for label, case in (("one batch's tokens", ids),
+                            ("4096 rows of one id",
+                             torch.full_like(ids, 7))):
+            upd = torch.randn((case.shape[0], cfg.d_model), generator=gen,
+                              device=device)
+            case32 = case.int()
+            got = el.embedding_scatter_add(table.clone(), case32, upd)
+            want = ref.embedding_scatter_add(table.clone(), case, upd)
+            if not torch.equal(got, want):
+                raise AssertionError(f"embedding_scatter_add {dtype} "
+                                     f"({label}): not bit-equal")
+            lines.append(f"embedding_scatter_add {tuple(table.shape)} "
+                         f"{str(dtype)[6:]}, {case.shape[0]} ids "
+                         f"({label}, {int(case.unique().numel())} distinct): "
+                         f"bit-equal to its plain version")
+            if dtype == torch.bfloat16 and label.startswith("4096"):
+                # one segment of 4096 duplicates: one warp adds them all
+                ms = _device_ms(lambda: el.embedding_scatter_add(
+                    got, case32, upd), iters=5, replays=2)
+                lines[-1] += f"; {ms:.5f} ms on the device (one warp)"
+        del table, got, want
+    _sync(device)
+    return lines
+
+
+def scatter_add_row(cfg, device) -> dict:
+    """``embedding_scatter_add`` timed as the embedding gradient runs it:
+    one batch's ids into a zeros (vocab, d_model) bf16 table with bf16
+    updates. Bound: the updates and ids read once, each distinct row read
+    and written once."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    ids = _batch_ids(cfg, device).reshape(-1)
+    ids32, ids64 = ids.int(), ids.long()
+    n, d = ids.shape[0], cfg.d_model
+    table = torch.zeros((cfg.padded_vocab, d), dtype=torch.bfloat16,
+                        device=device)
+    upd = torch.randn((n, d), generator=gen, device=device).bfloat16()
+    distinct = int(ids.unique().numel())
+    got = el.embedding_scatter_add(table.clone(), ids32, upd)
+    want = ref.embedding_scatter_add(table.clone(), ids64, upd)
+    if not torch.equal(got, want):
+        raise AssertionError("embedding_scatter_add: not bit-equal on the "
+                             "timed inputs")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    return _row("embedding_scatter_add", "embedding_lookup.cu",
+                "src/repro/kernels/embedding_lookup.py:79", err,
+                lambda: el.embedding_scatter_add(table, ids32, upd),
+                lambda: ref.embedding_scatter_add(table, ids64, upd),
+                lambda: table.index_add_(0, ids64, upd),
+                n * d * 2 + 2 * distinct * d * 2 + n * 4,
+                f"{n} ids ({distinct} distinct) x {d} bf16 into "
+                f"({cfg.padded_vocab}, {d})")
+
+
+def check_train_f32(cfg, device) -> dict:
+    """One float32 train step's loss and gradients at full width from the
+    seed, on the kernel path and on the plain path (``plain_attention``),
+    each freed before the next: the loss within ``F32_LOSS_RTOL``, the
+    ``GRAD_LEAVES`` gradients within ``F32_GRAD_BOUND`` of their largest
+    magnitude."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.models import init_params
+    from repro_torch.training import loss_and_grads
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=device).manual_seed(
+        SEED))
+    batch = {"tokens": _batch_ids(cfg, device)}
+    out = {}
+    for path in ("kernel", "plain"):
+        with (plain_attention() if path == "plain"
+              else contextlib.nullcontext()):
+            loss, _, grads = loss_and_grads(params, cfg32, batch)
+        flat = dict(tree.flatten_with_paths(grads))
+        out[path] = (float(loss), {
+            label: (flat[leaf] if layer is None else flat[leaf][layer]).clone()
+            for label, leaf, layer in GRAD_LEAVES})
+        del grads, flat
+        _sync(device)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    devs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max())
+            for k in gk}
+    if abs(lk - lp) > F32_LOSS_RTOL * abs(lp):
+        raise AssertionError(f"float32 loss {lk} vs plain {lp}")
+    if max(devs.values()) > F32_GRAD_BOUND:
+        raise AssertionError(f"float32 grads deviate: {devs}")
+    return {"loss": lk, "plain_loss": lp, "grad_devs": devs}
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward + backward, remat's
+    recompute not counted): 6 per token per matmul parameter (the tied
+    head included; the embedding gather does none) and causal attention's
+    two products, 2 * B * H * S^2 * hd a layer forward, 3x in training."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = 2 * d * h * hd + 2 * d * g * hd + 3 * d * f
+    matmul = cfg.num_layers * per_layer + cfg.padded_vocab * d
+    attn = cfg.num_layers * 6.0 * batch * h * seq * seq * hd
+    return 6.0 * batch * seq * matmul + attn
+
+
+def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
+    """LM training through its entry points: ``launch.train`` builds the
+    state, step and ``ModelSyncEngine`` from ``train_argv`` and runs
+    them (the sync clock counting steps), with the launch counters reset
+    before and read after; then a ``ServeDriver`` started on the initial
+    params decodes, hot-swaps in the replica's ``device_params`` and
+    decodes ``decode_steps`` more, counted on their own."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.serving.predictor import ServeDriver
+    args = train.parse_args([*train_argv, "--device", device.type])
+    cfg, state, step_fn, engine, batches = train.build(args)
+    initial = _tree_map(lambda t: t.detach().clone(), state.params)
+    driver = ServeDriver(cfg=cfg, params=initial, batch=TRAIN_BATCH,
+                         max_len=64, cache_dtype=torch.float32,
+                         device=device)
+    logits: list = []
+    driver.step_fn = _recording(driver.step_fn, logits)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, rec = train.run(args, cfg, state, step_fn, engine, batches,
+                           clock=lambda i: float(i + 1))
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    if device.type == "cuda":
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    tok = torch.zeros((TRAIN_BATCH, 1), dtype=torch.int32, device=device)
+    for _ in range(4):                        # serving before the swap
+        tok = driver.step(tok)
+    ops.reset_launches()
+    t = time.perf_counter()
+    driver.hot_swap(engine.replicas[0].device_params(cfg.param_dtype,
+                                                     device=device))
+    swap_s = time.perf_counter() - t
+    for _ in range(decode_steps):
+        tok = driver.step(tok)
+    _sync(device)
+    swapped = torch.stack([lg for *_, lg in logits[-decode_steps:]])
+    rec["decode"] = {"launches": ops.launch_counts(), "steps": decode_steps,
+                     "swap_s": swap_s,
+                     "finite": bool(torch.isfinite(
+                         swapped[..., :cfg.vocab_size]).all())}
+    rec["metrics"] = engine.metrics()
+    # one more train step, profiled (after every count and comparison)
+    batch = {"tokens": torch.from_numpy(next(batches)).to(device)}
+    rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
+    return {"cfg": cfg, "args": args, "run": rec}
+
+
+def report_lm_train(lm: dict, f32: dict) -> None:
+    """Print the LM-training phase's numbers and hold them to their
+    limits."""
+    cfg, args, rec = lm["cfg"], lm["args"], lm["run"]
+    n, steps = cfg.num_layers, args.steps
+    step_ms = np.array(rec["step_s"]) * 1e3
+    p50 = float(np.percentile(step_ms, 50))
+    tokens = args.batch * args.seq
+    flops = model_flops(cfg, args.batch, args.seq)
+    print(f"LM training: {cfg.name} ({n} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}), random "
+          f"weights from seed {SEED}; launcher {' '.join(TRAIN_ARGV)}, sync clock = steps",
+          flush=True)
+    print(f"  float32 step, kernel vs plain path: loss {f32['loss']:.6f} vs "
+          f"{f32['plain_loss']:.6f} (limit rtol {F32_LOSS_RTOL}); grads max "
+          f"|deviation| / max |grad|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in f32["grad_devs"].items())
+          + f" (limit {F32_GRAD_BOUND})")
+    print(f"  {steps} steps of {args.batch} x {args.seq}: step p50 "
+          f"{p50:.3f} ms, p99 {np.percentile(step_ms, 99):.3f} ms "
+          f"(first {step_ms[0]:.3f}); {tokens / p50 * 1e3:.0f} tokens/s; "
+          f"model FLOPs {flops:.4g} a step, mfu {flops / (p50 / 1e3) / BF16_PEAK_FLOPS:.4f}"
+          f" (of {BF16_PEAK_FLOPS:.4g}); loss {rec['losses'][0]:.4f} -> "
+          f"{rec['losses'][-1]:.4f}; peak device memory "
+          f"{rec.get('peak_bytes')} bytes; {rec['wall_s']:.1f} s in all",
+          flush=True)
+    for i, fl in enumerate(rec["flushes"]):
+        print(f"  flush {i}: {fl['s']:.3f} s, {fl['records']} records, "
+              f"{fl['bytes']} bytes")
+    print(f"  sync {rec['metrics']}; replica staleness vs the trained "
+          f"params {rec['staleness']:.3g} (limit {STALENESS_BOUND})")
+    dec = rec["decode"]
+    print(f"  hot swap of the replica's bf16 device params in "
+          f"{dec['swap_s']:.3f} s, then {dec['steps']} decode steps: logits "
+          f"finite {dec['finite']}; launches {dec['launches']}")
+    print(_profile_line("train step", rec["profile"]))
+    print(f"  launches in the training run: {rec['launches']}")
+    want = {"embedding_scatter_add": steps, "embedding_lookup": steps,
+            "flash_attention": 2 * n * steps}
+    if {k: rec["launches"][k] for k in want} != want:
+        raise AssertionError(f"training launches {rec['launches']}, want "
+                             f"{want}")
+    want_dec = {"decode_attention": n * dec["steps"],
+                "embedding_lookup": dec["steps"]}
+    if {k: dec["launches"][k] for k in want_dec} != want_dec:
+        raise AssertionError(f"decode launches {dec['launches']}, want "
+                             f"{want_dec}")
+    if len(rec["flushes"]) < 2:
+        raise AssertionError(f"{len(rec['flushes'])} flushes: want a "
+                             f"periodic one before the final one")
+    if not rec["staleness"] < STALENESS_BOUND:
+        raise AssertionError(f"replica staleness {rec['staleness']}")
+    if not (dec["finite"] and np.isfinite(rec["losses"]).all()):
+        raise AssertionError("non-finite losses or decode logits")
 
 
 def main() -> int:
@@ -1506,10 +1803,28 @@ def main() -> int:
         row["launches"] = lm["launches"][row["name"]]
     kernels += lm_rows
     print(f"LM phase in {time.perf_counter() - t:.1f} s", flush=True)
+    del lm, lm_rows
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    print(f"LM training kernel against its plain version at {LM_ARCH}'s "
+          f"shapes:", flush=True)
+    for line in check_scatter_add(lm_cfg, dev):
+        print(f"  {line}")
+    f32 = check_train_f32(lm_cfg, dev)
+    torch.cuda.empty_cache()
+    lm_train = drive_lm_train(dev, TRAIN_ARGV,
+                              decode_steps=SWAP_DECODE_STEPS)
+    report_lm_train(lm_train, f32)
+    row = scatter_add_row(lm_cfg, dev)
+    row["launches"] = lm_train["run"]["launches"]["embedding_scatter_add"]
+    kernels.append(row)
+    del lm_train
+    print(f"LM training phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
     print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the serving "
           "kernels' from the serving predicts, the train and sync kernels' "
           "from train -> sync -> serve, the attention kernels' from the LM "
-          "path)")
+          "serving path, the scatter-add's from the LM training run)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

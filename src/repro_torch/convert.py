@@ -1,7 +1,9 @@
 """Carry state across into the port in bulk, outside the sync stream.
 
 ``load_lm_params`` carries an LM's parameter tree (the JAX package's
-``models.init_params`` output, as NumPy arrays) into the port's tensors.
+``models.init_params`` output, as NumPy arrays) into the port's tensors;
+``load_lm_train_state`` carries a whole LM ``TrainState`` (params,
+optimizer slots, step).
 
 The port deploys rows to its serving replicas through its own sync
 stream (``core/streaming.py``: Pusher → int8 codec → queue → Scatter).
@@ -169,3 +171,33 @@ def load_lm_params(cfg: ModelConfig, params: dict, device="cuda") -> dict:
     out["segments"] = [convert(sp, seg.repeats) for sp, seg in
                        zip(params["segments"], cfg.segments)]
     return out
+
+
+def load_lm_train_state(cfg: ModelConfig, state, device="cuda"):
+    """The port's ``training.TrainState`` from the reference's.
+
+    Args:
+      cfg: the model config both states were built for.
+      state: the reference's ``TrainState`` (or any object with
+        ``params``, ``slots`` and ``step``), leaves as NumPy or JAX
+        arrays: ``slots`` has the params' structure with a dict of
+        float32 slots (Adam: ``m``, ``v``) where the params have a leaf;
+        ``step`` an integer scalar.
+      device: where the tensors go (default the card; raises without one).
+    Returns the port's ``TrainState``: params via ``load_lm_params``,
+    float32 slot tensors, ``step`` as an int.
+    """
+    from repro_torch.core.tree import map_like
+    from repro_torch.training.trainer import TrainState
+    dev = resolve_device(device)
+    params = load_lm_params(cfg, state.params, dev)
+
+    def slot_dict(p, slots):
+        if any(np.shape(v) != tuple(p.shape) for v in slots.values()):
+            raise ValueError(f"{cfg.name}: slots {sorted(slots)} do not "
+                             f"match a param of shape {tuple(p.shape)}")
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+                for k, v in slots.items()}
+
+    slots = map_like(slot_dict, params, state.slots)
+    return TrainState(params=params, slots=slots, step=int(state.step))

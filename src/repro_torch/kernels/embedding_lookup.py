@@ -1,11 +1,15 @@
-"""Row gather and row scatter-set wrappers — counterpart of the
-reference's Pallas ``kernels/embedding_lookup.py``.
+"""Row gather, row scatter-set and row scatter-add wrappers — counterpart
+of the reference's Pallas ``kernels/embedding_lookup.py``.
 
 ``embedding_lookup`` is the serve path's row gather (cache arena and
-replica tables); ``embedding_scatter`` re-uploads dirty arena rows into a
-device mirror in place. The CUDA kernels (``csrc/embedding_lookup.cu``)
-copy rows as raw bytes, so every dtype is bit-exact and any row width
-works.
+replica tables) and the LM's token-embedding gather;
+``embedding_scatter`` re-uploads dirty arena rows into a device mirror
+in place; ``embedding_scatter_add`` is the token gather's gradient (rows
+of duplicate ids accumulate). The gather and scatter-set kernels
+(``csrc/embedding_lookup.cu``) copy rows as raw bytes, so every dtype is
+bit-exact and any row width works; the scatter-add adds in input order,
+rounding to the table's dtype after every add, bit-equal to its plain
+version.
 
 Each wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
@@ -29,8 +33,10 @@ def _lib() -> ctypes.CDLL:
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.embedding_lookup.argtypes = [p, ll, p, ll, p, p]
     lib.embedding_scatter.argtypes = [p, ll, p, ll, p, p]
+    lib.embedding_scatter_add.argtypes = [p, ll, p, ll, p, ctypes.c_int, p]
     lib.embedding_lookup.restype = ctypes.c_int
     lib.embedding_scatter.restype = ctypes.c_int
+    lib.embedding_scatter_add.restype = ctypes.c_int
     return lib
 
 
@@ -98,3 +104,53 @@ def embedding_scatter(table: torch.Tensor, ids: torch.Tensor,
 
 
 embedding_scatter.launches = 0
+
+
+def embedding_scatter_add(table: torch.Tensor, ids: torch.Tensor,
+                          updates: torch.Tensor) -> torch.Tensor:
+    """Row scatter-ADD in place: ``table[ids[i]] += updates[i]``, the rows
+    of duplicate ids accumulating in input order.
+
+    As the reference's wrapper does, the ids are sorted here with a
+    STABLE sort (so a row's duplicates stay in input order) and the
+    updates permuted with them; the kernel then finds each id's segment
+    and adds it up on one warp, rounding to ``table.dtype`` after every
+    add (see ``csrc/embedding_lookup.cu``). Bit-equal to the plain
+    version, and to the Pallas kernel's sequential ``+=``.
+
+    Args:
+      table: (V, D) float32 or bfloat16, contiguous — updated in place
+        (the reference's aliased output).
+      ids: (N,) int32 or int64, any order, in bounds (the kernel does
+        not check).
+      updates: (N, D), cast to ``table.dtype`` before they are added.
+    Returns ``table``. No ids is a no-op.
+    """
+    if _build.on_cpu(table, ids, updates):
+        return ref.embedding_scatter_add(table, ids, updates)
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous (V, D) tensor, got "
+                         f"{tuple(table.shape)}")
+    if table.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"table must be float32 or bfloat16, got "
+                         f"{table.dtype}")
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids must be a 1-D int32 or int64 tensor, got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if updates.shape != (ids.shape[0], table.shape[1]):
+        raise ValueError(f"updates {tuple(updates.shape)} do not match "
+                         f"{ids.shape[0]} ids x {table.shape[1]} columns")
+    if ids.shape[0] == 0 or table.shape[1] == 0:
+        return table
+    sorted_ids, order = torch.sort(ids, stable=True)
+    sorted_ids = sorted_ids.to(torch.int32)
+    upd = updates.to(table.dtype)[order].contiguous()
+    _build.launch("embedding_scatter_add", _lib().embedding_scatter_add,
+                  table.device, table.data_ptr(), table.shape[1],
+                  sorted_ids.data_ptr(), sorted_ids.shape[0], upd.data_ptr(),
+                  _build.DTYPE_CODES[table.dtype])
+    embedding_scatter_add.launches += 1
+    return table
+
+
+embedding_scatter_add.launches = 0

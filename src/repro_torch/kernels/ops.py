@@ -7,7 +7,9 @@ hand-written kernels, CPU tensors run the plain versions in
 ``kernels/ref.py``. ``fused_lookup`` (serve) and ``fused_ftrl_apply``
 (train) chain probe → slot translate → gather (→ FTRL → scatter) without
 a host hop, as the reference's jits do. ``flash_attention`` (prefill) and
-``decode_attention`` (decode) are the LM serving path's kernels.
+``decode_attention`` (decode) are the LM serving path's kernels;
+``embedding_lookup`` gathers the LM's token embeddings and
+``embedding_scatter_add`` is their gradient in training.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch.kernels import hashmap_probe as _hm
 
 embedding_lookup = _el.embedding_lookup
 embedding_scatter = _el.embedding_scatter
+embedding_scatter_add = _el.embedding_scatter_add
 ftrl_row_update = _ftrl.ftrl_row_update
 quantize_rows = _dc.quantize_rows
 dequantize_rows = _dc.dequantize_rows
@@ -35,6 +38,7 @@ KERNELS = {"hashmap_probe": _hm.hashmap_probe,
            "hashmap_probe_hbm": _hm.hashmap_probe_hbm,
            "embedding_lookup": _el.embedding_lookup,
            "embedding_scatter": _el.embedding_scatter,
+           "embedding_scatter_add": _el.embedding_scatter_add,
            "ftrl_row_update": _ftrl.ftrl_row_update,
            "quantize_rows": _dc.quantize_rows,
            "dequantize_rows": _dc.dequantize_rows,

@@ -14,6 +14,10 @@ denominator clamped at 1e-30) as whole-row softmaxes; the kernels' online
 softmax sums in another order, so the two agree within a tolerance, not
 bit for bit.
 
+The row scatter-add adds each id's duplicates in input order, rounding
+to the table's dtype after every add, bit-equal to the Pallas kernel in
+interpret mode and to the CUDA kernel.
+
 The FTRL and int8 codec versions repeat their kernel's arithmetic op for
 op in float32, bit-equal to the NumPy routes (``FTRL.update_rows``,
 ``Int8Transform._quantize_np``): every scalar is a 0-dim float32 tensor
@@ -169,9 +173,37 @@ def embedding_scatter(table: torch.Tensor, ids: torch.Tensor,
     return table
 
 
+def embedding_scatter_add(table: torch.Tensor, ids: torch.Tensor,
+                          updates: torch.Tensor) -> torch.Tensor:
+    """Row scatter-ADD in place: ``table[ids[i]] += updates[i]`` (cast to
+    ``table.dtype`` first), duplicates accumulating IN INPUT ORDER, each
+    add rounded to ``table.dtype`` — the Pallas kernel's sequential
+    ``+=`` over stably sorted ids. The ids of one duplicate rank ``r``
+    (the r-th occurrence of each id) are unique, so rank by rank,
+    ``table[ids_r] += upd_r`` adds each row's r-th update after its
+    (r-1)-th. ``index_add_`` is not used: its order of accumulation is
+    unspecified. Returns ``table``."""
+    n = ids.shape[0]
+    if n == 0:
+        return table
+    sid, order = torch.sort(ids.long(), stable=True)
+    upd = updates.to(table.dtype)[order]
+    idx = torch.arange(n, device=sid.device)
+    first = torch.ones(n, dtype=torch.bool, device=sid.device)
+    first[1:] = sid[1:] != sid[:-1]
+    rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        rows = sid[sel]
+        table[rows] = table[rows] + upd[sel]
+    return table
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    """``v`` rounded to float32 once, as a 0-dim tensor beside ``like``."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """``v`` rounded to float32 once, as a 0-dim tensor beside ``like``:
+    filled on that device (``torch.tensor`` would copy it from the host,
+    a blocking copy on a CUDA device)."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

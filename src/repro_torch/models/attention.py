@@ -13,6 +13,11 @@ float32 values (the reference scales it in the working dtype), and
 ``decode_attention`` keeps keys and probabilities in float32 (the
 reference rounds keys to q's dtype and probabilities to the cache's).
 
+Training differentiates ``self_attention`` through ``_FlashAttention``:
+the forward is the kernel, the backward the standard attention gradient
+in plain tensor ops (the reference has no Pallas backward either: it
+trains through XLA's autodiff of its einsum softmax).
+
 Windowed, bidirectional-encoder and cross attention and the int8 KV cache
 are not ported yet and raise ``NotImplementedError``. The function
 boundaries keep the reference's layouts: x (B, S, D), q (B, S, H, hd),
@@ -48,6 +53,45 @@ def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Causal GQA attention: forward ``ops.flash_attention`` (the
+    kernel), backward written out in float32 tensor ops — the counterpart
+    of XLA's autodiff of the reference's softmax attention, computed
+    outside any kernel. It recomputes the probabilities P from q and k
+    (the kernel keeps none), then ``D = rowsum(dO * O)``, ``dS = P * (dP -
+    D)``, and ``dq``, ``dk``, ``dv``, summing k's and v's over the heads
+    of their group. q (B, H, S, hd); k, v (B, G, T, hd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = ops.flash_attention(q, k, v, causal=True)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        b, h, s, hd = q.shape
+        g, t = k.shape[1], k.shape[2]
+        scale = hd ** -0.5
+        grouped = (b, g, h // g, s, hd)
+        qf = q.float().reshape(grouped) * scale
+        kf, vf = k.float(), v.float()
+        scores = torch.einsum("bgmsd,bgtd->bgmst", qf, kf)
+        keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
+        p = torch.softmax(scores.masked_fill_(~keep, -1e30), dim=-1)
+        del scores
+        do = d_out.float().reshape(grouped)
+        delta = (do * out.float().reshape(grouped)).sum(-1, keepdim=True)
+        ds = torch.einsum("bgmsd,bgtd->bgmst", do, vf).sub_(delta).mul_(p)
+        dv = torch.einsum("bgmst,bgmsd->bgtd", p, do)
+        del p
+        dq = torch.einsum("bgmst,bgtd->bgmsd", ds, kf).mul_(scale)
+        dk = torch.einsum("bgmst,bgmsd->bgtd", ds, qf)
+        return (dq.reshape(b, h, s, hd).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype))
+
+
 def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                    cfg: ModelConfig, causal: bool = True,
                    window: int = 0) -> torch.Tensor:
@@ -66,8 +110,8 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     k = rope(k, positions, cfg.rope_theta)
     # the kernel's (B, H, S, hd) / (B, Kv, T, hd) as transposed views: it
     # takes strides, and writes its output in q's (B, S, H, hd) layout
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+    out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2))
     return _out_proj(p, out.transpose(1, 2))
 
 

@@ -1,5 +1,5 @@
-"""Shared LM building blocks: norm, rotary embedding, initializer — the
-counterpart of the reference's ``models/common.py``.
+"""Shared LM building blocks: token embedding, norm, rotary embedding,
+initializer — the counterpart of the reference's ``models/common.py``.
 
 The reference's ``mesh_axis_names`` and ``subkey`` have no counterpart:
 the port runs on one card without a mesh, and draws from explicit
@@ -9,6 +9,41 @@ the port runs on one card without a mesh, and draws from explicit
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
+
+
+class _EmbedTokens(torch.autograd.Function):
+    """Token-embedding gather whose gradient is a row scatter-add. The
+    reference writes ``embed[tokens]`` and XLA differentiates the gather;
+    here the forward is ``ops.embedding_lookup`` and the backward
+    ``ops.embedding_scatter_add`` into a zeros table of the param's
+    dtype: the transpose of the gather, duplicate tokens accumulating."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
+        ids = tokens.reshape(-1).to(torch.int32)
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        rows = ops.embedding_lookup(table, ids)
+        return rows.view(*tokens.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        d_table = torch.zeros(ctx.table_shape, dtype=grad.dtype,
+                              device=grad.device)
+        ops.embedding_scatter_add(d_table, ids,
+                                  grad.reshape(-1, ctx.table_shape[1]))
+        return d_table, None
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: (V, D) table, integer tokens of any shape ->
+    tokens.shape + (D,), in the table's dtype. Forward through the
+    ``embedding_lookup`` kernel, gradient through
+    ``embedding_scatter_add`` (plain versions on CPU tensors)."""
+    return _EmbedTokens.apply(table, tokens)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,12 +1,19 @@
-"""LM composition for the serving path: parameter init, full-sequence
-forward (prefill) and single-token decode — the counterpart of the
-reference's ``models/model.py`` for dense ``ATTN`` + ``MLP`` stacks.
+"""LM composition: parameter init, full-sequence forward (prefill and
+training) and single-token decode — the counterpart of the reference's
+``models/model.py`` for dense ``ATTN`` + ``MLP`` stacks.
 
 Parameters are a plain dict with the reference's nesting (``embed``,
 ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"]``, ``lm_head``
 when the head is untied), each layer leaf stacked on a leading
 ``repeats`` axis. The reference scans that axis with ``jax.lax.scan``;
-the port loops over it in Python, one layer's views at a time.
+the port loops over it in Python. ``forward`` unbinds every stacked leaf
+once (under autograd one ``UnbindBackward`` stacks the layers'
+gradients, where a ``v[r]`` view per layer would build a gradient the
+size of the whole stack for every layer) and, with ``cfg.remat`` and
+grad enabled, recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). Tokens
+are embedded through ``common.embed_tokens``: the ``embedding_lookup``
+kernel forward, ``embedding_scatter_add`` backward.
 
 MoE and Mamba layers, sliding-window, encoder and cross attention, and
 encoder-decoder or frontend-context models raise ``NotImplementedError``.
@@ -18,11 +25,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, MLP, ModelConfig, Segment
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, embed_tokens, rms_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -114,6 +122,15 @@ def _layer(tree: dict, r: int) -> dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: dict, repeats: int) -> list[dict]:
+    """Every layer's views of a stacked parameter subtree, each leaf
+    unbound once: ``[_layer(tree, r) for r in range(repeats)]``, with one
+    autograd node per leaf instead of one per layer."""
+    per_key = {k: _unbind(v, repeats) if isinstance(v, dict)
+               else torch.unbind(v, 0) for k, v in tree.items()}
+    return [{k: v[r] for k, v in per_key.items()} for r in range(repeats)]
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -122,6 +139,14 @@ def _layer(tree: dict, r: int) -> dict:
 def _apply_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["norm"])
     return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+
+
+def _block(lp: dict, x: torch.Tensor, pos: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One ATTN + MLP layer with its residuals."""
+    mx = lp["mixer"]
+    x = x + attn.self_attention(mx, rms_norm(x, mx["norm"]), pos, cfg=cfg)
+    return x + _apply_ffn(lp["ffn"], x)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -144,16 +169,19 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError("explicit positions: the flash kernel "
                                   "masks by index, so only arange(S) runs")
     b, s = tokens.shape
-    x = params["embed"][tokens].to(_dtype(cfg.dtype))
+    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
     pos = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for seg, seg_params in zip(cfg.segments, params["segments"]):
+        layers = [_unbind(seg_params[f"pos{i}"], seg.repeats)
+                  for i, _ in enumerate(seg.pattern)]
         for r in range(seg.repeats):
-            for i, _ in enumerate(seg.pattern):
-                lp = _layer(seg_params[f"pos{i}"], r)
-                mx = lp["mixer"]
-                x = x + attn.self_attention(mx, rms_norm(x, mx["norm"]), pos,
-                                            cfg=cfg)
-                x = x + _apply_ffn(lp["ffn"], x)
+            for per_pos in layers:
+                if remat:
+                    x = checkpoint(_block, per_pos[r], x, pos, cfg,
+                                   use_reentrant=False)
+                else:
+                    x = _block(per_pos[r], x, pos, cfg)
     x = rms_norm(x, params["final_norm"])
     metrics = {"moe_aux": torch.zeros((), dtype=torch.float32,
                                       device=x.device)}
@@ -210,7 +238,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     write or the decode kernel, raised at the next synchronisation — the
     step itself never reads back from the device."""
     _check_ported(cfg)
-    x = params["embed"][tokens].to(_dtype(cfg.dtype))
+    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
                                           cache["segments"]):
         for r in range(seg.repeats):

@@ -1,5 +1,6 @@
-"""Optimizers with named slots (FTRL ported so far)."""
+"""Optimizers with named slots (SGD, Adam and FTRL ported so far)."""
 
-from repro_torch.optim.optimizers import FTRL, Optimizer, get_optimizer
+from repro_torch.optim.optimizers import (FTRL, SGD, Adam, Optimizer,
+                                          get_optimizer)
 
-__all__ = ["FTRL", "Optimizer", "get_optimizer"]
+__all__ = ["Adam", "FTRL", "Optimizer", "SGD", "get_optimizer"]

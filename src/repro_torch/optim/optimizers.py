@@ -14,10 +14,15 @@ Each optimizer exposes:
   * ``update_rows(w, slots, grads, step, backend=...)`` — the master
     shard's batched row path on NumPy rows;
   * ``serve_slot_names`` — which slots the transform reads to build
-    serve weights.
+    serve weights;
+  * ``init_slots_tree(params)`` / ``update_tree(params, slots, grads,
+    step)`` — the same over a nested dict/list parameter tree.
+    ``update_tree`` updates params and slots IN PLACE (``update_``),
+    where the reference's jitted train step donates its state.
 
-All math is fp32. Ported so far: ``FTRL``. ``get_optimizer`` raises
-``KeyError`` naming the optimizers not ported yet.
+All math is fp32, params cast back to their dtype. Ported so far:
+``SGD``, ``Adam`` and ``FTRL``. ``get_optimizer`` raises ``KeyError``
+naming the optimizers not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.tree import map_like
 from repro_torch.kernels import ref
 
 
@@ -76,6 +82,93 @@ class Optimizer:
             _host(w), {k: _host(v) for k, v in slots.items()}, _host(grads),
             step)
         return new_w.numpy(), {k: v.numpy() for k, v in new_slots.items()}
+
+    def update_(self, param: torch.Tensor, slots: dict, grad: torch.Tensor,
+                step: int) -> None:
+        """``update`` written back into ``param`` and ``slots`` in place.
+        Optimizers whose math runs in place override this (and derive
+        ``update`` from it)."""
+        new_p, new_s = self.update(param, slots, grad, step)
+        param.copy_(new_p)
+        for k, v in new_s.items():
+            slots[k].copy_(v)
+
+    # -- parameter trees -----------------------------------------------
+    def init_slots_tree(self, params):
+        """A slot dict per leaf of a nested dict/list param tree."""
+        return map_like(self.init_slots, params)
+
+    @torch.no_grad()
+    def update_tree(self, params, slots, grads, step: int):
+        """One step over a param tree, IN PLACE (the reference returns new
+        trees; its train step donates the old ones). ``slots`` and
+        ``grads`` have the params' structure (``slots`` a dict per leaf).
+        Returns ``(params, slots)``, the trees passed in."""
+        map_like(lambda p, s, g: self.update_(p, s, g, step), params, slots,
+                 grads)
+        return params, slots
+
+
+def _pow_f32(base: float, n: int) -> np.float32:
+    """``base ** n`` for an integer ``n >= 0`` in float32 by square and
+    multiply — how the reference's jitted step raises a float to its
+    int32 step counter (bit-equal to it)."""
+    x, acc = np.float32(base), np.float32(1.0)
+    while n:
+        if n & 1:
+            acc = np.float32(acc * x)
+        x = np.float32(x * x)
+        n >>= 1
+    return acc
+
+
+def _step_like(opt: Optimizer, param, slots: dict, grad, step: int):
+    """``opt.update`` from its in-place ``update_``: on copies."""
+    new_p = param.clone()
+    new_s = {k: v.clone() for k, v in slots.items()}
+    opt.update_(new_p, new_s, grad, step)
+    return new_p, new_s
+
+
+@dataclass(frozen=True)
+class SGD(Optimizer):
+    name: str = "sgd"
+
+    def update(self, param, slots, grad, step):
+        return _step_like(self, param, slots, grad, step)
+
+    def update_(self, param, slots, grad, step):
+        param.copy_(param.float() - grad.float() * self.lr)
+
+
+@dataclass(frozen=True)
+class Adam(Optimizer):
+    """Adam in fp32 (the reference's math). The bias corrections ``1 -
+    b ** t`` with ``t = step + 1`` are taken in float32 (``_pow_f32``),
+    as the reference's jitted step takes them from its int32 step
+    counter."""
+
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    name: str = "adam"
+
+    def init_slots(self, param):
+        return {"m": _zeros_like(param), "v": _zeros_like(param)}
+
+    def update(self, param, slots, grad, step):
+        return _step_like(self, param, slots, grad, step)
+
+    def update_(self, param, slots, grad, step):
+        g = grad.float()
+        m, v = slots["m"], slots["v"]
+        m.mul_(self.b1).add_(g * (1 - self.b1))
+        v.mul_(self.b2).add_((g * (1 - self.b2)).mul_(g))
+        t = int(step) + 1
+        mhat = m / ref._f32(1 - _pow_f32(self.b1, t), m)
+        vhat = v / ref._f32(1 - _pow_f32(self.b2, t), m)
+        denom = vhat.sqrt_().add_(self.eps)
+        param.copy_(param.float() - mhat.mul_(self.lr).div_(denom))
 
 
 @dataclass(frozen=True)
@@ -157,9 +250,9 @@ class FTRL(Optimizer):
         return self._np_weights(z_new, n_new), {"z": z_new, "n": n_new}
 
 
-_OPTIMIZERS = {"ftrl": FTRL}
+_OPTIMIZERS = {"sgd": SGD, "adam": Adam, "ftrl": FTRL}
 # the reference's other optimizers, not ported yet
-_NOT_PORTED = ("adafactor", "adagrad", "adam", "momentum", "sgd")
+_NOT_PORTED = ("adafactor", "adagrad", "momentum")
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -235,3 +235,107 @@ def test_decode_attention_length_zero_fails_on_card(cuda):
                          env={**os.environ, "PYTHONPATH": src})
     assert "raised:" in out.stdout, out.stdout + out.stderr
     assert "assert" in out.stdout.lower()
+
+
+def _scatter_add_ids(kind: str, n: int, v: int, gen, device):
+    if kind == "random":
+        return torch.randint(0, v, (n,), generator=gen, device=device)
+    if kind == "all_duplicate":
+        return torch.full((n,), v // 3, device=device, dtype=torch.int64)
+    if kind == "all_unique":
+        return torch.randperm(v, generator=gen, device=device)[:n]
+    return torch.zeros((0,), dtype=torch.int64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "all_duplicate", "all_unique",
+                                  "empty"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 96, 1536])
+def test_scatter_add_kernel_matches_plain_on_card(cuda, kind, dtype, d):
+    """Bit-equal: both add each id's duplicates in input order, rounding
+    to the table's dtype after every add."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    v, n = 5000, 3000
+    table = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    ids = _scatter_add_ids(kind, n if kind != "empty" else 0, v, gen, cuda)
+    upd = torch.randn((ids.shape[0], d), generator=gen, device=cuda)
+    before = port_el.embedding_scatter_add.launches
+    got = port_el.embedding_scatter_add(table.clone(), ids.to(torch.int32),
+                                        upd)
+    torch.cuda.synchronize()
+    assert port_el.embedding_scatter_add.launches == before + (kind != "empty")
+    want = port_ref.embedding_scatter_add(table.clone(), ids, upd)
+    assert got.dtype == dtype and torch.equal(got, want)
+    if kind == "empty":
+        assert torch.equal(got, table)
+
+
+def _lm_grads(cfg, params, tokens, what):
+    """Gradients of a scalar of ``what``'s output w.r.t. the params."""
+    from repro_torch.models import attention, common
+    leaves = [p.requires_grad_(True) for p in params.values()]
+    if what == "embed":
+        out = common.embed_tokens(params["embed"], tokens)
+    else:
+        x = common.embed_tokens(params["embed"], tokens).detach()
+        pos = torch.arange(tokens.shape[1], device=x.device).expand(
+            tokens.shape)
+        out = attention.self_attention(
+            {k: v for k, v in params.items() if k != "embed"}, x, pos,
+            cfg=cfg)
+    w = torch.linspace(-1, 1, out.numel(), device=out.device).view(
+        out.shape)
+    return torch.autograd.grad((out.float() * w).sum(), leaves,
+                               allow_unused=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["embed", "attention"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_gradients_on_card_match_plain_versions(cuda, monkeypatch, what,
+                                                   dtype):
+    """``embed_tokens`` (gather forward, scatter-add backward) and the
+    differentiable ``self_attention`` (flash forward, plain-op backward)
+    on the card, against the same functions with ``kernels.ops`` routed
+    to the plain versions: embedding gradients bit-equal; attention
+    gradients, which sum over every position, within 1e-4 (float32) or
+    2e-2 (bfloat16) of each gradient's largest magnitude — the flash
+    output's summation order feeds the backward."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    cfg = reduced(get_config("qwen2-1.5b"), layers_per_segment=2)
+    p = init_params(cfg, torch.Generator(device=cuda).manual_seed(5))
+    layer = {k: v[0] for k, v in p["segments"][0]["pos0"]["mixer"].items()
+             if k != "norm"}
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for k in ("bq", "bk", "bv"):
+        layer[k] = 0.1 * torch.randn(layer[k].shape, generator=gen,
+                                     device=cuda)
+    params = {k: v.detach().to(dtype).contiguous()
+              for k, v in {"embed": p["embed"], **layer}.items()}
+    tokens = torch.randint(0, 40, (3, 256), generator=gen, device=cuda)
+    before = port_ops.launch_counts()
+    got = _lm_grads(cfg, params, tokens, what)
+    torch.cuda.synchronize()
+    counts = port_ops.launch_counts()
+    assert counts["embedding_lookup"] == before["embedding_lookup"] + 1
+    if what == "embed":
+        assert counts["embedding_scatter_add"] == \
+            before["embedding_scatter_add"] + 1
+    else:
+        assert counts["flash_attention"] == before["flash_attention"] + 1
+    for name in ("embedding_lookup", "embedding_scatter_add",
+                 "flash_attention"):
+        monkeypatch.setattr(port_ops, name, getattr(port_ref, name))
+    want = _lm_grads(cfg, params, tokens, what)
+    assert port_ops.launch_counts() == counts
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        elif what == "embed":
+            assert torch.equal(g, w)
+        else:
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            scale = float(w.float().abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= tol * scale

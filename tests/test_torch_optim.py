@@ -109,7 +109,9 @@ def test_slots_and_registry():
     assert all(isinstance(v, torch.Tensor) and v.shape == (3, 2)
                for v in t_slots.values())
     assert get_optimizer("ftrl", alpha=0.2).alpha == 0.2
-    for name in ("sgd", "momentum", "adagrad", "adam", "adafactor"):
+    assert get_optimizer("adam", lr=0.01).name == "adam"
+    assert get_optimizer("sgd").name == "sgd"
+    for name in ("momentum", "adagrad", "adafactor"):
         with pytest.raises(KeyError, match="not ported"):
             get_optimizer(name)
     with pytest.raises(KeyError, match="unknown"):
