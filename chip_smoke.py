@@ -53,7 +53,13 @@ Phases (any failure exits non-zero and prints no result line):
    kernels are then held against their plain versions on the path's own
    inputs and timed.
 5. LM serving, qwen2-1.5b at full width (28 layers, random weights from
-   the seed). First ``flash_attention`` and ``decode_attention`` against
+   the seed). (At the build, before phase 1: the whole ``-Xptxas -v``
+   report of ``flash_attention_sm90.cu`` and ``decode_attention.cu``, and
+   the count of ``HGMMA`` and ``UTMALDG`` instructions in the bf16 flash
+   kernel's SASS from ``cuobjdump -sass``, which must not be 0: the
+   tensor cores and TMA are on its path.) First ``flash_attention`` (bf16
+   on the wgmma/TMA kernel, float32 on the CUDA-core one) and
+   ``decode_attention`` (split-KV) against
    their plain versions at the path's shapes (prefill q (4, 12, 2048,
    128) causal in bf16 and f32, a ragged S = 1000, a full (non-causal)
    case; decode q (4, 12, 128) against a (4, 4096, 2, 128) cache, mixed
@@ -128,6 +134,11 @@ TRAIN_STEPS = 16
 SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
                  "embedding_scatter")
 TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
+# sources whose whole ptxas report is printed (the redesigned attention)
+PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
+# the attention kernels' symbols, whose device time each profile sums
+ATTENTION_KERNELS = ("flash_attention_sm90_kernel", "flash_attention_kernel",
+                     "decode_attention_kernel")
 
 
 def _call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -175,6 +186,19 @@ def _device_ms(fn, iters: int = 20, replays: int = 5) -> float:
 
 def _bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many instructions of each opcode the built library of
+    ``csrc/<name>.cu`` holds, from ``cuobjdump -sass`` (HGMMA: wgmma on
+    the tensor cores; UTMALDG: a TMA tile load)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    words = [w for line in sass.splitlines() for w in line.split()]
+    return {op: sum(w.split(".")[0] == op for w in words) for op in opcodes}
 
 
 def crafted_ids(home: int, count: int, shift: int,
@@ -1064,6 +1088,8 @@ def profile_call(fn, device) -> dict:
     return {"wall_ms": wall * 1e3,
             "busy_ms": sum(t for _, t in dev) / 1e3 if dev else None,
             "top": [(k[:50], t / 1e3) for k, t in dev[:6]],
+            "attention_ms": {name: sum(t for k, t in dev if name in k) / 1e3
+                             for name in ATTENTION_KERNELS},
             "launches": count("cudaLaunchKernel", "cuLaunchKernel",
                               "cudaLaunchKernelExC", "cuLaunchKernelEx"),
             "syncs": count("cudaStreamSynchronize", "cudaDeviceSynchronize")}
@@ -1076,7 +1102,10 @@ def _profile_line(label: str, prof: dict) -> str:
     return (f"  profiled {label}: wall {prof['wall_ms']:.3f} ms, device "
             f"{busy}; {prof['launches']} kernel launches and "
             f"{prof['syncs']} stream syncs from the host; top "
-            + ", ".join(f"{k} {ms:.4f}" for k, ms in prof["top"]))
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in prof["top"])
+            + "; attention kernels (device ms) "
+            + ", ".join(f"{k} {ms:.4f}"
+                        for k, ms in prof["attention_ms"].items()))
 
 
 def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
@@ -1310,7 +1339,7 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
     q, k, v = _attn_inputs(b, h, g, s, d, torch.bfloat16, gen, device)
     err = _check_close("flash_attention", fa.flash_attention(q, k, v),
                        ref.flash_attention(q, k, v), 2e-2)
-    rows = [_row("flash_attention", "flash_attention.cu",
+    rows = [_row("flash_attention", "flash_attention_sm90.cu",
                  "src/repro/kernels/flash_attention.py:70", err,
                  lambda: fa.flash_attention(q, k, v),
                  lambda: ref.flash_attention(q, k, v),
@@ -1687,10 +1716,17 @@ def main() -> int:
     logs = _build.build()
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+    for src in _build.SOURCES:
+        for line in _build.build_log(src).splitlines():
+            if ("registers" in line or "spill" in line
+                    or (src in PTXAS_FULL and "ptxas" in line)):
                 print(f"  ptxas {src}: {line.strip()}")
+    counts = sass_counts("flash_attention_sm90")
+    print(f"SASS of flash_attention_sm90 (cuobjdump -sass): "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"bf16 flash_attention has no tensor-core or "
+                             f"TMA instructions: {counts}")
 
     rng = np.random.default_rng(SEED)
     kernels = phase_kernels(dev, rng)

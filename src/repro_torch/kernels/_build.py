@@ -6,7 +6,10 @@ into ``build/repro_torch/lib<name>-<digest>.so`` under the checkout root
 loads a stale library), at first use, and is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu \\
+         [EXTRA_FLAGS[name]]
+
+(``flash_attention_sm90`` links ``-lcuda`` for ``cuTensorMapEncodeTiled``.)
 
 Nothing here runs at import, so ``import repro_torch`` works on a host
 with no CUDA toolkit; asking for a kernel there raises ``RuntimeError``.
@@ -30,9 +33,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("hashmap_probe", "embedding_lookup", "ftrl_row_update",
-           "delta_codec", "flash_attention", "decode_attention")
+           "delta_codec", "flash_attention", "flash_attention_sm90",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source only, after its file name (libraries after the
+# objects that need them); part of its library's digest
+EXTRA_FLAGS = {"flash_attention_sm90": ("-lcuda",)}
 
 # the C interfaces' dtype codes (float32 and bfloat16 kernels)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,7 +62,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the built library for ``csrc/<name>.cu`` lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ()))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -63,8 +71,9 @@ def build(names=SOURCES) -> dict[str, str]:
     """Compile every named source whose library is missing, one ``nvcc``
     process per source, all started together. Returns ``{name: compiler
     output}`` for the sources compiled (``-Xptxas -v`` prints registers,
-    shared memory and spills per kernel). Raises ``RuntimeError`` naming
-    each source that failed, with its compiler output."""
+    shared memory and spills per kernel), also kept beside each library
+    (``build_log``). Raises ``RuntimeError`` naming each source that
+    failed, with its compiler output."""
     jobs = {}
     for name in names:
         so = library_path(name)
@@ -72,7 +81,8 @@ def build(names=SOURCES) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *EXTRA_FLAGS.get(name, ())]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, so)
@@ -80,6 +90,7 @@ def build(names=SOURCES) -> dict[str, str]:
     for name, (proc, tmp, so) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            so.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, so)         # atomic: concurrent builds agree
         else:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
@@ -87,6 +98,13 @@ def build(names=SOURCES) -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the library built for ``csrc/<name>.cu``
+    (kept beside it), or "" if it has not been built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,8 @@
-// Blocked online-softmax GQA attention (prefill) for Hopper (sm_90a). Plain C
-// interface, built by kernels/_build.py with nvcc and bound with ctypes in
-// kernels/flash_attention.py, whose wrapper counts launches
-// (flash_attention.launches).
+// Blocked online-softmax GQA attention (prefill) in float32 on the CUDA
+// cores, for Hopper (sm_90a). Plain C interface, built by kernels/_build.py
+// with nvcc and bound with ctypes in kernels/flash_attention.py, which sends
+// float32 calls here and bfloat16 calls to flash_attention_sm90.cu (wgmma
+// and TMA); the wrapper counts launches of both (flash_attention.launches).
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention
 // (_flash_kernel), a Pallas kernel whose grid (batch, head, q block, kv
@@ -33,16 +34,13 @@
 // conflicts for the 16-byte loads); P = exp(s - m) goes through shared memory
 // (reusing the K tile) for the P.V product.
 //
-// Bound on this card: causal prefill does 2 * B * H * S^2 * D flops (QK^T and
-// PV over the lower triangle) on only B*(H+2G)*S*D*bytes of input, so it is
-// bound by operations: at the prefill's 4 x 12 x 2048 x 128 that is 51.5
-// GFLOP, 0.052 ms at the 989 TFLOP/s bf16 tensor-core peak. This first kernel
-// computes in fp32 on the CUDA cores (67 TFLOP/s peak), so it cannot come
-// within 15x of that bound; wgmma on bf16 tiles, TMA loads and a producer
-// warp are a later change. fp32 everywhere keeps the f32 path within 2e-5 of
-// the plain version.
+// Bound on this card: operations, 2 * B * H * S^2 * D flops for causal
+// prefill. This kernel computes in fp32 on the CUDA cores (67 TFLOP/s peak)
+// and so stays far from the 989 TFLOP/s of the bf16 tensor cores; it keeps
+// the float32 path within 2e-5 of the plain version, which TF32 tensor cores
+// (about three digits) would not. No main path runs attention in float32:
+// the model's bf16 prefill and training run on flash_attention_sm90.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,25 +55,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&u.x);
-  __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&u.y);
-  float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 struct FlashArgs {
@@ -298,9 +279,9 @@ extern "C" {
 // q (B,H,S,D), k and v (B,G,T,D), o (B,H,S,D): device pointers, the last
 // axis contiguous and every row 16-byte aligned; strides: 12 element
 // strides (batch, head, row) of q, k, v, o in that order, on the host.
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). D in {64, 128, 256}.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an unsupported D or dtype).
+// dtype: 0 float32 (q, k, v and o alike; bfloat16 goes to
+// flash_attention_sm90). D in {64, 128, 256}. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unsupported D or dtype).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     const long long* strides, int B, int H, int G, int S,
                     int T, int D, int causal, int dtype, float scale,
@@ -312,7 +293,6 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
               H, G, S, T, causal, scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch<float>(a, B, D, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, st);
   return (int)cudaErrorInvalidValue;
 }
 

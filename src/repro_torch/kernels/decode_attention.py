@@ -5,9 +5,10 @@ wrapper — counterpart of the reference's Pallas
 The port's ``models/attention.py`` ``decode_self_attention`` calls it for
 global layers against a full-precision cache, where the reference's model
 writes the same function inline. The CUDA kernel
-(``csrc/decode_attention.cu``) reads only the cache rows below each
-sequence's length and takes q and the cache in their own dtypes (float32
-or bfloat16 each).
+(``csrc/decode_attention.cu``) splits each sequence's cache across blocks
+(``split_plan``), reads only the cache rows below each sequence's length,
+combines the splits in a fixed order within the same launch, and takes q
+and the cache in their own dtypes (float32 or bfloat16 each).
 
 The wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
@@ -25,7 +26,22 @@ import torch
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (64, 128, 256)                  # the kernel's instantiations
-SMEM_LIMIT = 232_448                # bytes of shared memory a block may use
+MAX_HEADS = 16                      # query heads per KV group on the card
+CHUNK = 32                          # cache rows the kernel copies at once
+TARGET_BLOCKS = 2 * 132             # twice the H100's SMs
+
+
+def split_plan(s: int, b: int, g: int) -> tuple[int, int]:
+    """``(splits, rows)``: each (sequence, group) of a (B, S, G, D) cache
+    is cut into ``splits`` runs of ``rows`` rows, ``splits * rows >= S``.
+    ``rows`` is the largest multiple of ``CHUNK`` (at least one) with
+    ``rows * ceil(TARGET_BLOCKS / (B * G)) <= S``, so that ``B * G *
+    splits`` covers the card's SMs twice wherever S allows, in as few
+    splits as that takes. Depends on the capacity S, never on the lengths,
+    which stay on the card."""
+    want = -(-TARGET_BLOCKS // (b * g))
+    rows = CHUNK * max(1, s // (want * CHUNK))
+    return -(-s // rows), rows
 
 
 @functools.cache
@@ -33,10 +49,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                     ctypes.c_float, p]
+                                     ctypes.c_float, p, p, i, i, p]
     lib.decode_attention.restype = ctypes.c_int
-    lib.decode_attention_smem_bytes.argtypes = [i, i]
-    lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -85,11 +99,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q and the cache must be float32 or bfloat16 "
                          f"(k and v alike), got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    smem = _lib().decode_attention_smem_bytes(d, h // g)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{h // g} query heads per KV group at D={d} need "
-                         f"{smem} bytes of shared memory (limit "
-                         f"{SMEM_LIMIT})")
+    if h // g > MAX_HEADS:
+        raise ValueError(f"{h // g} query heads per KV group: the kernel "
+                         f"holds at most {MAX_HEADS}")
     q, k, v = (_build.rows_aligned(x) for x in (q, k, v))
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
@@ -98,10 +110,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(1))
+    splits, rows = split_plan(s, b, g)
+    part = torch.empty(b * g * splits * -(-(h // g) * (d + 2) // 4) * 4,
+                       dtype=torch.float32, device=q.device)
+    tickets = torch.zeros(b * g, dtype=torch.int32, device=q.device)
     _build.launch("decode_attention", _lib().decode_attention, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), strides, b, h, g, s, d,
-                  codes[q.dtype], codes[k.dtype], d ** -0.5)
+                  codes[q.dtype], codes[k.dtype], d ** -0.5, part.data_ptr(),
+                  tickets.data_ptr(), splits, rows)
     decode_attention.launches += 1
     return out
 

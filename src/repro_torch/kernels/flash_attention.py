@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128, 256)                  # the kernel's instantiations
+HEAD_DIMS = (64, 128, 256)                  # the kernels' instantiations
+TMA_STRIDE_LIMIT = 1 << 40                  # bytes, a tensor map's strides
 
 
 @functools.cache
@@ -36,13 +37,41 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_sm90")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_sm90.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                         ctypes.c_float, p]
+    lib.flash_attention_sm90.restype = ctypes.c_int
+    return lib
+
+
+def _tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, head, row) element strides of a bf16 (B, N, R, D)
+    tensor as its TMA map takes them: an axis of size 1 gets 8 (16 bytes,
+    never stepped over); any other stride must be positive and under
+    2^40 bytes, else ``ValueError``."""
+    out = []
+    for size, st in zip(x.shape[:3], x.stride()[:3]):
+        if size == 1:
+            st = 8
+        elif not 0 < st * x.element_size() < TMA_STRIDE_LIMIT:
+            raise ValueError(f"stride {st} of a {tuple(x.shape)} tensor "
+                             f"cannot be described by a TMA map")
+        out.append(st)
+    return tuple(out)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Blocked online-softmax GQA attention.
 
     Args:
       q: (B, H, S, D) queries, NOT pre-scaled (``D^-0.5`` is applied
-        inside, on float32 values).
+        inside: to q on float32 values, or on the card in bfloat16 to the
+        float32 scores, whose probabilities are then rounded to bfloat16
+        for P.V).
       k, v: (B, G, T, D) with ``H % G == 0``; head h reads group
         ``h // (H // G)``. One dtype for q, k and v: float32 or bfloat16.
       causal: mask key index > query index (by index, as the TPU kernel).
@@ -72,12 +101,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(*(
-        st for x in (q, k, v, out) for st in x.stride()[:3]))
-    _build.launch("flash_attention", _lib().flash_attention, q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  strides, b, h, g, s, t, d, int(causal),
-                  _build.DTYPE_CODES[q.dtype], d ** -0.5)
+    if q.dtype == torch.bfloat16:
+        strides = (ctypes.c_longlong * 12)(
+            *(st for x in (q, k, v) for st in _tma_strides(x)),
+            *out.stride()[:3])
+        _build.launch("flash_attention_sm90",
+                      _lib_sm90().flash_attention_sm90, q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), strides, b, h, g, s, t, d, int(causal),
+                      d ** -0.5)
+    else:
+        strides = (ctypes.c_longlong * 12)(*(
+            st for x in (q, k, v, out) for st in x.stride()[:3]))
+        _build.launch("flash_attention", _lib().flash_attention, q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), strides, b, h, g, s, t, d, int(causal),
+                      _build.DTYPE_CODES[q.dtype], d ** -0.5)
     flash_attention.launches += 1
     return out
 

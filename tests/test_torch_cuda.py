@@ -150,6 +150,10 @@ def _tol(dtype):
     (1, 12, 2, 1000, 1000, 128),      # qwen2-1.5b heads, ragged S
     (2, 4, 4, 100, 77, 128),          # MHA, ragged S != T
     (1, 8, 1, 130, 130, 256),         # MQA, the wide head
+    (4, 12, 2, 2048, 2048, 128),      # the prefill's shape
+    (1, 2, 1, 1, 1, 128),             # one query, one key
+    (1, 4, 2, 17, 300, 64),           # S far below T (a ragged TMA box)
+    (1, 4, 2, 1000, 1000, 256),       # the wide head at a ragged S
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -181,6 +185,7 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, t, d,
     (4, 12, 2, 512, 128),             # qwen2-1.5b heads
     (3, 4, 2, 300, 64),               # reduced configs' head dim
     (2, 28, 4, 257, 128),             # qwen2-7b: 7 heads per group
+    (2, 28, 4, 4096, 128),            # qwen2-7b at the long cache
 ])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -207,6 +212,58 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, d,
     for i, n in enumerate(lengths.tolist()):
         k2[i, n:], v2[i, n:] = 1e6, float("nan")
     assert torch.equal(port_da.decode_attention(q, k2, v2, lengths), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_decode_attention_split_boundaries_on_card(cuda, q_dtype, kv_dtype):
+    """Lengths that end exactly on, just before and just after the split
+    boundaries of ``split_plan``; rows past each length are poison."""
+    from repro_torch.kernels import decode_attention as port_da
+    b, h, g, s, d = 8, 12, 2, 4096, 128
+    splits, rows = port_da.split_plan(s, b, g)
+    assert b * g * splits >= 264
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(q_dtype)
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda)
+            .to(kv_dtype) for _ in range(2))
+    lengths = torch.tensor([rows, rows + 1, rows - 1, 2 * rows,
+                            (splits - 1) * rows, (splits - 1) * rows + 1, s,
+                            1], device=cuda, dtype=torch.int32)
+    want = port_ref.decode_attention(q, k, v, lengths)
+    for i, n in enumerate(lengths.tolist()):
+        k[i, n:], v[i, n:] = 1e6, float("nan")
+    got = port_da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(q_dtype),
+                               atol=_tol(q_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bf16", "flash_f32", "decode"])
+def test_attention_kernels_repeat_bit_equal_on_card(cuda, kernel):
+    """Two calls on the same inputs give the same bits: no atomics in the
+    sums, the split-KV combine in split order."""
+    from repro_torch.kernels import decode_attention as port_da
+    from repro_torch.kernels import flash_attention as port_fa
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    if kernel == "decode":
+        q = torch.randn((4, 12, 128), generator=gen, device=cuda)
+        k, v = (torch.randn((4, 4096, 2, 128), generator=gen, device=cuda)
+                for _ in range(2))
+        lengths = torch.tensor([4001, 1, 2048, 4096], device=cuda,
+                               dtype=torch.int32)
+        first = port_da.decode_attention(q, k, v, lengths)
+        second = port_da.decode_attention(q, k, v, lengths)
+    else:
+        dtype = torch.bfloat16 if kernel == "flash_bf16" else torch.float32
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                   for shape in ((2, 12, 1000, 128), (2, 2, 1000, 128),
+                                 (2, 2, 1000, 128)))
+        first = port_fa.flash_attention(q, k, v, causal=True)
+        second = port_fa.flash_attention(q, k, v, causal=True)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
