@@ -82,9 +82,15 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.nn.functional.scaled_dot_product_attention`` (never used by
    the port).
 6. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
-   ``embedding_scatter_add`` against its plain version, bit-equal, in
-   float32 and bf16, on a (151936, 1536) table with one ``lm_batches``
-   batch's 4 x 1024 token ids and with 4096 rows of one id. Then one
+   ``embedding_scatter_add`` against its plain version, bit-equal (and
+   two calls equal), in float32 and bf16, on a (151936, 1536) table with
+   three mixes of 4096 ids: one ``lm_batches`` batch's 4 x 1024 token
+   ids, Zipf (s = 1.0) ids over the vocabulary and 4096 rows of one id,
+   each mix timed in bf16. The scatter-add is then timed on one batch's
+   ids beside its bound, its plain version and ``Tensor.index_add_``
+   (never used by the port), and split into the sort's time and the
+   kernel's (each timed alone; one call profiled, which must list the
+   sort and ``scatter_add_rows_kernel`` and no gather). Then one
    float32 train step's loss and gradients on the kernel path against the
    plain path (``plain_attention()`` also swaps the token gather and its
    gradient): loss within rtol ``F32_LOSS_RTOL``, the embed, layer-0
@@ -100,9 +106,7 @@ Phases (any failure exits non-zero and prints no result line):
    time, records and bytes are printed. Last, a ``ServeDriver`` started
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
-   ``decode_attention`` launches a step. The scatter-add is then timed on
-   one batch's ids beside its bound, its plain version and
-   ``Tensor.index_add_`` (never used by the port).
+   ``decode_attention`` launches a step.
 7. A JSON line of per-kernel numbers, the card's name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -139,6 +143,8 @@ PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
 # the attention kernels' symbols, whose device time each profile sums
 ATTENTION_KERNELS = ("flash_attention_sm90_kernel", "flash_attention_kernel",
                      "decode_attention_kernel")
+# the scatter-add kernel's symbol
+SCATTER_ADD_KERNEL = "scatter_add_rows_kernel"
 
 
 def _call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1088,6 +1094,7 @@ def profile_call(fn, device) -> dict:
     return {"wall_ms": wall * 1e3,
             "busy_ms": sum(t for _, t in dev) / 1e3 if dev else None,
             "top": [(k[:50], t / 1e3) for k, t in dev[:6]],
+            "entries": [(k, t / 1e3) for k, t in dev],
             "attention_ms": {name: sum(t for k, t in dev if name in k) / 1e3
                              for name in ATTENTION_KERNELS},
             "launches": count("cudaLaunchKernel", "cuLaunchKernel",
@@ -1462,42 +1469,61 @@ def _batch_ids(cfg, device):
     return torch.from_numpy(tokens).to(device)
 
 
+def zipf_ids(n: int, vocab: int, seed, s: float = 1.0) -> np.ndarray:
+    """``n`` token ids from a Zipf law of exponent ``s`` over ``vocab`` ids
+    (rank r drawn with weight 1 / r^s, the ranks scattered over the ids):
+    the skew of text, where a few ids repeat hundreds of times. ``seed``
+    is a seed or a ``np.random.Generator`` to draw from."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** s
+    ranks = rng.choice(vocab, size=n, p=p / p.sum())
+    return rng.permutation(vocab)[ranks]
+
+
 def check_scatter_add(cfg, device) -> list[str]:
-    """``embedding_scatter_add`` against its plain version, bit-equal, in
-    float32 and bfloat16: on a (vocab, d_model) N(0, 1) table with one
-    batch's token ids and N(0, 1) updates, and with 4096 rows of one
-    id."""
+    """``embedding_scatter_add`` against its plain version, bit-equal, and
+    two calls equal, in float32 and bfloat16: on a (vocab, d_model) N(0, 1)
+    table with N(0, 1) updates and three id mixes of 4096 ids: one
+    batch's token ids, Zipf (s = 1.0) ids over the vocabulary, and 4096
+    rows of one id. Each mix is then timed in bf16 (bf16 updates, as the
+    embedding gradient has them)."""
     import torch
 
     from repro_torch.kernels import embedding_lookup as el
     from repro_torch.kernels import ref
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     ids = _batch_ids(cfg, device).reshape(-1)
+    cases = (("one batch's tokens", ids),
+             ("Zipf s = 1.0", torch.from_numpy(zipf_ids(
+                 ids.shape[0], cfg.vocab_size, SEED)).to(device)),
+             (f"{ids.shape[0]} rows of one id", torch.full_like(ids, 7)))
     lines = []
     for dtype in (torch.float32, torch.bfloat16):
         table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                             device=device).to(dtype)
-        for label, case in (("one batch's tokens", ids),
-                            ("4096 rows of one id",
-                             torch.full_like(ids, 7))):
+        for label, case in cases:
             upd = torch.randn((case.shape[0], cfg.d_model), generator=gen,
                               device=device)
             case32 = case.int()
             got = el.embedding_scatter_add(table.clone(), case32, upd)
+            again = el.embedding_scatter_add(table.clone(), case, upd)
             want = ref.embedding_scatter_add(table.clone(), case, upd)
-            if not torch.equal(got, want):
+            if not (torch.equal(got, want) and torch.equal(again, got)):
                 raise AssertionError(f"embedding_scatter_add {dtype} "
                                      f"({label}): not bit-equal")
             lines.append(f"embedding_scatter_add {tuple(table.shape)} "
                          f"{str(dtype)[6:]}, {case.shape[0]} ids "
-                         f"({label}, {int(case.unique().numel())} distinct): "
-                         f"bit-equal to its plain version")
-            if dtype == torch.bfloat16 and label.startswith("4096"):
-                # one segment of 4096 duplicates: one warp adds them all
+                         f"({label}, {int(case.unique().numel())} distinct,"
+                         f" longest segment "
+                         f"{int(torch.bincount(case).max())}): bit-equal to "
+                         f"its plain version, two calls equal")
+            if dtype == torch.bfloat16:
+                ub = upd.to(dtype)
                 ms = _device_ms(lambda: el.embedding_scatter_add(
-                    got, case32, upd), iters=5, replays=2)
-                lines[-1] += f"; {ms:.5f} ms on the device (one warp)"
-        del table, got, want
+                    got, case32, ub))
+                lines[-1] += f"; {ms:.5f} ms on the device"
+            del got, again, want
+        del table
     _sync(device)
     return lines
 
@@ -1506,7 +1532,9 @@ def scatter_add_row(cfg, device) -> dict:
     """``embedding_scatter_add`` timed as the embedding gradient runs it:
     one batch's ids into a zeros (vocab, d_model) bf16 table with bf16
     updates. Bound: the updates and ids read once, each distinct row read
-    and written once."""
+    and written once. Then the call's split: the sort (``sort_ids``) and
+    the kernel each timed alone, and one call profiled, which must list
+    the sort and the kernel and no gather of the updates."""
     import torch
 
     from repro_torch.kernels import embedding_lookup as el
@@ -1526,14 +1554,34 @@ def scatter_add_row(cfg, device) -> dict:
                              "timed inputs")
     err = float((got.float() - want.float()).abs().max())
     del got, want
-    return _row("embedding_scatter_add", "embedding_lookup.cu",
-                "src/repro/kernels/embedding_lookup.py:79", err,
-                lambda: el.embedding_scatter_add(table, ids32, upd),
-                lambda: ref.embedding_scatter_add(table, ids64, upd),
-                lambda: table.index_add_(0, ids64, upd),
-                n * d * 2 + 2 * distinct * d * 2 + n * 4,
-                f"{n} ids ({distinct} distinct) x {d} bf16 into "
-                f"({cfg.padded_vocab}, {d})")
+    row = _row("embedding_scatter_add", "embedding_lookup.cu",
+               "src/repro/kernels/embedding_lookup.py:79", err,
+               lambda: el.embedding_scatter_add(table, ids32, upd),
+               lambda: ref.embedding_scatter_add(table, ids64, upd),
+               lambda: table.index_add_(0, ids64, upd),
+               n * d * 2 + 2 * distinct * d * 2 + n * 4,
+               f"{n} ids ({distinct} distinct) x {d} bf16 into "
+               f"({cfg.padded_vocab}, {d})")
+    sorted_ids, order = el.sort_ids(ids32)
+    sort_ms = _device_ms(lambda: el.sort_ids(ids32))
+    kernel_ms = _device_ms(lambda: el.scatter_add_sorted(table, sorted_ids,
+                                                         order, upd))
+    prof = profile_call(lambda: el.embedding_scatter_add(table, ids32, upd),
+                        device)
+    names = [k for k, _ in prof["entries"]]
+    if names and not (any(SCATTER_ADD_KERNEL in k for k in names)
+                      and any("sort" in k.lower() for k in names)
+                      and not any("gather" in k.lower() for k in names)):
+        raise AssertionError(f"embedding_scatter_add: the profiled call is "
+                             f"not the sort and {SCATTER_ADD_KERNEL} "
+                             f"without a gather: {names}")
+    seen = ("not visible to torch.profiler" if not names
+            else ", ".join(f"{k[:60]} {ms:.5f}" for k, ms in prof["entries"]))
+    print(f"  one call split (device ms, each part alone): the sort "
+          f"{sort_ms:.5f} + {SCATTER_ADD_KERNEL} {kernel_ms:.5f}"
+          f" (the whole call {row['ms']:.5f}); one call profiled: {seen}",
+          flush=True)
+    return row
 
 
 def check_train_f32(cfg, device) -> dict:
@@ -1846,12 +1894,14 @@ def main() -> int:
           f"shapes:", flush=True)
     for line in check_scatter_add(lm_cfg, dev):
         print(f"  {line}")
+    # timed and profiled before the training run's own profile, after
+    # which torch.profiler has listed no kernel of a later call
+    row = scatter_add_row(lm_cfg, dev)
     f32 = check_train_f32(lm_cfg, dev)
     torch.cuda.empty_cache()
     lm_train = drive_lm_train(dev, TRAIN_ARGV,
                               decode_steps=SWAP_DECODE_STEPS)
     report_lm_train(lm_train, f32)
-    row = scatter_add_row(lm_cfg, dev)
     row["launches"] = lm_train["run"]["launches"]["embedding_scatter_add"]
     kernels.append(row)
     del lm_train

@@ -9,7 +9,7 @@ of duplicate ids accumulate). The gather and scatter-set kernels
 (``csrc/embedding_lookup.cu``) copy rows as raw bytes, so every dtype is
 bit-exact and any row width works; the scatter-add adds in input order,
 rounding to the table's dtype after every add, bit-equal to its plain
-version.
+version (``scatter_add_word`` gives the bytes each lane adds).
 
 Each wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
@@ -33,10 +33,12 @@ def _lib() -> ctypes.CDLL:
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.embedding_lookup.argtypes = [p, ll, p, ll, p, p]
     lib.embedding_scatter.argtypes = [p, ll, p, ll, p, p]
-    lib.embedding_scatter_add.argtypes = [p, ll, p, ll, p, ctypes.c_int, p]
+    lib.embedding_scatter_add.argtypes = [p, ll, p, p, ll, p, ll,
+                                          ctypes.c_int, ctypes.c_int, p]
     lib.embedding_lookup.restype = ctypes.c_int
     lib.embedding_scatter.restype = ctypes.c_int
     lib.embedding_scatter_add.restype = ctypes.c_int
+    lib.embedding_scatter_add_share.restype = ctypes.c_int
     return lib
 
 
@@ -106,24 +108,38 @@ def embedding_scatter(table: torch.Tensor, ids: torch.Tensor,
 embedding_scatter.launches = 0
 
 
+def scatter_add_word(table: torch.Tensor, updates: torch.Tensor) -> int:
+    """The bytes each lane of the scatter-add kernel adds: 16 where the two
+    pointers, the table's row bytes and the updates' row stride allow,
+    else 8, 4 or 2. A warp covers a slice of 32 such words of a row."""
+    size = table.element_size()
+    m = (table.data_ptr() | updates.data_ptr() | table.shape[1] * size
+         | updates.stride(0) * size)
+    return next(w for w in (16, 8, 4, 2) if m % w == 0)
+
+
 def embedding_scatter_add(table: torch.Tensor, ids: torch.Tensor,
                           updates: torch.Tensor) -> torch.Tensor:
     """Row scatter-ADD in place: ``table[ids[i]] += updates[i]``, the rows
     of duplicate ids accumulating in input order.
 
     As the reference's wrapper does, the ids are sorted here with a
-    STABLE sort (so a row's duplicates stay in input order) and the
-    updates permuted with them; the kernel then finds each id's segment
-    and adds it up on one warp, rounding to ``table.dtype`` after every
-    add (see ``csrc/embedding_lookup.cu``). Bit-equal to the plain
-    version, and to the Pallas kernel's sequential ``+=``.
+    STABLE sort (so a row's duplicates stay in input order). The kernel
+    reads the updates in place through the sort's order, and the warps
+    of each id's segment add it up in column slices, rounding to
+    ``table.dtype`` after every add (see ``csrc/embedding_lookup.cu``).
+    Bit-equal to the plain version, and to the Pallas kernel's sequential
+    ``+=``. One kernel launch; no host synchronisation, so a call can be
+    captured in a CUDA graph.
 
     Args:
       table: (V, D) float32 or bfloat16, contiguous — updated in place
         (the reference's aliased output).
       ids: (N,) int32 or int64, any order, in bounds (the kernel does
         not check).
-      updates: (N, D), cast to ``table.dtype`` before they are added.
+      updates: (N, D), cast to ``table.dtype`` before they are added;
+        read in place if its last axis is contiguous (and its rows less
+        than 4 GB apart).
     Returns ``table``. No ids is a no-op.
     """
     if _build.on_cpu(table, ids, updates):
@@ -140,17 +156,38 @@ def embedding_scatter_add(table: torch.Tensor, ids: torch.Tensor,
     if updates.shape != (ids.shape[0], table.shape[1]):
         raise ValueError(f"updates {tuple(updates.shape)} do not match "
                          f"{ids.shape[0]} ids x {table.shape[1]} columns")
+    if ids.shape[0] >= 2 ** 31:
+        raise ValueError(f"{ids.shape[0]} ids: the kernel takes < 2^31")
     if ids.shape[0] == 0 or table.shape[1] == 0:
         return table
-    sorted_ids, order = torch.sort(ids, stable=True)
-    sorted_ids = sorted_ids.to(torch.int32)
-    upd = updates.to(table.dtype)[order].contiguous()
-    _build.launch("embedding_scatter_add", _lib().embedding_scatter_add,
-                  table.device, table.data_ptr(), table.shape[1],
-                  sorted_ids.data_ptr(), sorted_ids.shape[0], upd.data_ptr(),
-                  _build.DTYPE_CODES[table.dtype])
-    embedding_scatter_add.launches += 1
+    sorted_ids, order = sort_ids(ids)
+    upd = updates.to(table.dtype)
+    if upd.stride(1) != 1 or upd.stride(0) * upd.element_size() >= 2 ** 32:
+        upd = upd.contiguous()
+    scatter_add_sorted(table, sorted_ids, order, upd)
     return table
 
 
 embedding_scatter_add.launches = 0
+
+
+def sort_ids(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scatter-add's stable sort: the sorted ids as int32, and the
+    order as ``torch.sort`` returns it (int64, which the kernel reads)."""
+    sorted_ids, order = torch.sort(ids, stable=True)
+    return sorted_ids.to(torch.int32), order
+
+
+def scatter_add_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
+                       order: torch.Tensor, upd: torch.Tensor) -> None:
+    """The scatter-add kernel alone, on CUDA tensors the wrapper has
+    checked: ``sort_ids``' output and updates of the table's dtype whose
+    last axis is contiguous. Each launch adds one to
+    ``embedding_scatter_add.launches``."""
+    word = scatter_add_word(table, upd)
+    _build.launch("embedding_scatter_add", _lib().embedding_scatter_add,
+                  table.device, table.data_ptr(), table.shape[1],
+                  sorted_ids.data_ptr(), order.data_ptr(),
+                  sorted_ids.shape[0], upd.data_ptr(), upd.stride(0),
+                  _build.DTYPE_CODES[table.dtype], word)
+    embedding_scatter_add.launches += 1

@@ -6,10 +6,15 @@ the port is installed:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import zipf_ids  # noqa: E402
 from repro_torch.core.hashmap import IdHashMap
 from repro_torch.kernels import embedding_lookup as port_el
 from repro_torch.kernels import ops as port_ops
@@ -326,6 +331,105 @@ def test_scatter_add_kernel_matches_plain_on_card(cuda, kind, dtype, d):
     assert got.dtype == dtype and torch.equal(got, want)
     if kind == "empty":
         assert torch.equal(got, table)
+
+
+def _scatter_add_both(table, ids, upd):
+    """The kernel (called twice, each call counted) and the plain version
+    on clones of ``table``: the kernel's result, bit-equal to both."""
+    before = port_el.embedding_scatter_add.launches
+    got = port_el.embedding_scatter_add(table.clone(), ids.to(torch.int32),
+                                        upd)
+    again = port_el.embedding_scatter_add(table.clone(), ids, upd)
+    torch.cuda.synchronize()
+    assert port_el.embedding_scatter_add.launches == before + 2
+    want = port_ref.embedding_scatter_add(table.clone(), ids, upd)
+    assert got.dtype == table.dtype
+    assert torch.equal(got, want) and torch.equal(again, got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_zipf_ids_on_card(cuda, dtype):
+    """4,096 token ids from a Zipf law (s = 1.0) over qwen2's vocabulary:
+    ~2,100 distinct, the hottest a segment of ~330 rows."""
+    vocab, d = 151936, 256
+    ids = torch.from_numpy(zipf_ids(4096, vocab, 0)).to(cuda)
+    assert int(torch.bincount(ids).max()) > 200
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.randn((vocab, d), generator=gen, device=cuda).to(dtype)
+    upd = torch.randn((4096, d), generator=gen, device=cuda)
+    _scatter_add_both(table, ids, upd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", ["1", "K-1", "K", "K+1", "17", "31", "32",
+                                    "33", "64", "65", "4096"])
+@pytest.mark.parametrize("before", [800, 805])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_segment_lengths_on_card(cuda, dtype, before, length):
+    """One id's segment of ``length`` rows around the ring rows K that
+    each warp owns (a longer segment borrows the shares of the warps it
+    covers: 16, 32, 64 rows deep), the kernel's 32-row chunks of
+    ``order`` and its cp.async groups, its rows scattered among
+    ``before`` rows of smaller ids so the order is no identity and the
+    segment starts at different warps of a block."""
+    k = port_el._lib().embedding_scatter_add_share()
+    m = (int(length) if length.isdigit()
+         else k + {"K-1": -1, "K": 0, "K+1": 1}[length])
+    gen = torch.Generator(device=cuda).manual_seed(m + before)
+    v, d = 1000, 1536
+    other = torch.randint(0, v - 1, (before,), generator=gen, device=cuda)
+    ids = torch.cat([other, torch.full((m,), v - 1, device=cuda)])
+    ids = ids[torch.randperm(ids.shape[0], generator=gen, device=cuda)]
+    table = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    upd = torch.randn((ids.shape[0], d), generator=gen, device=cuda)
+    _scatter_add_both(table, ids, upd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["contiguous", "strided", "misaligned",
+                                  "transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 9, 257, 1536])
+def test_scatter_add_widths_and_views_on_card(cuda, d, dtype, view):
+    """Row widths and update views that take each lane word (16, 8, 4,
+    2 bytes): a column slice read in place through its row stride, a
+    view one element off 16-byte alignment, a transposed (copied) one."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    v, n = 700, 900
+    table = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, 60, (n,), generator=gen, device=cuda)
+    big = torch.randn((n, d + 8), generator=gen, device=cuda).to(dtype)
+    upd = {"contiguous": big[:, :d].contiguous(), "strided": big[:, :d],
+           "misaligned": big[:, 1:d + 1],
+           "transposed": big[:, :d].t().contiguous().t()}[view]
+    _scatter_add_both(table, ids, upd)
+
+
+@pytest.mark.cuda
+def test_scatter_add_in_a_cuda_graph_on_card(cuda):
+    """The wrapper (sort, casts, one kernel) captured in a CUDA graph and
+    replayed onto a fresh table: bit-equal to the plain version. No host
+    synchronisation inside, or the capture would fail."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    v, d, n = 5000, 1536, 4096
+    base = torch.randn((v, d), generator=gen, device=cuda).bfloat16()
+    ids = torch.from_numpy(zipf_ids(n, v, 1)).to(cuda)
+    upd = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
+    table = base.clone()
+    port_el.embedding_scatter_add(table, ids, upd)      # warm-up, built
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        port_el.embedding_scatter_add(table, ids, upd)
+    table.copy_(base)
+    before = port_el.embedding_scatter_add.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert port_el.embedding_scatter_add.launches == before
+    want = port_ref.embedding_scatter_add(base.clone(), ids, upd)
+    assert torch.equal(table, want)
 
 
 def _lm_grads(cfg, params, tokens, what):

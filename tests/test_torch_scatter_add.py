@@ -8,8 +8,13 @@ does: so it is bit-equal to ``repro.kernels.ops.embedding_scatter_add``
 in interpret mode, in float32 and bfloat16. Against the reference's own
 oracle (``table.at[ids].add``) it stays within the reference's rtol
 1e-5. ``embed_tokens``'s gradient (gather forward, scatter-add backward)
-equals JAX's gradient of ``embed[tokens]``.
+equals JAX's gradient of ``embed[tokens]``. The CUDA kernel's lane word
+(``scatter_add_word``) is checked here too; the kernel itself runs in
+``test_torch_cuda.py``.
 """
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,9 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import zipf_ids  # noqa: E402
 from repro.data import lm_batches as jax_lm_batches
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.kernels import embedding_lookup as port_el
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.models.common import embed_tokens
@@ -28,10 +36,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _inputs(v, d, n, seed, *, ids=None):
+def _inputs(v, d, n, kind="uniform", *, seed, ids=None):
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((v, d), dtype=np.float32)
-    if ids is None:
+    if ids is None and kind == "zipf":
+        ids = zipf_ids(n, v, rng).astype(np.int32)
+    elif ids is None:
         ids = rng.integers(0, v, size=n).astype(np.int32)
     upd = (3 * rng.standard_normal((len(ids), d))).astype(np.float32)
     return table, ids, upd
@@ -57,6 +67,7 @@ CASES = {
     "sweep_128x256": (128, 256, 64),
     "dups_16x96": (16, 96, 300),            # ~19 duplicates a row
     "wide_40x1536": (40, 1536, 200),        # qwen2's row width
+    "zipf_500x64": (500, 64, 400, "zipf"),  # text-like skew: ~60 of one id
 }
 
 
@@ -162,3 +173,47 @@ def test_plain_version_matches_index_add_on_unique_ids():
     upd = torch.randn(60, 8)
     got = port_ref.embedding_scatter_add(table.clone(), ids, upd)
     assert torch.equal(got, table.clone().index_add_(0, ids, upd))
+
+
+def test_zipf_case_is_skewed():
+    """The Zipf case puts one id on dozens of positions (longer than the
+    kernel's 32-row chunks of ``order``), the rest mostly once."""
+    _, ids, _ = _inputs(*CASES["zipf_500x64"], seed=len("zipf_500x64"))
+    counts = np.bincount(ids)
+    assert counts.max() > 40 and (counts == 1).sum() > 50
+
+
+def test_sort_ids_is_stable():
+    """The kernel's inputs: the ids sorted as int32, and the stable
+    sort's order as int64 (read by the kernel as is), each id's
+    positions in input order."""
+    ids = torch.tensor([5, 2, 5, 0, 2, 5, 9, 0], dtype=torch.int64)
+    sorted_ids, order = port_el.sort_ids(ids)
+    assert sorted_ids.dtype == torch.int32 and order.dtype == torch.int64
+    assert sorted_ids.tolist() == [0, 0, 2, 2, 5, 5, 5, 9]
+    assert order.tolist() == [3, 7, 1, 4, 0, 2, 5, 6]
+
+
+def _view(dtype, n, d, view):
+    big = torch.zeros((n, d + 8), dtype=dtype)
+    return {"contiguous": big[:, :d].contiguous(), "strided": big[:, :d],
+            "misaligned": big[:, 1:d + 1]}[view]
+
+
+@pytest.mark.parametrize("dtype,d,view,word", [
+    (torch.bfloat16, 1536, "contiguous", 16),   # qwen2's gradient
+    (torch.float32, 1536, "contiguous", 16),
+    (torch.bfloat16, 1536, "strided", 16),      # read in place
+    (torch.bfloat16, 1536, "misaligned", 2),
+    (torch.float32, 1536, "misaligned", 4),
+    (torch.bfloat16, 1, "contiguous", 2),
+    (torch.bfloat16, 9, "contiguous", 2),
+    (torch.float32, 2, "contiguous", 8),
+    (torch.float32, 257, "contiguous", 4),
+    (torch.float32, 260, "strided", 16),
+])
+def test_scatter_add_word(dtype, d, view, word):
+    """The widest word that divides both pointers, the table's row bytes
+    and the updates' row stride."""
+    table = torch.zeros((10, d), dtype=dtype)
+    assert port_el.scatter_add_word(table, _view(dtype, 5, d, view)) == word
