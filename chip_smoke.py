@@ -18,10 +18,15 @@ Phases (any failure exits non-zero and prints no result line):
 1. Kernels against their plain versions, bit-equal: the in-place probe
    on a 2^20-slot map and the windowed probe on a 2^24-slot wrap-padded
    map, each with a crafted collision cluster longer than a 256-slot
-   window; the row gather (N = 4096 x 32 ids, D in {1, 8, 9}) and the
-   row scatter (unique ids). The copies are timed here, beside their
-   bound (bytes over 3.35 TB/s), their plain version's time and the
-   one-call PyTorch equivalent (``library_ms``, never used by the port).
+   window; the row gather and the row scatter-set (unique ids) at N =
+   4096 x 32 ids into a 2^21-row float32 table, D in {1, 8, 9}, and at
+   qwen2-1.5b's token-gather shape (8,192 ids x 1,536 bf16 from its
+   152,064-row table). The copies are timed here, beside their bound
+   (bytes over 3.35 TB/s), their plain version's time and the one-call
+   PyTorch equivalent (``library_ms``: ``index_select``,
+   ``index_copy_``; never used by the port), and at D = 9 with a cold
+   L2 too: 16 id batches in turn, whose rows touch more sectors than the
+   50 MB L2 holds.
 2. The loop: FM_FTRL (32 fields, embed 8, groups w:1 + v:8 with FTRL
    slots (z, n), feature space 2^22) on 4 master shards, 2 slave shards
    x 2 replicas, 8 partitions, int8 codec, realtime gather. The ids are
@@ -107,7 +112,11 @@ Phases (any failure exits non-zero and prints no result line):
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
    ``decode_attention`` launches a step.
-7. A JSON line of per-kernel numbers, the card's name and power limit
+7. The gather's and the scatter-set's launches on every path above
+   (serving predicts, bootstrap flush, train -> sync -> serve, LM
+   serving, the LM training run and its hot-swap decode), each read
+   after its own reset. A JSON line of per-kernel numbers, the card's
+   name and power limit
    from ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -130,6 +139,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SEED = 0
+COPY_ROWS = 1 << 21                 # table rows of the CTR copy cases
+COLD_BATCHES = 16                   # id batches of a cold-L2 copy figure
 REQ_BATCH, FIELDS = 4096, 32
 WARM_BATCHES = (64, 128, 256, 512, 1024, 2048, 4096)
 WARM_REPS = 8
@@ -137,6 +148,7 @@ PARTIAL_ROUNDS = 3
 TRAIN_STEPS = 16
 SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
                  "embedding_scatter")
+COPY_KERNELS = ("embedding_lookup", "embedding_scatter")
 TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 # sources whose whole ptxas report is printed (the redesigned attention)
 PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
@@ -325,12 +337,12 @@ def probe_row(name, keys, ids, shift: int, host_map, what: str) -> dict:
 
 def phase_kernels(dev, rng) -> list[dict]:
     """Each kernel against its plain version on the card, bit-equal; the
-    copies timed (the probes are timed on the slice's own tables)."""
+    copies timed at D = 1, 8 and 9 float32 and at the LM's token-gather
+    shape, and at D = 9 with a cold L2 too (the probes are timed on the
+    slice's own tables)."""
     import torch
 
-    from repro_torch.kernels import embedding_lookup as el
     from repro_torch.kernels import hashmap_probe as hm
-    from repro_torch.kernels import ref
     n = REQ_BATCH * FIELDS
     rows = []
 
@@ -349,44 +361,131 @@ def phase_kernels(dev, rng) -> list[dict]:
               f"the device", flush=True)
         del keys, ids
 
-    v_rows = 1 << 21
     for d in (1, 8, 9):
-        table = torch.randn(v_rows, d, device=dev)
-        ids = torch.randint(0, v_rows, (n,), device=dev, dtype=torch.int32)
-        out = el.embedding_lookup(table, ids)
-        want = ref.embedding_lookup(table, ids)
-        if not torch.equal(out, want):
-            raise AssertionError(f"embedding_lookup D={d}: not bit-equal")
-        ids_l = ids.long()
-        row = _row("embedding_lookup", "embedding_lookup.cu",
-                   "src/repro/kernels/embedding_lookup.py:30",
-                   (out - want).abs().max().item(),
-                   lambda: el.embedding_lookup(table, ids),
-                   lambda: ref.embedding_lookup(table, ids),
-                   lambda: torch.index_select(table, 0, ids_l),
-                   n * 4 + 2 * n * d * 4, f"{v_rows}x{d} f32, {n} ids")
-        if d == 9:                      # the serve cache's row
-            rows.append(row)
-
-        uniq = torch.randperm(v_rows, device=dev)[:n].to(torch.int32)
+        table = torch.randn(COPY_ROWS, d, device=dev)
+        ids = torch.randint(0, COPY_ROWS, (n,), device=dev,
+                            dtype=torch.int32)
+        uniq = torch.randperm(COPY_ROWS, device=dev)[:n].to(torch.int32)
         upd = torch.randn(n, d, device=dev)
-        got = el.embedding_scatter(table.clone(), uniq, upd)
-        want = ref.embedding_scatter(table.clone(), uniq, upd)
-        if not torch.equal(got, want):
-            raise AssertionError(f"embedding_scatter D={d}: not bit-equal")
-        uniq_l = uniq.long()
-        row = _row("embedding_scatter", "embedding_lookup.cu",
-                   "src/repro/kernels/embedding_lookup.py:122",
-                   (got - want).abs().max().item(),
-                   lambda: el.embedding_scatter(table, uniq, upd),
-                   lambda: ref.embedding_scatter(table, uniq, upd),
-                   lambda: table.index_copy_(0, uniq_l, upd),
-                   n * 4 + 2 * n * d * 4,
-                   f"{v_rows}x{d} f32, {n} unique ids")
-        if d == 9:
-            rows.append(row)
-        del table, ids, out, want, got, upd
+        what = f"{COPY_ROWS}x{d} f32, {n}"
+        gather = gather_row(table, ids, f"{what} ids")
+        scatter = scatter_row(table, uniq, upd, f"{what} unique ids")
+        if d == 9:                      # the serve cache's row
+            rows += [gather, scatter]
+            cold_copy_line(table, n, dev)
+        del table, ids, uniq, upd
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)           # the LM's token gather
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    table = torch.randn(cfg.padded_vocab, cfg.d_model, device=dev,
+                        dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (n_tok,), device=dev,
+                        dtype=torch.int32)
+    uniq = torch.randperm(cfg.vocab_size, device=dev)[:n_tok].to(torch.int32)
+    upd = torch.randn(n_tok, cfg.d_model, device=dev, dtype=torch.bfloat16)
+    what = f"{cfg.padded_vocab}x{cfg.d_model} bf16, {n_tok}"
+    gather_row(table, ids, f"{what} token ids ({LM_ARCH}'s token gather)")
+    scatter_row(table, uniq, upd, f"{what} unique ids")
+    del table, ids, uniq, upd
     return rows
+
+
+def gather_row(table, ids, what: str) -> dict:
+    """``embedding_lookup`` against its plain version, bit-equal, then
+    timed beside ``index_select``. Bound: the ids and each row read once,
+    each row written once."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ref
+    out = el.embedding_lookup(table, ids)
+    want = ref.embedding_lookup(table, ids)
+    if not torch.equal(out, want):
+        raise AssertionError(f"embedding_lookup at {what}: not bit-equal")
+    ids_l = ids.long()
+    n, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
+    return _row("embedding_lookup", "embedding_lookup.cu",
+                "src/repro/kernels/embedding_lookup.py:30", 0,
+                lambda: el.embedding_lookup(table, ids),
+                lambda: ref.embedding_lookup(table, ids),
+                lambda: torch.index_select(table, 0, ids_l),
+                n * 4 + 2 * n * row_bytes, what)
+
+
+def scatter_row(table, uniq, upd, what: str) -> dict:
+    """``embedding_scatter`` against its plain version, bit-equal, on a
+    copy of ``table``, then timed in place beside ``index_copy_``."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ref
+    got = el.embedding_scatter(table.clone(), uniq, upd)
+    want = ref.embedding_scatter(table.clone(), uniq, upd)
+    if not torch.equal(got, want):
+        raise AssertionError(f"embedding_scatter at {what}: not bit-equal")
+    del got, want
+    uniq_l = uniq.long()
+    n, row_bytes = uniq.shape[0], table.shape[1] * table.element_size()
+    return _row("embedding_scatter", "embedding_lookup.cu",
+                "src/repro/kernels/embedding_lookup.py:122", 0,
+                lambda: el.embedding_scatter(table, uniq, upd),
+                lambda: ref.embedding_scatter(table, uniq, upd),
+                lambda: table.index_copy_(0, uniq_l, upd),
+                n * 4 + 2 * n * row_bytes, what)
+
+
+def _cycling(fn, items: list):
+    """A call of ``fn`` on the next of ``items`` each time."""
+    k = [0]
+
+    def call():
+        fn(items[k[0] % len(items)])
+        k[0] += 1
+    return call
+
+
+def cold_copy_line(table, n: int, dev) -> None:
+    """Both copies and their library calls with a cold L2: each call
+    takes the next of ``COLD_BATCHES`` id batches (``_device_ms`` captures
+    exactly one cycle), so a batch's rows come back only after the other
+    batches have touched far more 32-byte sectors than the 50 MB L2
+    holds (printed)."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    v, d = table.shape
+    row_bytes = d * table.element_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids = [torch.randint(0, v, (n,), device=dev, dtype=torch.int32,
+                         generator=gen) for _ in range(COLD_BATCHES)]
+    uniq = [torch.randperm(v, device=dev, generator=gen)[:n].to(torch.int32)
+            for _ in range(COLD_BATCHES)]
+    upd = torch.randn(n, d, device=dev, generator=gen)
+    start = torch.cat(ids).long() * row_bytes   # a row spans <= 2 sectors
+    if row_bytes > 36:
+        raise ValueError(f"{row_bytes}-byte rows: the sector count takes "
+                         f"rows of at most 36 bytes")
+    first, last = start // 32, (start + row_bytes - 1) // 32
+    touched = torch.unique(torch.cat([first, last])).numel() * 32
+    ids_l = [i.long() for i in ids]
+    uniq_l = [u.long() for u in uniq]
+    times = {
+        "embedding_lookup": _device_ms(_cycling(
+            lambda i: el.embedding_lookup(table, i), ids), COLD_BATCHES),
+        "index_select": _device_ms(_cycling(
+            lambda i: torch.index_select(table, 0, i), ids_l), COLD_BATCHES),
+        "embedding_scatter": _device_ms(_cycling(
+            lambda u: el.embedding_scatter(table, u, upd), uniq),
+            COLD_BATCHES),
+        "index_copy_": _device_ms(_cycling(
+            lambda u: table.index_copy_(0, u, upd), uniq_l), COLD_BATCHES)}
+    print(f"copies at {v}x{d} f32, {n} ids, L2 cold ({COLD_BATCHES} id "
+          f"batches in turn, their rows touching {touched / 1e6:.1f} MB of "
+          f"32-byte sectors): "
+          + ", ".join(f"{k} {ms:.5f} ms" for k, ms in times.items())
+          + f"; bound {_bound_ms(n * 4 + 2 * n * row_bytes):.5f}",
+          flush=True)
 
 
 def hashed_ids(count: int) -> np.ndarray:
@@ -1859,6 +1958,10 @@ def main() -> int:
           f"{cmp['max_pred_dev']:.3g}; loss and row grads vs the CPU: max "
           f"deviation {out['loss_dev']:.3g}", flush=True)
 
+    # the copies' launches on every path, each read after its own reset
+    copy_paths = {"serving predicts": res["launches"],
+                  "bootstrap flush": boot["launches"],
+                  "train -> sync -> serve": tr["launches"]}
     probes = res.pop("probe_inputs")
     kernels = [probe_row(k, *probes[k]) for k in PROBES] + kernels
     del probes
@@ -1886,6 +1989,7 @@ def main() -> int:
     for row in lm_rows:
         row["launches"] = lm["launches"][row["name"]]
     kernels += lm_rows
+    copy_paths["LM serving"] = lm["launches"]
     print(f"LM phase in {time.perf_counter() - t:.1f} s", flush=True)
     del lm, lm_rows
     torch.cuda.empty_cache()
@@ -1904,19 +2008,30 @@ def main() -> int:
     report_lm_train(lm_train, f32)
     row["launches"] = lm_train["run"]["launches"]["embedding_scatter_add"]
     kernels.append(row)
+    copy_paths["LM training run"] = lm_train["run"]["launches"]
+    copy_paths["LM hot-swap decode"] = lm_train["run"]["decode"]["launches"]
     del lm_train
     print(f"LM training phase in {time.perf_counter() - t:.1f} s",
           flush=True)
-    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the serving "
-          "kernels' from the serving predicts, the train and sync kernels' "
-          "from train -> sync -> serve, the attention kernels' from the LM "
+    for copy in COPY_KERNELS:
+        counts = {path: c[copy] for path, c in copy_paths.items()}
+        print(f"launches of {copy} by path: "
+              + ", ".join(f"{p} {c}" for p, c in counts.items())
+              + f"; {sum(counts.values())} in all")
+        for row in kernels:
+            if row["name"] == copy:
+                row["launches"] = sum(counts.values())
+    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the gather's "
+          "and the scatter-set's summed over every path above, the probes' "
+          "from the serving predicts, the train and sync kernels' from "
+          "train -> sync -> serve, the attention kernels' from the LM "
           "serving path, the scatter-add's from the LM training run)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

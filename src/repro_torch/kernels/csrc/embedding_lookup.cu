@@ -4,18 +4,42 @@
 // launches (embedding_lookup.launches, embedding_scatter.launches,
 // embedding_scatter_add.launches).
 //
-// Rows are copied as raw bytes, so any dtype is bit-exact and rows of any
-// width work (D = 1 for the LR "w" group, 8 for FM "v", 9 for the serve
-// cache's combined row). The copy word is the widest of 16/8/4/2/1 bytes
-// that divides the row's byte width and the pointers' alignment; one
-// thread copies one word, so a row is copied by a group of consecutive
-// threads and neighbouring threads touch neighbouring addresses.
+// The gather replaces src/repro/kernels/embedding_lookup.py:30
+// embedding_lookup (_gather_kernel: a scalar-prefetch grid that DMAs one
+// table row a step), out[i] = table[ids[i]]; the scatter-set replaces :122
+// embedding_scatter (_scatter_set_kernel: an aliased in/out table written
+// one row a step), table[ids[i]] = upd[i] with unique ids. Rows are copied
+// as raw bytes, so any dtype is bit-exact and rows of any width work (D =
+// 1, 8 and 9 float32 for the CTR arenas and the serve cache, 1,536 bf16
+// for the LM's token rows). The copy word is the widest of 16/8/4/2/1
+// bytes that divides the row's bytes and both pointers (the wrapper's
+// copy_plan); a 36-byte row (D = 9) takes 4-byte words.
 //
-// What bounds both on this card is bytes moved: each row read once and
-// written once, plus 4 bytes of id per row. Rows of a few tens of bytes
-// at random table rows cost whole 32-byte sectors, so narrow rows run
-// below the device's stream rate; nothing is staged in shared memory
-// because no byte is read twice.
+// What bounds them on this card: bytes, each row read once and written
+// once plus 4 bytes of id a row (131,072 x 36-byte rows: 9.96 MB, 0.0030
+// ms at 3.35 TB/s). A 36-byte row at a random 4-byte-aligned offset spans
+// two 32-byte sectors, so a row read moves 64 bytes; and a batch the
+// caller repeats sits in the 50 MB L2, where what is left is latency: the
+// id's round trip before the row's, and how many words each thread keeps
+// in flight. The design (see copy_narrow_kernel, copy_wide_kernel): warp
+// tiles whose ids are loaded once, coalesced, and handed out by shuffle
+// (the next tile's ids in flight with this tile's rows); every load of a
+// lane issued before its first store; a row's word found by a 32-bit
+// divide by a compile-time constant; a grid of what the card holds at
+// once, walking the rest. Nothing is staged in shared memory: no byte is
+// read twice.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (chip_smoke.py, scripts/compare_copy_kernels.py; graph replays, so the
+// rows sit in L2), 131,072 ids into 2^21 rows: at D = 9 float32 the gather
+// 0.0040 ms (index_select 0.0059; the one-thread-a-word kernel this
+// replaced 0.0078) and the scatter-set 0.0056 ms (index_copy_ 0.0067;
+// before 0.0073); at D = 1 and 8, 0.0025-0.0036 ms (before 0.0030-0.0039).
+// The LM token gather, 8,192 x 3,072 bytes: 0.0165 ms, bound 0.0150. With
+// a cold L2 at D = 9 (16 id batches in turn): 0.0070 and 0.0137 ms
+// (index_select 0.0108, index_copy_ 0.0163). The scatter-set trails the
+// gather at D = 9; that each 36-byte row it writes covers two 32-byte
+// sectors in part is a likely cause, not isolated.
 //
 // The scatter-add is the LM's embedding gradient (the transpose of the
 // token gather): table[ids[i]] += upd[i] with duplicate ids accumulating.
@@ -27,42 +51,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-// Replaces src/repro/kernels/embedding_lookup.py: embedding_lookup
-// (_gather_kernel), where a scalar-prefetch grid DMAs one table row per
-// step. out[i] = table[ids[i]], ids int32 and in bounds.
-template <typename W>
-__global__ void gather_rows_kernel(const W* __restrict__ table,
-                                   const int* __restrict__ ids, long long n,
-                                   long long wpr, W* __restrict__ out) {
-  long long total = n * wpr;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    long long i = t / wpr;
-    long long c = t - i * wpr;
-    out[t] = table[(long long)ids[i] * wpr + c];
-  }
-}
-
-// Replaces src/repro/kernels/embedding_lookup.py: embedding_scatter
-// (_scatter_set_kernel), an aliased in/out table whose grid writes one
-// row per step. table[ids[i]] = upd[i] in place; ids UNIQUE, so no two
-// threads write one word.
-template <typename W>
-__global__ void scatter_rows_kernel(W* __restrict__ table,
-                                    const int* __restrict__ ids, long long n,
-                                    long long wpr,
-                                    const W* __restrict__ upd) {
-  long long total = n * wpr;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    long long i = t / wpr;
-    long long c = t - i * wpr;
-    table[(long long)ids[i] * wpr + c] = upd[t];
-  }
-}
 
 // Replaces src/repro/kernels/embedding_lookup.py: embedding_scatter_add
 // (_scatter_add_kernel), whose TPU grid walks the SORTED ids in sequence,
@@ -349,30 +337,186 @@ int word_bytes(const void* a, const void* b, long long row_bytes) {
   return 1;
 }
 
-unsigned grid_for(long long total, int threads) {
-  long long blocks = (total + threads - 1) / threads;
-  const long long cap = 132LL * 32;  // SMs x resident blocks, grid-stride beyond
-  return (unsigned)(blocks < cap ? blocks : cap);
+// The row gather and the row scatter-set, in warp tiles. One kernel body
+// serves both: the gather reads the addressed table rows and writes the
+// rows contiguously, the scatter-set reads the rows contiguously and
+// writes the addressed table rows (its ids are unique, so no two lanes
+// write one word, and no atomics are needed). W is the copy word (16, 8,
+// 4, 2 or 1 bytes); WPR the words a row when known at compile time (the
+// widths the port runs), else 0 and `wpr` is read at run time.
+constexpr int COPY_WARPS = 8;   // warps a block
+constexpr int NARROW = 32;      // rows of fewer words go in narrow tiles
+constexpr int CHUNK = 8;        // words in flight a lane where WPR is 0
+
+template <typename W, bool SCATTER>
+__device__ __forceinline__ W copy_load(const W* table, const W* rows,
+                                       size_t cell, int flat, bool ok) {
+  return ok ? __ldg(SCATTER ? rows + flat : table + cell) : W{};
+}
+template <typename W, bool SCATTER>
+__device__ __forceinline__ void copy_store(W* table, W* rows, size_t cell,
+                                           int flat, bool ok, W v) {
+  if (ok) *(SCATTER ? table + cell : rows + flat) = v;
 }
 
-template <typename W>
-void launch_gather(const void* table, const int* ids, long long n,
-                   long long row_bytes, void* out, cudaStream_t s) {
-  long long wpr = row_bytes / (long long)sizeof(W);
-  const int threads = 256;
-  gather_rows_kernel<W><<<grid_for(n * wpr, threads), threads, 0, s>>>(
-      (const W*)table, ids, n, wpr, (W*)out);
+// Narrow rows (fewer than NARROW words): a warp owns a tile of 32
+// consecutive positions. Lane l loads the tile's id l (one coalesced load,
+// issued with the previous tile's rows), then moves the tile's flat words
+// l, l + 32, ...: the word's row is a 32-bit divide by a compile-time
+// constant (or a 16-bit multiply-shift, exact for the words of a tile when
+// WPR is 0), its id comes by shuffle, and every load of the lane is issued
+// before its first store. The tile's contiguous side covers consecutive
+// rows, so those accesses are coalesced.
+template <typename W, int WPR, bool SCATTER>
+__global__ void __launch_bounds__(32 * COPY_WARPS)
+copy_narrow_kernel(W* __restrict__ table, const int* __restrict__ ids, int n,
+                   int wpr, W* __restrict__ rows) {
+  constexpr int K = WPR > 0 ? WPR : CHUNK;
+  const int words = WPR > 0 ? WPR : wpr;
+  const unsigned magic = (65535u + words) / words;  // ceil(2^16 / words)
+  const int lane = threadIdx.x & 31;
+  const int tiles = (n + 31) >> 5, step = gridDim.x * COPY_WARPS;
+  int t = blockIdx.x * COPY_WARPS + (threadIdx.x >> 5);
+  int id = t < tiles && (t << 5) + lane < n ? __ldg(ids + (t << 5) + lane) : 0;
+  for (; t < tiles; t += step) {
+    const int base = t << 5, here = min(32, n - base), u = t + step;
+    const int next =
+        u < tiles && (u << 5) + lane < n ? __ldg(ids + (u << 5) + lane) : 0;
+    W* tile = rows + (size_t)base * words;
+    for (int k0 = 0; k0 < words; k0 += K) {  // one pass when WPR > 0
+      W v[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int f = lane + 32 * (k0 + j);
+        const int r = WPR > 0 ? f / WPR : (int)(((unsigned)f * magic) >> 16);
+        const int rid = __shfl_sync(FULL, id, r & 31);
+        const bool ok = (WPR > 0 || k0 + j < words) && r < here;
+        v[j] = copy_load<W, SCATTER>(table, tile,
+                                     (size_t)rid * words + (f - r * words), f,
+                                     ok);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int f = lane + 32 * (k0 + j);
+        const int r = WPR > 0 ? f / WPR : (int)(((unsigned)f * magic) >> 16);
+        const int rid = __shfl_sync(FULL, id, r & 31);
+        const bool ok = (WPR > 0 || k0 + j < words) && r < here;
+        copy_store<W, SCATTER>(table, tile,
+                               (size_t)rid * words + (f - r * words), f, ok,
+                               v[j]);
+      }
+    }
+    id = next;
+  }
 }
 
-template <typename W>
-void launch_scatter(void* table, const int* ids, long long n,
-                    long long row_bytes, const void* upd, cudaStream_t s) {
-  long long wpr = row_bytes / (long long)sizeof(W);
-  const int threads = 256;
-  scatter_rows_kernel<W><<<grid_for(n * wpr, threads), threads, 0, s>>>(
-      (W*)table, ids, n, wpr, (const W*)upd);
+// Wide rows (NARROW words or more, such as the LM's 3,072-byte token rows
+// in 16-byte words): a warp a row. Its id is one load (the same address for
+// every lane, one request), issued with the previous row's words; lane l
+// moves words l, l + 32, ..., all loads before the first store (six 16-byte
+// loads a lane for 3,072 bytes), in passes of CHUNK when WPR is 0.
+template <typename W, int WPR, bool SCATTER>
+__global__ void __launch_bounds__(32 * COPY_WARPS)
+copy_wide_kernel(W* __restrict__ table, const int* __restrict__ ids, int n,
+                 int wpr, W* __restrict__ rows) {
+  constexpr int K = WPR > 0 ? (WPR + 31) / 32 : CHUNK;
+  const int words = WPR > 0 ? WPR : wpr;
+  const int lane = threadIdx.x & 31, step = gridDim.x * COPY_WARPS;
+  int i = blockIdx.x * COPY_WARPS + (threadIdx.x >> 5);
+  int id = i < n ? __ldg(ids + i) : 0;
+  for (; i < n; i += step) {
+    const int next = i + step < n ? __ldg(ids + i + step) : 0;
+    W* row = rows + (size_t)i * words;
+    const size_t cell = (size_t)id * words;
+    for (int c0 = 0; c0 < words; c0 += 32 * K) {  // one pass when WPR > 0
+      W v[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int c = c0 + lane + 32 * j;
+        v[j] = copy_load<W, SCATTER>(table, row, cell + c, c, c < words);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int c = c0 + lane + 32 * j;
+        copy_store<W, SCATTER>(table, row, cell + c, c, c < words, v[j]);
+      }
+    }
+    id = next;
+  }
 }
 
+// Launches KERNEL over `work` warps of work: as many blocks as the card
+// holds at once (SMs x resident blocks), the warps walking the rest.
+template <auto KERNEL, typename W>
+int launch_copy(long long work, W* table, const int* ids, int n, int wpr,
+                W* rows, cudaStream_t s) {
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, KERNEL,
+                                                  32 * COPY_WARPS, 0);
+    return b > 0 ? b : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long cap = (long long)(sms > 0 ? sms : 1) * per_sm;
+  const long long want = (work + COPY_WARPS - 1) / COPY_WARPS;
+  KERNEL<<<(unsigned)(want < cap ? want : cap), 32 * COPY_WARPS, 0, s>>>(
+      table, ids, n, wpr, rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename W, bool SCATTER>
+int copy_rows(void* table_, const int* ids, int n, int wpr, void* rows_,
+              bool wide, cudaStream_t s) {
+  W* table = (W*)table_;
+  W* rows = (W*)rows_;
+  if (wide) {
+    if constexpr (sizeof(W) == 16)  // the LM's 1,536-wide bf16 rows
+      if (wpr == 192)
+        return launch_copy<copy_wide_kernel<W, 192, SCATTER>>(
+            n, table, ids, n, wpr, rows, s);
+    return launch_copy<copy_wide_kernel<W, 0, SCATTER>>(n, table, ids, n,
+                                                        wpr, rows, s);
+  }
+  const long long tiles = (n + 31) / 32;
+  if constexpr (sizeof(W) == 4) {   // D = 1 and 9 float32
+    if (wpr == 1)
+      return launch_copy<copy_narrow_kernel<W, 1, SCATTER>>(
+          tiles, table, ids, n, wpr, rows, s);
+    if (wpr == 9)
+      return launch_copy<copy_narrow_kernel<W, 9, SCATTER>>(
+          tiles, table, ids, n, wpr, rows, s);
+  }
+  if constexpr (sizeof(W) == 16)    // D = 8 float32
+    if (wpr == 2)
+      return launch_copy<copy_narrow_kernel<W, 2, SCATTER>>(
+          tiles, table, ids, n, wpr, rows, s);
+  return launch_copy<copy_narrow_kernel<W, 0, SCATTER>>(tiles, table, ids, n,
+                                                        wpr, rows, s);
+}
+
+// The C entries' common part: checks the plan (word, wide) the wrapper
+// made (kernels/embedding_lookup.py copy_plan) and launches.
+template <bool SCATTER>
+int copy_entry(void* table, long long row_bytes, const void* ids, long long n,
+               void* rows, int word, int wide, void* stream) {
+  const long long wpr = word > 0 ? row_bytes / word : 0;
+  if (n < 0 || n >= (1LL << 30) || word < 1 || word > 16 ||
+      (word & (word - 1)) || word_bytes(table, rows, row_bytes) < word ||
+      wpr < 1 || wpr >= (1LL << 30) || (!wide && wpr >= NARROW))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* id = (const int*)ids;
+  switch (word) {
+    case 16: return copy_rows<uint4, SCATTER>(table, id, (int)n, (int)wpr, rows, wide, s);
+    case 8: return copy_rows<uint2, SCATTER>(table, id, (int)n, (int)wpr, rows, wide, s);
+    case 4: return copy_rows<uint32_t, SCATTER>(table, id, (int)n, (int)wpr, rows, wide, s);
+    case 2: return copy_rows<uint16_t, SCATTER>(table, id, (int)n, (int)wpr, rows, wide, s);
+    default: return copy_rows<uint8_t, SCATTER>(table, id, (int)n, (int)wpr, rows, wide, s);
+  }
+}
 template <typename V, bool BF16>
 int launch_scatter_add(void* table, const int* ids, const long long* order,
                        long long n, long long row_bytes, const void* upd,
@@ -437,36 +581,26 @@ int embedding_scatter_add(void* table, long long d, const void* ids,
 // around it.
 int embedding_scatter_add_share() { return SHARE; }
 
-// table: (rows, row_bytes) bytes; ids: n int32 in [0, rows); out: n rows.
-// Returns cudaGetLastError() after launch.
+// table: (rows, row_bytes) bytes; ids: n int32 in [0, rows); out: n rows,
+// written; word, wide: the plan (kernels/embedding_lookup.py copy_plan):
+// the bytes a lane moves at a time, which must divide both pointers and
+// row_bytes, and whether a warp moves a row (1) or a tile of 32 rows (0,
+// rows of fewer than 32 words). Returns cudaGetLastError() after launch,
+// or cudaErrorInvalidValue.
 int embedding_lookup(const void* table, long long row_bytes, const void* ids,
-                     long long n, void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* id = (const int*)ids;
-  switch (word_bytes(table, out, row_bytes)) {
-    case 16: launch_gather<uint4>(table, id, n, row_bytes, out, s); break;
-    case 8: launch_gather<uint2>(table, id, n, row_bytes, out, s); break;
-    case 4: launch_gather<uint32_t>(table, id, n, row_bytes, out, s); break;
-    case 2: launch_gather<uint16_t>(table, id, n, row_bytes, out, s); break;
-    default: launch_gather<uint8_t>(table, id, n, row_bytes, out, s); break;
-  }
-  return (int)cudaGetLastError();
+                     long long n, void* out, int word, int wide,
+                     void* stream) {
+  return copy_entry<false>((void*)table, row_bytes, ids, n, out, word, wide,
+                           stream);
 }
 
 // table: (rows, row_bytes) bytes, written in place; ids: n UNIQUE int32 in
-// [0, rows); upd: n rows of the table's dtype.
+// [0, rows); upd: n rows of the table's dtype; word, wide: as above.
 int embedding_scatter(void* table, long long row_bytes, const void* ids,
-                      long long n, const void* upd, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* id = (const int*)ids;
-  switch (word_bytes(table, upd, row_bytes)) {
-    case 16: launch_scatter<uint4>(table, id, n, row_bytes, upd, s); break;
-    case 8: launch_scatter<uint2>(table, id, n, row_bytes, upd, s); break;
-    case 4: launch_scatter<uint32_t>(table, id, n, row_bytes, upd, s); break;
-    case 2: launch_scatter<uint16_t>(table, id, n, row_bytes, upd, s); break;
-    default: launch_scatter<uint8_t>(table, id, n, row_bytes, upd, s); break;
-  }
-  return (int)cudaGetLastError();
+                      long long n, const void* upd, int word, int wide,
+                      void* stream) {
+  return copy_entry<true>(table, row_bytes, ids, n, (void*)upd, word, wide,
+                          stream);
 }
 
 }  // extern "C"

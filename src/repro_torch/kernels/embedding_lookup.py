@@ -7,7 +7,8 @@ replica tables) and the LM's token-embedding gather;
 in place; ``embedding_scatter_add`` is the token gather's gradient (rows
 of duplicate ids accumulate). The gather and scatter-set kernels
 (``csrc/embedding_lookup.cu``) copy rows as raw bytes, so every dtype is
-bit-exact and any row width works; the scatter-add adds in input order,
+bit-exact and any row width works, in warp tiles that ``copy_plan``
+picks; the scatter-add adds in input order,
 rounding to the table's dtype after every add, bit-equal to its plain
 version (``scatter_add_word`` gives the bytes each lane adds).
 
@@ -31,8 +32,9 @@ from repro_torch.kernels import _build, ref
 def _lib() -> ctypes.CDLL:
     lib = _build.load("embedding_lookup")
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.embedding_lookup.argtypes = [p, ll, p, ll, p, p]
-    lib.embedding_scatter.argtypes = [p, ll, p, ll, p, p]
+    i = ctypes.c_int
+    lib.embedding_lookup.argtypes = [p, ll, p, ll, p, i, i, p]
+    lib.embedding_scatter.argtypes = [p, ll, p, ll, p, i, i, p]
     lib.embedding_scatter_add.argtypes = [p, ll, p, p, ll, p, ll,
                                           ctypes.c_int, ctypes.c_int, p]
     lib.embedding_lookup.restype = ctypes.c_int
@@ -42,6 +44,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# the copy kernels take fewer ids than this
+MAX_COPY_IDS = 2 ** 30
+# rows of at least this many copy words go a warp a row ("wide"); narrower
+# rows go 32 rows to a warp tile
+WIDE_WORDS = 32
+
+
 def _check_table_ids(table: torch.Tensor, ids: torch.Tensor) -> None:
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"table must be a contiguous (V, D) tensor, got "
@@ -49,6 +58,33 @@ def _check_table_ids(table: torch.Tensor, ids: torch.Tensor) -> None:
     if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
         raise ValueError(f"ids must be a contiguous 1-D int32 tensor, got "
                          f"{ids.dtype} {tuple(ids.shape)}")
+    if ids.shape[0] >= MAX_COPY_IDS:
+        raise ValueError(f"{ids.shape[0]} ids: the copy kernels take "
+                         f"< 2^30")
+
+
+def copy_plan(table: torch.Tensor, rows: torch.Tensor) -> tuple[int, int,
+                                                                 bool]:
+    """The gather's and scatter-set's plan for a (V, D) table and the
+    contiguous (N, D) rows copied out of or into it: ``(word, words,
+    wide)``. ``word`` is the bytes a lane moves at a time, the widest of
+    16, 8, 4, 2 and 1 that divides both pointers and the row's bytes;
+    ``words`` the words a row; ``wide`` whether a warp moves one row at
+    a time (``words >= WIDE_WORDS``) or the flat words of a tile of 32
+    rows."""
+    row_bytes = table.shape[1] * table.element_size()
+    m = table.data_ptr() | rows.data_ptr() | row_bytes
+    word = next(w for w in (16, 8, 4, 2, 1) if m % w == 0)
+    words = row_bytes // word
+    return word, words, words >= WIDE_WORDS
+
+
+def _copy(name: str, cfunc, table: torch.Tensor, ids: torch.Tensor,
+          rows: torch.Tensor) -> None:
+    word, _, wide = copy_plan(table, rows)
+    _build.launch(name, cfunc, table.device, table.data_ptr(),
+                  table.shape[1] * table.element_size(), ids.data_ptr(),
+                  ids.shape[0], rows.data_ptr(), word, int(wide))
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -67,10 +103,7 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                       device=table.device)
     if out.numel() == 0:
         return out
-    _build.launch("embedding_lookup", _lib().embedding_lookup,
-                  table.device, table.data_ptr(),
-                  table.shape[1] * table.element_size(), ids.data_ptr(),
-                  ids.shape[0], out.data_ptr())
+    _copy("embedding_lookup", _lib().embedding_lookup, table, ids, out)
     embedding_lookup.launches += 1
     return out
 
@@ -97,10 +130,8 @@ def embedding_scatter(table: torch.Tensor, ids: torch.Tensor,
                          f"{ids.shape[0]} ids x {table.shape[1]} columns")
     if updates.numel() == 0:
         return table
-    _build.launch("embedding_scatter", _lib().embedding_scatter,
-                  table.device, table.data_ptr(),
-                  table.shape[1] * table.element_size(), ids.data_ptr(),
-                  ids.shape[0], updates.data_ptr())
+    _copy("embedding_scatter", _lib().embedding_scatter, table, ids,
+          updates)
     embedding_scatter.launches += 1
     return table
 

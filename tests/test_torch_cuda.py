@@ -55,17 +55,110 @@ def test_probe_kernels_match_plain_on_card(cuda, placement):
     assert torch.equal(pos[found], ppos[pfound])
 
 
+# (dtype, D) of the copy cases: every branch of copy_plan and of the C
+# dispatch — narrow rows with the compile-time widths (1 and 9 4-byte
+# words, 2 16-byte words) and with run-time widths (8-byte D = 2, 4-byte
+# D = 3 and 17, 16-byte D = 64, 2-byte and 1-byte words), wide rows of
+# 192 16-byte words (the LM's token rows) and of run-time widths (an odd
+# bf16 width in 2-byte words, an odd uint8 width in 1-byte words)
+COPY_CASES = [(torch.float32, d) for d in (1, 2, 3, 8, 9, 17, 64)] + [
+    (torch.bfloat16, 1536), (torch.bfloat16, 1537), (torch.uint8, 7),
+    (torch.uint8, 101)]
+# more ids than one wave of tiles holds (132 SMs x 2,048 threads: 270,336
+# narrow rows or 8,448 wide rows at full occupancy)
+WAVE_N = {False: 300_000, True: 20_000}
+
+
+def _rows(dtype, n, d, gen, device):
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, (n, d), dtype=dtype, generator=gen,
+                             device=device)
+    return torch.randn(n, d, generator=gen, device=device).to(dtype)
+
+
+def _copy_inputs(dtype, n, d, device, seed, offset=0):
+    """A table of max(n, 1000) + 1 rows (a view ``offset`` elements into
+    its storage), gather ids that hold the last row, unique scatter ids
+    that hold it too, and updates."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = max(n, 1000) + 1
+    flat = _rows(dtype, v * d + offset, 1, gen, device).reshape(-1)
+    table = flat[offset:].view(v, d)
+    ids = torch.randint(0, v, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    ids[-1] = v - 1
+    perm = torch.randperm(v - 1, generator=gen, device=device)[:n - 1]
+    uniq = torch.cat([perm, torch.tensor([v - 1], device=device)]).to(
+        torch.int32)
+    return table, ids, uniq, _rows(dtype, n, d, gen, device)
+
+
+def _check_copies(table, ids, uniq, upd):
+    """Both copy kernels bit-equal to their plain versions, one launch a
+    call (the scatter-set writes into ``table`` itself, so that a view's
+    alignment is what the kernel sees)."""
+    before = port_ops.launch_counts()
+    got = port_el.embedding_lookup(table, ids)
+    assert port_ops.launch_counts()["embedding_lookup"] \
+        == before["embedding_lookup"] + 1
+    assert torch.equal(got, port_ref.embedding_lookup(table, ids))
+    want = port_ref.embedding_scatter(table.clone(), uniq, upd)
+    got = port_el.embedding_scatter(table, uniq, upd)   # in place
+    assert got is table
+    assert port_ops.launch_counts()["embedding_scatter"] \
+        == before["embedding_scatter"] + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 8, 9])
-def test_copy_kernels_match_plain_on_card(cuda, d):
-    table = torch.randn(1000, d, device=cuda)
-    ids = torch.randint(0, 1000, (333,), device=cuda, dtype=torch.int32)
-    assert torch.equal(port_el.embedding_lookup(table, ids),
-                       port_ref.embedding_lookup(table, ids))
-    uniq = torch.randperm(1000, device=cuda)[:333].to(torch.int32)
-    upd = torch.randn(333, d, device=cuda)
-    assert torch.equal(port_el.embedding_scatter(table.clone(), uniq, upd),
-                       port_ref.embedding_scatter(table.clone(), uniq, upd))
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, "wave"])
+@pytest.mark.parametrize("dtype,d", COPY_CASES,
+                         ids=[f"{str(t)[6:]}-{d}" for t, d in COPY_CASES])
+def test_copy_kernels_match_plain_on_card(cuda, dtype, d, n):
+    if n == "wave":
+        probe = torch.empty(1, d, dtype=dtype)
+        n = WAVE_N[port_el.copy_plan(probe, probe)[2]]
+    _check_copies(*_copy_inputs(dtype, n, d, cuda, seed=n * 7 + d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,word", [
+    (torch.float32, 8, 4), (torch.float32, 9, 4), (torch.float32, 64, 4),
+    (torch.bfloat16, 1536, 2), (torch.bfloat16, 8, 2)])
+def test_copy_kernels_on_a_misaligned_table_on_card(cuda, dtype, d, word):
+    """A table view one element into its storage, so no 16-byte word
+    divides its rows' addresses: the kernels take narrower words."""
+    table, ids, uniq, upd = _copy_inputs(dtype, 333, d, cuda, seed=d,
+                                         offset=1)
+    assert port_el.copy_plan(table, upd)[0] == word
+    _check_copies(table, ids, uniq, upd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 9), (torch.float32, 8),
+                                     (torch.bfloat16, 1536)])
+def test_copy_kernels_in_a_cuda_graph_on_card(cuda, dtype, d):
+    """A gather and a scatter-set captured in a CUDA graph and replayed
+    equal the plain versions; each replay launches no counted call."""
+    table, ids, uniq, upd = _copy_inputs(dtype, 4096, d, cuda, seed=5)
+    work = table.clone()
+    for _ in range(2):                          # warm up: build and load
+        port_el.embedding_lookup(table, ids)
+        port_el.embedding_scatter(work, uniq, upd)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = port_el.embedding_lookup(table, ids)
+        port_el.embedding_scatter(work, uniq, upd)
+    work.copy_(table)
+    out.zero_()
+    before = port_ops.launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert port_ops.launch_counts() == before
+    assert torch.equal(out, port_ref.embedding_lookup(table, ids))
+    assert torch.equal(work, port_ref.embedding_scatter(table.clone(), uniq,
+                                                        upd))
 
 
 def _ftrl_inputs(b, d, seed):

@@ -44,6 +44,33 @@ def test_embedding_scatter_matches_reference(d):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype,d,where,plan", [
+    (torch.float32, 1, None, (4, 1, False)),      # compile-time widths
+    (torch.float32, 9, None, (4, 9, False)),
+    (torch.float32, 8, None, (16, 2, False)),
+    (torch.float32, 2, None, (8, 1, False)),      # run-time narrow widths
+    (torch.float32, 3, None, (4, 3, False)),
+    (torch.float32, 64, None, (16, 16, False)),
+    (torch.float32, 124, None, (16, 31, False)),
+    (torch.float32, 128, None, (16, 32, True)),   # the first wide width
+    (torch.bfloat16, 1536, None, (16, 192, True)),
+    (torch.bfloat16, 1537, None, (2, 1537, True)),
+    (torch.uint8, 7, None, (1, 7, False)),
+    (torch.uint8, 101, None, (1, 101, True)),
+    (torch.float32, 8, "table", (4, 8, False)),   # a pointer off 16 bytes
+    (torch.float32, 8, "rows", (4, 8, False)),
+    (torch.bfloat16, 1536, "table", (2, 1536, True)),
+])
+def test_copy_plan(dtype, d, where, plan):
+    """The copy kernels' plan: the widest word dividing both pointers
+    and the row's bytes, the words a row, and wide rows from 32 words."""
+    def view(n, off):
+        return torch.zeros(n * d + off, dtype=dtype)[off:].view(n, d)
+    table = view(64, int(where == "table"))
+    rows = view(5, int(where == "rows"))
+    assert port_el.copy_plan(table, rows) == plan
+
+
 @pytest.mark.parametrize("placement", ["auto", "vmem", "hbm"])
 def test_fused_lookup_matches_reference(placement):
     """Rows, found mask and arena slots of probe → slot translate →
