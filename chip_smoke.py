@@ -56,7 +56,14 @@ Phases (any failure exits non-zero and prints no result line):
    predictions within 1e-5; the card's loss and row gradients for one
    batch must match the CPU's within rtol 1e-5, atol 1e-6. The new
    kernels are then held against their plain versions on the path's own
-   inputs and timed.
+   inputs and timed. Then the int8 codec beyond the path's shapes: rows
+   of zeros, NaN, +Inf and -Inf at a width of every ``codec_plan``
+   regime, whose codes and scales must be the CPU's plain version's (the
+   reference's: scale NaN or inf, codes 0); and ``CODEC_SHAPES`` (the
+   bootstrap's 2^20 x 8 encode and a 65,536 x 8 record, 65,536 x 1,536,
+   and ONE row of 385,351,680 floats, a qwen2-1.5b MLP leaf), each
+   bit-equal to its plain version, then timed beside its bound, its
+   plain version and, for dequantize, ``torch.mul``.
 5. LM serving, qwen2-1.5b at full width (28 layers, random weights from
    the seed). (At the build, before phase 1: the whole ``-Xptxas -v``
    report of ``flash_attention_sm90.cu`` and ``decode_attention.cu``, and
@@ -108,7 +115,14 @@ Phases (any failure exits non-zero and prints no result line):
    (28 forward, 28 in remat's recompute); the replica's staleness against
    the trained params under 2e-3. Step p50 / p99, tokens/s, ``mfu`` (model
    FLOPs over step time over 989 TFLOP/s), peak memory and each flush's
-   time, records and bytes are printed. Last, a ``ServeDriver`` started
+   time, records and bytes are printed. Then the trained params are
+   flushed once through the int8 codec on the card (``--codec int8``: a
+   ``ModelSyncEngine`` whose replica starts from the initial params, every
+   leaf one codec row, split over the card): its time beside the cast16
+   flushes, the codec's launches equal to what the leaves' plans want,
+   the replica's staleness under the reference's int8 bound of 2e-2, and
+   the largest leaf's codes and scale equal to the plain version's on the
+   card. Last, a ``ServeDriver`` started
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
    ``decode_attention`` launches a step.
@@ -985,6 +999,37 @@ def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
             "record": (up(rec.payload["q"]), up(rec.payload["scale"]))}
 
 
+CODEC_SPECIAL = 5                   # rows of codec_rows that are not finite
+
+
+def codec_rows(b: int, d: int, seed) -> np.ndarray:
+    """(b, d) float32 codec rows from ``seed``, magnitudes spread over
+    1e-4..1e4 a row, the first ``CODEC_SPECIAL`` of them (as far as ``b``
+    goes) special: all zeros, one NaN, one +Inf, one -Inf, and NaN with
+    both infinities. The reference gives scale 1e-12, NaN, inf, inf and
+    NaN, and codes 0, for these."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, d))
+         * 10.0 ** rng.uniform(-4, 4, size=(b, 1))).astype(np.float32)
+    special = [(0, slice(None), 0.0), (1, d // 2, np.nan),
+               (2, d - 1, np.inf), (3, 0, -np.inf), (4, d // 3, np.inf),
+               (4, d - 1, -np.inf), (4, 0, np.nan)]
+    for row, col, v in special:
+        if row < b:
+            x[row, col] = v
+    return x
+
+
+def codec_same(a, b) -> bool:
+    """Bit-equal tensors, NaNs in the same places standing for equal (the
+    card's arithmetic returns a canonical NaN, the host's keeps the
+    input's payload)."""
+    import torch
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0), b.masked_fill(nan, 0)))
+
+
 def train_kernel_rows(inputs: dict, ftrl_kw: dict) -> list[dict]:
     """Each new kernel against its plain version on the path's inputs,
     bit-equal, then timed beside its byte bound."""
@@ -1027,6 +1072,90 @@ def train_kernel_rows(inputs: dict, ftrl_kw: dict) -> list[dict]:
                      lambda: torch.mul(q, s),
                      5 * b * d + 4 * b, f"{b}x{d} int8, one record"))
     return rows
+
+
+# (rows, width, what) of the codec's timed shapes beyond the path's own:
+# the bootstrap's encode of a master and one of its records, a wide
+# block of rows, and one dense leaf of qwen2-1.5b (an MLP stack, 28 x
+# 1536 x 8960 floats) as ModelSyncEngine encodes it, ONE row
+CODEC_SHAPES = ((1 << 20, 8, "quantize", "the bootstrap's encode of a "
+                 "master"),
+                (65_536, 8, "dequantize", "one bootstrap record"),
+                (65_536, 1536, "both", "a block of wide rows"),
+                (1, 28 * 1536 * 8960, "both", "a qwen2-1.5b MLP leaf"))
+# widths of the NaN / Inf rows' check: every regime of codec_plan
+CODEC_SPECIAL_WIDTHS = (1, 8, 9, 1536, 16384, 100_003)
+
+
+def codec_shape_lines(device) -> None:
+    """The codec kernels at ``CODEC_SHAPES``, each bit-equal to its plain
+    version first, then timed beside its bound (a split row's quantize
+    also beside the bound of reading it twice), its plain version and,
+    for dequantize, ``torch.mul``."""
+    import torch
+
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for b, d, which, what in CODEC_SHAPES:
+        x = torch.randn(b, d, generator=gen, device=device) * 10.0 ** (
+            torch.rand(b, 1, generator=gen, device=device) * 8 - 4)
+        (q, s), (pq, ps) = dc.quantize_rows(x), ref.quantize_rows(x)
+        if not (torch.equal(q, pq) and torch.equal(s, ps)):
+            raise AssertionError(f"quantize_rows at {b}x{d}: not bit-equal")
+        del pq, ps
+        plan = dc.codec_plan(d, x.data_ptr(), q.data_ptr())
+        shape = f"{b}x{d}, {what} ({plan.regime}, {plan.word}-byte words)"
+        if which in ("quantize", "both"):
+            _row("quantize_rows", "delta_codec.cu",
+                 "src/repro/kernels/delta_codec.py:36", 0.0,
+                 lambda: dc.quantize_rows(x), lambda: ref.quantize_rows(x),
+                 None, 5 * b * d + 4 * b, shape)
+            if plan.regime == "split":
+                print(f"  (read twice, as a split row is: bound "
+                      f"{_bound_ms(9 * b * d + 4 * b):.5f} ms)")
+        if which in ("dequantize", "both"):
+            out = dc.dequantize_rows(q, s)
+            if not torch.equal(out, ref.dequantize_rows(q, s)):
+                raise AssertionError(f"dequantize_rows at {b}x{d}: not "
+                                     f"bit-equal")
+            del out
+            _row("dequantize_rows", "delta_codec.cu",
+                 "src/repro/kernels/delta_codec.py:58", 0.0,
+                 lambda: dc.dequantize_rows(q, s),
+                 lambda: ref.dequantize_rows(q, s), lambda: torch.mul(q, s),
+                 5 * b * d + 4 * b, shape)
+        del x, q, s
+        torch.cuda.empty_cache()
+
+
+def check_codec_special(device) -> None:
+    """Rows holding NaN, +Inf, -Inf and zeros (``codec_rows``) at every
+    regime's width: the kernels give the CPU's plain version's codes and
+    scales (the reference's answer); whether the card's plain version
+    agrees with the CPU's is printed, not held."""
+    import torch
+
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import ref
+    plain_agrees = []
+    for d in CODEC_SPECIAL_WIDTHS:
+        x = torch.from_numpy(codec_rows(64, d, d)).to(device)
+        q, s = dc.quantize_rows(x)
+        cq, cs = ref.quantize_rows(x.cpu())
+        out = dc.dequantize_rows(q, s)
+        if not (torch.equal(q.cpu(), cq) and codec_same(s.cpu(), cs)
+                and codec_same(out.cpu(), ref.dequantize_rows(cq, cs))):
+            raise AssertionError(f"codec on NaN / Inf rows at D = {d}: not "
+                                 f"the CPU's plain version's answer")
+        pq, ps = ref.quantize_rows(x)
+        plain_agrees.append(bool(torch.equal(pq.cpu(), cq)
+                                 and codec_same(ps.cpu(), cs)))
+    print(f"codec on rows of zeros, NaN, +Inf, -Inf at D = "
+          f"{', '.join(map(str, CODEC_SPECIAL_WIDTHS))}: kernels equal to "
+          f"the CPU's plain version (scales 1e-12, nan, inf, inf, nan; codes "
+          f"0); the card's plain version agrees with the CPU's: "
+          f"{plain_agrees}", flush=True)
 
 
 def drive_loop(device, *, feature_space: int, batch: int, fields: int,
@@ -1732,6 +1861,52 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     return 6.0 * batch * seq * matmul + attn
 
 
+INT8_STALENESS_BOUND = 2e-2         # the reference's int8 bound
+
+
+def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
+    """The trained ``params`` streamed once through a ``ModelSyncEngine``
+    with the int8 codec on ``device`` (``--codec int8``; every leaf ONE
+    codec row) to one replica that starts from ``initial``: a
+    ``collect_step`` bumps every leaf's version, one flush pushes them
+    all. Returns the flush's time, records and bytes, the codec's launches
+    in it and the launches its plans want, the replica's staleness before
+    and after, and whether the largest leaf's codes and scale equal the
+    plain version's on ``device``."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.core.sync_engine import ModelSyncEngine, SyncConfig
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    engine = ModelSyncEngine(cfg, initial, SyncConfig(
+        gather_mode="period", period=1.0, codec="int8",
+        codec_backend="torch", device=device.type))
+    before = engine.replicas[0].staleness(params)
+    engine.collect_step(np.zeros((1, 1), np.int64))
+    ops.reset_launches()
+    flush = train._tick(engine, params, 1e9)
+    launches = ops.launch_counts()
+    leaves = tree.flatten_with_paths(params)
+    path, leaf = max(leaves, key=lambda e: e[1].numel())
+    rec = next(r for p in range(engine.queue.num_partitions)
+               for r in engine.queue.consume(p, 0)[0]
+               if r.meta["path"] == path)
+    pq, ps = ref.quantize_rows(leaf.detach().float().reshape(1, -1))
+    equal = (torch.equal(torch.from_numpy(rec.payload["q"]).to(device), pq)
+             and torch.equal(torch.from_numpy(rec.payload["scale"])
+                             .to(device), ps))
+    del pq, ps, rec
+    return {**flush, "launches": launches,
+            "want": {"quantize_rows": sum(
+                dc.codec_plan(t.numel()).quantize_launches
+                for _, t in leaves), "dequantize_rows": flush["records"]},
+            "staleness_before": before,
+            "staleness": engine.replicas[0].staleness(params),
+            "largest": (path, leaf.numel()), "largest_equal": equal}
+
+
 def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     """LM training through its entry points: ``launch.train`` builds the
     state, step and ``ModelSyncEngine`` from ``train_argv`` and runs
@@ -1779,6 +1954,7 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
                      "finite": bool(torch.isfinite(
                          swapped[..., :cfg.vocab_size]).all())}
     rec["metrics"] = engine.metrics()
+    rec["int8"] = int8_flush(cfg, initial, state.params, device)
     # one more train step, profiled (after every count and comparison)
     batch = {"tokens": torch.from_numpy(next(batches)).to(device)}
     rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
@@ -1816,6 +1992,18 @@ def report_lm_train(lm: dict, f32: dict) -> None:
               f"{fl['bytes']} bytes")
     print(f"  sync {rec['metrics']}; replica staleness vs the trained "
           f"params {rec['staleness']:.3g} (limit {STALENESS_BOUND})")
+    i8 = rec["int8"]
+    print(f"  int8 flush (--codec int8, every leaf one codec row, from the "
+          f"initial params' replica): {i8['s']:.3f} s, {i8['records']} "
+          f"records, {i8['bytes']} bytes (the cast16 flushes above: "
+          + ", ".join(f"{fl['s']:.3f} s" for fl in rec["flushes"])
+          + f"); launches quantize_rows {i8['launches']['quantize_rows']}, "
+          f"dequantize_rows {i8['launches']['dequantize_rows']} (the plans "
+          f"want {i8['want']}); replica staleness vs the trained params "
+          f"{i8['staleness_before']:.3g} -> {i8['staleness']:.3g} (limit "
+          f"{INT8_STALENESS_BOUND}); largest leaf {i8['largest'][0]} "
+          f"({i8['largest'][1]} elements) codes and scale equal to the plain "
+          f"version's: {i8['largest_equal']}", flush=True)
     dec = rec["decode"]
     print(f"  hot swap of the replica's bf16 device params in "
           f"{dec['swap_s']:.3f} s, then {dec['steps']} decode steps: logits "
@@ -1837,6 +2025,12 @@ def report_lm_train(lm: dict, f32: dict) -> None:
                              f"periodic one before the final one")
     if not rec["staleness"] < STALENESS_BOUND:
         raise AssertionError(f"replica staleness {rec['staleness']}")
+    if {k: i8["launches"][k] for k in i8["want"]} != i8["want"]:
+        raise AssertionError(f"int8 flush launches {i8['launches']}, want "
+                             f"{i8['want']}")
+    if not (i8["staleness"] < INT8_STALENESS_BOUND and i8["largest_equal"]):
+        raise AssertionError(f"int8 flush: staleness {i8['staleness']}, "
+                             f"largest leaf equal {i8['largest_equal']}")
     if not (dec["finite"] and np.isfinite(rec["losses"]).all()):
         raise AssertionError("non-finite losses or decode logits")
 
@@ -1971,6 +2165,9 @@ def main() -> int:
     for row in new_rows:
         row["launches"] = tr["launches"][row["name"]]
     kernels += new_rows
+    print("codec kernels beyond the path's own shapes:", flush=True)
+    check_codec_special(dev)
+    codec_shape_lines(dev)
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

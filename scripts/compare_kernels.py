@@ -1,0 +1,260 @@
+#!/usr/bin/env python3
+"""Time kernels of this tree against those built from another version of
+their source, on one CUDA card, in turns (other, this, this, other). Each
+pair of outputs must be bit-equal, or the script fails.
+
+The copies (``--embedding-lookup``): the row gather and the row
+scatter-set at the shapes ``chip_smoke.py`` times them, 131,072 ids into
+a 2^21 x D float32 table for D = 1, 8 and 9, and qwen2-1.5b's token
+gather (8,192 ids x 1,536 bf16 from its 152,064-row table). The other
+source's copy entries must take ``(table, row_bytes, ids, n, rows,
+stream)``: the C interface before ``copy_plan``.
+
+The int8 row codec (``--delta-codec``): ``quantize_rows`` and
+``dequantize_rows`` at the sync path's shapes (one master's push, 32,768
+x 8; one record, 16,384 x 8; the bootstrap's encode of a master, 2^20 x
+8, and one of its records, 65,536 x 8), at 65,536 x 1,536 and at one
+dense leaf of qwen2-1.5b, ONE row of 28 x 1,536 x 8,960 floats. The
+other source's entries must take ``(x, rows, d, q, scale, stream)`` and
+``(q, scale, rows, d, out, stream)``: the C interface before
+``codec_plan``. Its quantize gives a row one warp, seconds for the leaf,
+so there it runs a row of 2^24 floats and its time is scaled by the
+leaf's length (``"scaled"`` in its line).
+
+    git show <rev>:src/repro_torch/kernels/csrc/embedding_lookup.cu \\
+        > build/other_embedding_lookup.cu
+    git show <rev>:src/repro_torch/kernels/csrc/delta_codec.cu \\
+        > build/other_delta_codec.cu
+    python3 scripts/compare_kernels.py \\
+        --embedding-lookup build/other_embedding_lookup.cu \\
+        --delta-codec build/other_delta_codec.cu
+
+Either option may be left out. The other sources are built with the
+port's ``nvcc`` flags into ``build/repro_torch/compare/``. Prints the
+card's name and power limit, a line a shape and kernel, and a JSON object
+of every time last. Device times come from ``chip_smoke._device_ms`` (a
+CUDA graph of 20 calls, replayed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+# one MLP stack of qwen2-1.5b: layers x d_model x d_ff, one codec row
+LM_LEAF = 28 * 1536 * 8960
+# the other quantize's cut of that row (it streams a row with one warp)
+OTHER_LEAF_CUT = 1 << 24
+CODEC_SHAPES = (("quantize_rows", 32_768, 8, "one master's push"),
+                ("dequantize_rows", 16_384, 8, "one record"),
+                ("quantize_rows", 1 << 20, 8, "the bootstrap's encode of a "
+                 "master"),
+                ("dequantize_rows", 65_536, 8, "one bootstrap record"),
+                ("quantize_rows", 65_536, 1536, ""),
+                ("dequantize_rows", 65_536, 1536, ""),
+                ("quantize_rows", 1, LM_LEAF, "a qwen2-1.5b MLP leaf"),
+                ("dequantize_rows", 1, LM_LEAF, "a qwen2-1.5b MLP leaf"))
+
+
+def build_other(src: Path) -> ctypes.CDLL:
+    """The library built from ``src`` with the port's flags."""
+    from repro_torch.kernels import _build
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = _build.BUILD_DIR / "compare" / f"libother-{digest}.so"
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                            str(src)], capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def _check_rc(rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"other library: CUDA error {rc}")
+
+
+def _stream() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _turns(name: str, label: str, old, new, scale: float = 1.0) -> dict:
+    """Time ``old`` and ``new`` in turns; ``scale`` multiplies the other's
+    times (a cut of the shape)."""
+    import chip_smoke as cs
+    t = [cs._device_ms(f) for f in (old, new, new, old)]
+    t[0] *= scale
+    t[3] *= scale
+    row = {"name": name, "shape": label, "other_ms": (t[0] + t[3]) / 2,
+           "this_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+    if scale != 1.0:
+        row["other_scaled_by"] = scale
+    row["ratio"] = row["this_ms"] / row["other_ms"]
+    print(f"{name} at {label}: other {row['other_ms']:.5f} ms"
+          + (f" (scaled by {scale:.4f})" if scale != 1.0 else "")
+          + f", this {row['this_ms']:.5f} ms ({row['ratio']:.3f}x); turns "
+          + ", ".join(f"{x:.5f}" for x in t), flush=True)
+    return row
+
+
+def copy_shapes(dev):
+    """(label, table, gather ids, unique scatter ids, updates), as
+    ``chip_smoke.phase_kernels`` makes them."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    n = cs.REQ_BATCH * cs.FIELDS
+    for d in (1, 8, 9):
+        yield (f"{cs.COPY_ROWS}x{d} f32, {n} ids",
+               torch.randn(cs.COPY_ROWS, d, device=dev),
+               torch.randint(0, cs.COPY_ROWS, (n,), device=dev,
+                             dtype=torch.int32),
+               torch.randperm(cs.COPY_ROWS, device=dev)[:n].to(torch.int32),
+               torch.randn(n, d, device=dev))
+    cfg = get_config(cs.LM_ARCH)
+    n = cs.PREFILL_BATCH * cs.PREFILL_LEN
+    yield (f"{cfg.padded_vocab}x{cfg.d_model} bf16, {n} ids",
+           torch.randn(cfg.padded_vocab, cfg.d_model, device=dev,
+                       dtype=torch.bfloat16),
+           torch.randint(0, cfg.vocab_size, (n,), device=dev,
+                         dtype=torch.int32),
+           torch.randperm(cfg.vocab_size, device=dev)[:n].to(torch.int32),
+           torch.randn(n, cfg.d_model, device=dev, dtype=torch.bfloat16))
+
+
+def compare_copies(src: Path, dev) -> list[dict]:
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    other = build_other(src)
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    for fn in (other.embedding_lookup, other.embedding_scatter):
+        fn.argtypes = [p, ll, p, ll, p, p]
+        fn.restype = ctypes.c_int
+
+    def call(cfunc, table, ids, rows):
+        _check_rc(cfunc(table.data_ptr(), table.shape[1]
+                        * table.element_size(), ids.data_ptr(), ids.shape[0],
+                        rows.data_ptr(), _stream()))
+
+    results = []
+    for label, table, ids, uniq, upd in copy_shapes(dev):
+        out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
+                          device=dev)
+        call(other.embedding_lookup, table, ids, out)
+        if not torch.equal(out, el.embedding_lookup(table, ids)):
+            raise AssertionError(f"gather at {label}: not bit-equal")
+        mine = el.embedding_scatter(table.clone(), uniq, upd)
+        theirs = table.clone()
+        call(other.embedding_scatter, theirs, uniq, upd)
+        if not torch.equal(mine, theirs):
+            raise AssertionError(f"scatter-set at {label}: not bit-equal")
+        del mine, theirs
+        results.append(_turns(
+            "embedding_lookup", label,
+            lambda: call(other.embedding_lookup, table, ids, out),
+            lambda: el.embedding_lookup(table, ids)))
+        results.append(_turns(
+            "embedding_scatter", label,
+            lambda: call(other.embedding_scatter, table, uniq, upd),
+            lambda: el.embedding_scatter(table, uniq, upd)))
+    return results
+
+
+def compare_codec(src: Path, dev) -> list[dict]:
+    import torch
+
+    from repro_torch.kernels import delta_codec as dc
+    other = build_other(src)
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    other.quantize_rows.argtypes = [p, ll, ll, p, p, p]
+    other.dequantize_rows.argtypes = [p, p, ll, ll, p, p]
+    other.quantize_rows.restype = other.dequantize_rows.restype = ctypes.c_int
+
+    def quantize(x, q, s):
+        _check_rc(other.quantize_rows(x.data_ptr(), x.shape[0], x.shape[1],
+                                      q.data_ptr(), s.data_ptr(), _stream()))
+
+    def dequantize(q, s, out):
+        _check_rc(other.dequantize_rows(q.data_ptr(), s.data_ptr(),
+                                        q.shape[0], q.shape[1],
+                                        out.data_ptr(), _stream()))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for name, b, d, what in CODEC_SHAPES:
+        label = f"{b}x{d}" + (f", {what}" if what else "")
+        x = torch.randn(b, d, generator=gen, device=dev) * 10.0 ** (
+            torch.rand(b, 1, generator=gen, device=dev) * 8 - 4)
+        q, s = dc.quantize_rows(x)
+        if name == "quantize_rows":
+            cut = x[:, :OTHER_LEAF_CUT] if d > OTHER_LEAF_CUT else x
+            oq = torch.empty(cut.shape, dtype=torch.int8, device=dev)
+            os_ = torch.empty(b, 1, device=dev)
+            quantize(cut.contiguous(), oq, os_)
+            mq, ms = dc.quantize_rows(cut.contiguous()) if cut is not x \
+                else (q, s)
+            if not (torch.equal(oq, mq) and torch.equal(os_, ms)):
+                raise AssertionError(f"quantize at {label}: not bit-equal")
+            cut = cut.contiguous()
+            results.append(_turns(name, label,
+                                  lambda: quantize(cut, oq, os_),
+                                  lambda: dc.quantize_rows(x),
+                                  scale=d / cut.shape[1]))
+            del oq, mq
+        else:
+            out = torch.empty(b, d, device=dev)
+            dequantize(q, s, out)
+            if not torch.equal(out, dc.dequantize_rows(q, s)):
+                raise AssertionError(f"dequantize at {label}: not bit-equal")
+            results.append(_turns(name, label,
+                                  lambda: dequantize(q, s, out),
+                                  lambda: dc.dequantize_rows(q, s)))
+            del out
+        del x, q, s
+        torch.cuda.empty_cache()
+    return results
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--embedding-lookup", type=Path,
+                    help="the other version of csrc/embedding_lookup.cu")
+    ap.add_argument("--delta-codec", type=Path,
+                    help="the other version of csrc/delta_codec.cu")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    torch.manual_seed(cs.SEED)
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    results = []
+    if args.embedding_lookup:
+        results += compare_copies(args.embedding_lookup, dev)
+    if args.delta_codec:
+        results += compare_codec(args.delta_codec, dev)
+    print(json.dumps({"card": smi, "rows": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,13 @@
 Pallas ``kernels/delta_codec.py``.
 
 ``quantize_rows`` is the pusher's encode (``Int8Transform.encode`` under
-the torch codec backend); ``dequantize_rows`` the scatter's decode
+the torch codec backend, and ``ModelSyncEngine``'s dense leaves, each ONE
+row, under ``--codec int8``); ``dequantize_rows`` the scatter's decode
 (``Int8Transform.decode``). The CUDA kernels (``csrc/delta_codec.cu``)
 give codes and scales bit-equal to the NumPy codec
-(``Int8Transform._quantize_np``).
+(``Int8Transform._quantize_np``), NaN and Inf rows included, through a
+plan by row width (``codec_plan``): a thread, a warp or a block a row,
+or one row split over the whole card.
 
 Each wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,12 +30,52 @@ from repro_torch.kernels import _build, ref
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("delta_codec")
-    p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.quantize_rows.argtypes = [p, ll, ll, p, p, p]
-    lib.dequantize_rows.argtypes = [p, p, ll, ll, p, p]
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.quantize_rows.argtypes = [p, ll, ll, p, p, p, i, i, i, p]
+    lib.dequantize_rows.argtypes = [p, p, ll, ll, p, i, i, p]
     lib.quantize_rows.restype = ctypes.c_int
     lib.dequantize_rows.restype = ctypes.c_int
     return lib
+
+
+# the plan's regimes, in the C entries' order, and their width limits
+REGIMES = ("narrow", "warp", "block", "split")
+NARROW_MAX = 16                   # a thread owns a row of <= 16 elements
+WARP_MAX = 32 * 64                # a warp holds the row: 64 floats a lane
+BLOCK_MAX = 8 * WARP_MAX          # a block of 8 warps holds the row
+SPLIT_TILE = 4096                 # elements of a split row's tile
+MAX_ROW = 2 ** 31 - 1             # the kernels' in-row offsets are 32-bit
+
+
+class CodecPlan(NamedTuple):
+    """How the codec kernels cover (B, D) rows: ``regime`` (a thread, a
+    warp or a block a row, or the row split into ``SPLIT_TILE``-element
+    tiles over the whole card) and ``word``, the float32 bytes a lane
+    loads at once (16: a float4, with 4-byte code words; 4: one float and
+    one code byte)."""
+    regime: str
+    word: int
+
+    @property
+    def quantize_launches(self) -> int:
+        """Kernel launches of one ``quantize_rows`` call: a split row takes
+        an absmax pass and a code pass. ``dequantize_rows`` takes one."""
+        return 2 if self.regime == "split" else 1
+
+
+def codec_plan(d: int, f32_ptr: int = 0, code_ptr: int = 0) -> CodecPlan:
+    """The plan for rows of ``d`` elements whose float32 side (``x`` or
+    ``out``) starts at address ``f32_ptr`` and int8 side at ``code_ptr``:
+    the regime by width, and float4 words where ``d % 4 == 0`` and both
+    pointers are 16-byte aligned. Raises ``ValueError`` for a row the
+    kernels cannot index (``d`` not in [1, 2^31))."""
+    if not 1 <= d <= MAX_ROW:
+        raise ValueError(f"rows of {d} elements: the codec kernels take "
+                         f"1 to 2^31 - 1")
+    word = 16 if d % 4 == 0 and (f32_ptr | code_ptr) % 16 == 0 else 4
+    regime = ("narrow" if d <= NARROW_MAX else "warp" if d <= WARP_MAX
+              else "block" if d <= BLOCK_MAX else "split")
+    return CodecPlan(regime, word)
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -39,7 +83,10 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     Args:
       x: (B, D) rows, cast to float32.
-    Returns ``(q int8 (B, D), scale float32 (B, 1))``.
+    Returns ``(q int8 (B, D), scale float32 (B, 1))``. A row holding a NaN
+    gets scale NaN, one holding an Inf scale inf, and a NaN quotient code
+    0, as in the reference. One launch, two for a split row; no host
+    synchronisation, so a call can be captured in a CUDA graph.
     """
     if _build.on_cpu(x):
         return ref.quantize_rows(x)
@@ -50,10 +97,21 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return q, scale
-    _build.launch("quantize_rows", _lib().quantize_rows, x.device,
-                  x.data_ptr(), x.shape[0], x.shape[1], q.data_ptr(),
-                  scale.data_ptr())
-    quantize_rows.launches += 1
+    plan = codec_plan(x.shape[1], x.data_ptr(), q.data_ptr())
+    args = (x.data_ptr(), x.shape[0], x.shape[1], q.data_ptr(),
+            scale.data_ptr())
+    regime = REGIMES.index(plan.regime)
+    if plan.regime == "split":
+        # the per-row absmax bits the first pass atomicMax-es into
+        absmax = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+        for phase in (1, 2):
+            _build.launch("quantize_rows", _lib().quantize_rows, x.device,
+                          *args, absmax.data_ptr(), regime, plan.word, phase)
+            quantize_rows.launches += 1
+    else:
+        _build.launch("quantize_rows", _lib().quantize_rows, x.device,
+                      *args, None, regime, plan.word, 0)
+        quantize_rows.launches += 1
     return q, scale
 
 
@@ -66,7 +124,7 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     Args:
       q: (B, D) int8 codes.
       scale: (B, 1) per-row scales, cast to float32.
-    Returns (B, D) float32.
+    Returns (B, D) float32. One launch.
     """
     if _build.on_cpu(q, scale):
         return ref.dequantize_rows(q, scale)
@@ -81,9 +139,10 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    plan = codec_plan(q.shape[1], out.data_ptr(), q.data_ptr())
     _build.launch("dequantize_rows", _lib().dequantize_rows, q.device,
                   q.data_ptr(), scale.data_ptr(), q.shape[0], q.shape[1],
-                  out.data_ptr())
+                  out.data_ptr(), REGIMES.index(plan.regime), plan.word)
     dequantize_rows.launches += 1
     return out
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as smoke  # noqa: E402
 from chip_smoke import zipf_ids  # noqa: E402
 from repro_torch.core.hashmap import IdHashMap
 from repro_torch.kernels import embedding_lookup as port_el
@@ -210,6 +211,123 @@ def test_codec_kernels_match_plain_on_card(cuda, b, d):
     assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
     assert torch.equal(port_dc.dequantize_rows(q, s),
                        port_ref.dequantize_rows(q, s))
+
+
+# row widths of the codec cases: every regime of codec_plan at its edges
+# (narrow <= 16 with the compile-time 1, 8 and 9; warp <= 2,048; block
+# <= 16,384; split beyond, with ragged last tiles), in float4 words where
+# the width allows them and in floats
+CODEC_WIDTHS = [1, 2, 3, 4, 7, 8, 9, 12, 16, 17, 20, 1536, 2047, 2048, 2049,
+                2052, 16384, 16385, 16388, 100_003]
+
+
+def _codec_case(b, d, device, seed, offset=0):
+    """codec_rows(b, d) on ``device``, as a view ``offset`` elements into
+    its buffer (offset 1: no pointer is 16-byte aligned)."""
+    x = torch.from_numpy(smoke.codec_rows(b, d, seed).reshape(-1))
+    buf = torch.empty(b * d + offset, device=device)
+    buf[offset:] = x.to(device)
+    return buf[offset:].view(b, d)
+
+
+def _check_codec(x, want_launches):
+    """Both kernels on ``x`` against the CPU's plain version (NaN rows
+    included) and the card's (finite rows); ``want_launches`` quantize
+    launches and one dequantize launch."""
+    from repro_torch.kernels import delta_codec as port_dc
+    before = port_ops.launch_counts()
+    q, s = port_dc.quantize_rows(x)
+    out = port_dc.dequantize_rows(q, s)
+    torch.cuda.synchronize()
+    counts = port_ops.launch_counts()
+    assert counts["quantize_rows"] == before["quantize_rows"] + want_launches
+    assert counts["dequantize_rows"] == before["dequantize_rows"] + 1
+    cq, csc = port_ref.quantize_rows(x.cpu())
+    assert torch.equal(q.cpu(), cq) and smoke.codec_same(s.cpu(), csc)
+    assert smoke.codec_same(out.cpu(), port_ref.dequantize_rows(cq, csc))
+    k = smoke.CODEC_SPECIAL
+    pq, ps = port_ref.quantize_rows(x[k:])
+    assert torch.equal(q[k:], pq) and torch.equal(s[k:], ps)
+    assert torch.equal(out[k:], port_ref.dequantize_rows(pq, ps))
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", CODEC_WIDTHS)
+def test_codec_plan_regimes_on_card(cuda, d, offset):
+    """Each regime and word of codec_plan, NaN / Inf / zero rows first:
+    codes and scales as the CPU's plain version gives them; a misaligned
+    view takes float words, and a misaligned code view decodes the same."""
+    from repro_torch.kernels import delta_codec as port_dc
+    b = 300 if d <= port_dc.WARP_MAX else 37 if d <= port_dc.BLOCK_MAX else 7
+    x = _codec_case(b, d, cuda, seed=d + offset, offset=offset)
+    plan = port_dc.codec_plan(d, x.data_ptr())
+    assert plan.word == (16 if d % 4 == 0 and offset == 0 else 4)
+    q, s = _check_codec(x, plan.quantize_launches)
+    qbuf = torch.empty(b * d + 1, dtype=torch.int8, device=cuda)
+    qv = qbuf[1:].view(b, d)
+    qv.copy_(q)
+    assert smoke.codec_same(port_dc.dequantize_rows(qv, s),
+                         port_dc.dequantize_rows(q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(600_000, 1), (600_000, 8), (600_000, 9),
+                                 (20_000, 17), (20_000, 1536)])
+def test_codec_past_a_wave_on_card(cuda, b, d):
+    """More rows than the card runs at once (132 SMs x 2,048 threads):
+    the grid walks the rest; one launch a call."""
+    _check_codec(_codec_case(b, d, cuda, seed=b + d), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 1536, 16384, 100_003])
+def test_codec_in_a_cuda_graph_on_card(cuda, d):
+    """quantize (a split row's two passes and the zeroed absmax word
+    included) and dequantize captured in a CUDA graph and replayed equal
+    the eager calls; a replay counts no launch."""
+    from repro_torch.kernels import delta_codec as port_dc
+    x = _codec_case(64, d, cuda, seed=d)
+    want_q, want_s = port_dc.quantize_rows(x)
+    want = port_dc.dequantize_rows(want_q, want_s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = port_dc.quantize_rows(x)
+        out = port_dc.dequantize_rows(q, s)
+    q.zero_()
+    out.zero_()
+    before = port_ops.launch_counts()
+    graph.replay()
+    graph.replay()                    # the absmax word is zeroed again
+    torch.cuda.synchronize()
+    assert port_ops.launch_counts() == before
+    assert torch.equal(q, want_q) and smoke.codec_same(s, want_s)
+    assert smoke.codec_same(out, want)
+
+
+@pytest.mark.cuda
+def test_codec_lm_leaf_on_card(cuda):
+    """One MLP stack of qwen2-1.5b as ONE row (28 x 1536 x 8960 floats),
+    as ModelSyncEngine encodes it: two quantize launches, one dequantize,
+    bit-equal to the plain version on the card and on the CPU."""
+    from repro_torch.kernels import delta_codec as port_dc
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = 0.02 * torch.randn(1, 28 * 1536 * 8960, generator=gen, device=cuda)
+    before = port_ops.launch_counts()
+    q, s = port_dc.quantize_rows(x)
+    out = port_dc.dequantize_rows(q, s)
+    torch.cuda.synchronize()
+    counts = port_ops.launch_counts()
+    assert counts["quantize_rows"] == before["quantize_rows"] + 2
+    assert counts["dequantize_rows"] == before["dequantize_rows"] + 1
+    pq, ps = port_ref.quantize_rows(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(out, port_ref.dequantize_rows(pq, ps))
+    del pq, out
+    cq, csc = port_ref.quantize_rows(x.cpu())
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), csc)
 
 
 @pytest.mark.cuda
