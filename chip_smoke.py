@@ -16,9 +16,9 @@ into a decoding driver.
 Phases (any failure exits non-zero and prints no result line):
 
 1. Kernels against their plain versions, bit-equal: the in-place probe
-   on a 2^20-slot map and the windowed probe on a 2^24-slot wrap-padded
-   map, each with a crafted collision cluster longer than a 256-slot
-   window; the row gather and the row scatter-set (unique ids) at N =
+   on a 2^20-slot map and the hbm probe on a 2^24-slot wrap-padded map,
+   each with a crafted collision cluster longer than 256 slots; the row
+   gather and the row scatter-set (unique ids) at N =
    4096 x 32 ids into a 2^21-row float32 table, D in {1, 8, 9}, and at
    qwen2-1.5b's token-gather shape (8,192 ids x 1,536 bf16 from its
    152,064-row table). The copies are timed here, beside their bound
@@ -42,28 +42,34 @@ Phases (any failure exits non-zero and prints no result line):
    launch counters are reset before these predicts and read after them;
    the four serving kernels must have launched there. Predictions agree
    within 1e-5, and served rows are bit-equal, with the host plane. The
-   probes are then timed on the loop's own mirrors.
-4. Train → sync → serve: 16 ``TrainingPlane.train_batch`` steps of 4096
-   x 32 ids, each followed by a sync tick (collect → gather → push, then
-   a poll on every replica, whose ``on_apply`` invalidates the serving
+   probes are then timed on the loop's own mirrors (the serve cache's
+   under the last warm request; a replica's under the cold request's ids
+   it owns), and the hbm probe with a cold L2 too: 32 batches of as many
+   live replica ids in turn, whose home slots touch more 32-byte sectors
+   than the 50 MB L2 holds.
+4. Train → sync → serve: 16 ``TrainingPlane.train_batch`` steps of 4096 x
+   32 ids, each followed by a sync tick (collect → gather → push, then a
+   poll on every replica, whose ``on_apply`` invalidates the serving
    caches), then post-update, post-fill and warm predicts. The counters
    are reset before and read after; ``ftrl_row_update``,
-   ``quantize_rows`` and ``dequantize_rows`` must have launched. Then the
-   host masters apply
-   exactly the pushes the card's masters received (recorded here), and
-   master rows (w, z, n), queue records (ids, seq, meta, payload bytes),
-   replica rows and served rows must be bit-equal to the card's, with
-   predictions within 1e-5; the card's loss and row gradients for one
-   batch must match the CPU's within rtol 1e-5, atol 1e-6. The new
-   kernels are then held against their plain versions on the path's own
-   inputs and timed. Then the int8 codec beyond the path's shapes: rows
-   of zeros, NaN, +Inf and -Inf at a width of every ``codec_plan``
-   regime, whose codes and scales must be the CPU's plain version's (the
-   reference's: scale NaN or inf, codes 0); and ``CODEC_SHAPES`` (the
-   bootstrap's 2^20 x 8 encode and a 65,536 x 8 record, 65,536 x 1,536,
-   and ONE row of 385,351,680 floats, a qwen2-1.5b MLP leaf), each
-   bit-equal to its plain version, then timed beside its bound, its
-   plain version and, for dequantize, ``torch.mul``.
+   ``quantize_rows`` and ``dequantize_rows`` must have launched. Then
+   the host masters apply exactly the pushes the card's masters received
+   (recorded here), and master rows (w, z, n), queue records (ids, seq,
+   meta, payload bytes), replica rows and served rows must be bit-equal
+   to the card's, with predictions within 1e-5; the card's loss and row
+   gradients for one batch must match the CPU's within rtol 1e-5, atol
+   1e-6. The train and sync kernels are then held against their plain
+   versions on the path's own inputs and timed, and so is the probe of
+   the fused FTRL push (one master's largest group-v push of the last
+   step against that master's 2^23-slot key mirror). Then the int8 codec
+   beyond the path's shapes: rows of zeros, NaN, +Inf and -Inf at a
+   width of every ``codec_plan`` regime, whose codes and scales must be
+   the CPU's plain version's (the reference's: scale NaN or inf, codes
+   0); and ``CODEC_SHAPES`` (the bootstrap's 2^20 x 8 encode and a
+   65,536 x 8 record, 65,536 x 1,536, and ONE row of 385,351,680 floats,
+   a qwen2-1.5b MLP leaf), each bit-equal to its plain version, then
+   timed beside its bound, its plain version and, for dequantize,
+   ``torch.mul``.
 5. LM serving, qwen2-1.5b at full width (28 layers, random weights from
    the seed). (At the build, before phase 1: the whole ``-Xptxas -v``
    report of ``flash_attention_sm90.cu`` and ``decode_attention.cu``, and
@@ -126,12 +132,12 @@ Phases (any failure exits non-zero and prints no result line):
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
    ``decode_attention`` launches a step.
-7. The gather's and the scatter-set's launches on every path above
-   (serving predicts, bootstrap flush, train -> sync -> serve, LM
-   serving, the LM training run and its hot-swap decode), each read
-   after its own reset. A JSON line of per-kernel numbers, the card's
-   name and power limit
-   from ``nvidia-smi``, and the last line
+7. The launches of both probes, the gather, the scatter-set and
+   ``ftrl_row_update`` on every path above (serving predicts, bootstrap
+   flush, train -> sync -> serve, LM serving, the LM training run and its
+   hot-swap decode), each read after its own reset. A JSON line of
+   per-kernel numbers, the card's name and power limit from
+   ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -155,6 +161,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SEED = 0
 COPY_ROWS = 1 << 21                 # table rows of the CTR copy cases
 COLD_BATCHES = 16                   # id batches of a cold-L2 copy figure
+COLD_PROBE_BATCHES = 32             # id batches of the probe's cold-L2 line
 REQ_BATCH, FIELDS = 4096, 32
 WARM_BATCHES = (64, 128, 256, 512, 1024, 2048, 4096)
 WARM_REPS = 8
@@ -162,7 +169,9 @@ PARTIAL_ROUNDS = 3
 TRAIN_STEPS = 16
 SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
                  "embedding_scatter")
-COPY_KERNELS = ("embedding_lookup", "embedding_scatter")
+# kernels whose launches are summed over every path (phase 7)
+PATH_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
+                "embedding_scatter", "ftrl_row_update")
 TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 # sources whose whole ptxas report is printed (the redesigned attention)
 PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
@@ -299,6 +308,8 @@ def _row(name, source, replaces, err, kernel, plain, library, nbytes,
 
 PROBES = {"hashmap_probe": "src/repro/kernels/hashmap_probe.py:171",
           "hashmap_probe_hbm": "src/repro/kernels/hashmap_probe.py:339"}
+# the probe kernel a device mirror's placement takes
+PROBE_OF = {"vmem": "hashmap_probe", "hbm": "hashmap_probe_hbm"}
 
 
 def _probe_fns(name):
@@ -331,22 +342,70 @@ def probe_row(name, keys, ids, shift: int, host_map, what: str) -> dict:
     then time it there. Bound: ids in, pos + found out, one 32-byte
     sector per id at its home slot, one 8-slot window (64 B) more for
     each id the home slot does not resolve."""
+    fn, plain = _probe_fns(name)
+    n_found = check_probe(name, keys, ids, shift, host_map)
+    nbytes, tail = probe_bytes(keys, ids, shift)
+    return _row(name, "hashmap_probe.cu", PROBES[name], 0,
+                lambda: fn(keys, ids, shift=shift),
+                lambda: plain(keys, ids, shift=shift), None, nbytes,
+                f"{what}: {1 << (64 - shift)} slots, {ids.shape[0]} ids "
+                f"({n_found} found, {tail} past home)")
+
+
+def probe_bytes(keys, ids, shift: int) -> tuple[int, int]:
+    """The bytes a probe must move (``probe_row``'s bound) and the number
+    of ids its home slot does not resolve."""
     import torch
 
     from repro_torch.kernels import ref
-    fn, plain = _probe_fns(name)
-    n_found = check_probe(name, keys, ids, shift, host_map)
     n = ids.shape[0]
     k_home = keys[ref.home_slots(torch.where(ids <= ref.TOMB, 0, ids),
                                  shift)]
     tail = int(((k_home != ids) & (k_home != ref.EMPTY)
                 & (ids > ref.TOMB)).sum().item())
-    nbytes = n * (8 + 4 + 1) + n * 32 + tail * 64
-    return _row(name, "hashmap_probe.cu", PROBES[name], 0,
-                lambda: fn(keys, ids, shift=shift),
-                lambda: plain(keys, ids, shift=shift), None, nbytes,
-                f"{what}: {1 << (64 - shift)} slots, {n} ids ({n_found} "
-                f"found, {tail} past home)")
+    return n * (8 + 4 + 1) + n * 32 + tail * 64, tail
+
+
+def cold_probe_batches(host_map, n: int, device):
+    """Up to ``COLD_PROBE_BATCHES`` batches of ``n`` live ids of
+    ``host_map``, drawn from the seed without replacement, on ``device``,
+    and the bytes of the 32-byte sectors their home slots touch."""
+    import torch
+
+    from repro_torch.core.hashmap import home_slots
+    live = host_map.keys()
+    count = min(COLD_PROBE_BATCHES, len(live) // n)
+    pick = live[np.random.default_rng(SEED).permutation(len(live))[
+        :count * n]]
+    touched = np.unique(home_slots(pick, host_map.shift) // 4).size * 32
+    return [torch.from_numpy(b).to(device)
+            for b in np.split(pick, count)], touched
+
+
+def cold_probe_line(keys, ids, shift: int, host_map, what: str) -> dict:
+    """``hashmap_probe_hbm`` with a cold L2: batches of as many live ids
+    as ``ids`` holds (``cold_probe_batches``), each bit-equal to the plain
+    version and the host map, then timed in turn (``_device_ms`` captures
+    one cycle), so a batch's home sectors come back only after the other
+    batches have touched more than the 50 MB L2 holds (printed). Bound:
+    the batches' mean ``probe_bytes``. Returns the time and bound, which
+    the result line carries under the kernel's ``l2_cold``."""
+    from repro_torch.kernels import hashmap_probe as hm
+    batches, touched = cold_probe_batches(host_map, ids.shape[0],
+                                          keys.device)
+    for b in batches:
+        check_probe("hashmap_probe_hbm", keys, b, shift, host_map)
+    bound = np.mean([probe_bytes(keys, b, shift)[0] for b in batches])
+    ms = _device_ms(_cycling(
+        lambda q: hm.hashmap_probe_hbm(keys, q, shift=shift), batches),
+        len(batches))
+    print(f"kernel hashmap_probe_hbm at {what}, L2 cold ({len(batches)} "
+          f"batches of {ids.shape[0]} live ids in turn, their home slots "
+          f"touching {touched / 1e6:.1f} MB of 32-byte sectors): bit-equal "
+          f"to its plain version and the host map; {ms:.5f} ms on the "
+          f"device, bound {_bound_ms(bound):.5f}", flush=True)
+    return {"ms": ms, "bound_ms": _bound_ms(bound), "batches": len(batches),
+            "ids": ids.shape[0], "home_sector_bytes": int(touched)}
 
 
 def phase_kernels(dev, rng) -> list[dict]:
@@ -761,10 +820,9 @@ def serve_phase(plane, host, plan, groups, pool: np.ndarray, rng, device, *,
              f"serve cache, warm request at batch {batch}"),
             (table, owned, f"replica of shard {rep.shard_id}, the cold "
                            f"request's ids it owns")):
-        name = {"vmem": "hashmap_probe",
-                "hbm": "hashmap_probe_hbm"}[t._dev.placement]
-        probe_inputs[name] = (t._dev.keys, torch.from_numpy(q).to(device),
-                              t._dev.shift, t._map, what)
+        probe_inputs[PROBE_OF[t._dev.placement]] = (
+            t._dev.keys, torch.from_numpy(q).to(device), t._dev.shift,
+            t._map, what)
     return {"launches": launches, "placements": placements,
             "latency_ms": lat, "launches_per_predict": per_request,
             "profiles": profiles, "max_pred_dev": max_dev, "cold": cold,
@@ -978,9 +1036,10 @@ def check_loss_grads(card, cfg, ids: np.ndarray, y: np.ndarray) -> float:
 def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
     """The new kernels' inputs as the loop's last step gave them: the
     largest group-"v" push to one master (its ids' (z, n) rows as they
-    stand after the step, and its gradients), the serve values that
-    master's pusher encoded from those rows, and the largest group-"v"
-    record of the last tick."""
+    stand after the step, and its gradients; its ids against that
+    master's key mirror, as the fused FTRL push probes them), the serve
+    values that master's pusher encoded from those rows, and the largest
+    group-"v" record of the last tick."""
     import torch
     last = max(e[4] for e in log)
     mid, _g, ids, grads, _ = max(
@@ -994,9 +1053,14 @@ def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
                if r.group == "v" and r.meta["t"] == t_last),
               key=lambda r: len(r.ids))
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    table = card.masters[mid].tables["v"]
     return {"ftrl": (up(slots["z"]), up(slots["n"]), up(grads)),
             "serve": up(serve),
-            "record": (up(rec.payload["q"]), up(rec.payload["scale"]))}
+            "record": (up(rec.payload["q"]), up(rec.payload["scale"])),
+            "probe": (PROBE_OF[table._dev.placement],
+                      (table._dev.keys, up(ids), table._dev.shift,
+                       table._map, f"master {mid}, its largest group-v "
+                                   f"push of the last step"))}
 
 
 CODEC_SPECIAL = 5                   # rows of codec_rows that are not finite
@@ -2152,16 +2216,28 @@ def main() -> int:
           f"{cmp['max_pred_dev']:.3g}; loss and row grads vs the CPU: max "
           f"deviation {out['loss_dev']:.3g}", flush=True)
 
-    # the copies' launches on every path, each read after its own reset
-    copy_paths = {"serving predicts": res["launches"],
-                  "bootstrap flush": boot["launches"],
-                  "train -> sync -> serve": tr["launches"]}
+    # launches on every path, each read after its own reset
+    paths = {"serving predicts": res["launches"],
+             "bootstrap flush": boot["launches"],
+             "train -> sync -> serve": tr["launches"]}
     probes = res.pop("probe_inputs")
     kernels = [probe_row(k, *probes[k]) for k in PROBES] + kernels
+    by_name = {row["name"]: row for row in kernels}
+    # the hbm probe's other inputs ride on its entry: the result line keeps
+    # one entry a kernel, timed on the replica's cold-request ids
+    by_name["hashmap_probe_hbm"]["l2_cold"] = cold_probe_line(
+        *probes["hashmap_probe_hbm"])
     del probes
     for row in kernels:
         row["launches"] = res["launches"][row["name"]]
-    new_rows = train_kernel_rows(out.pop("train_inputs"), out["ftrl_kw"])
+    inputs = out.pop("train_inputs")
+    name, probe = inputs.pop("probe")
+    push = probe_row(name, *probe)
+    by_name[name]["master_push"] = {
+        k: push[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                             "max_abs_err")}
+    del probe, push
+    new_rows = train_kernel_rows(inputs, out["ftrl_kw"])
     for row in new_rows:
         row["launches"] = tr["launches"][row["name"]]
     kernels += new_rows
@@ -2186,7 +2262,7 @@ def main() -> int:
     for row in lm_rows:
         row["launches"] = lm["launches"][row["name"]]
     kernels += lm_rows
-    copy_paths["LM serving"] = lm["launches"]
+    paths["LM serving"] = lm["launches"]
     print(f"LM phase in {time.perf_counter() - t:.1f} s", flush=True)
     del lm, lm_rows
     torch.cuda.empty_cache()
@@ -2205,24 +2281,24 @@ def main() -> int:
     report_lm_train(lm_train, f32)
     row["launches"] = lm_train["run"]["launches"]["embedding_scatter_add"]
     kernels.append(row)
-    copy_paths["LM training run"] = lm_train["run"]["launches"]
-    copy_paths["LM hot-swap decode"] = lm_train["run"]["decode"]["launches"]
+    paths["LM training run"] = lm_train["run"]["launches"]
+    paths["LM hot-swap decode"] = lm_train["run"]["decode"]["launches"]
     del lm_train
     print(f"LM training phase in {time.perf_counter() - t:.1f} s",
           flush=True)
-    for copy in COPY_KERNELS:
-        counts = {path: c[copy] for path, c in copy_paths.items()}
-        print(f"launches of {copy} by path: "
+    for name in PATH_KERNELS:
+        counts = {path: c[name] for path, c in paths.items()}
+        print(f"launches of {name} by path: "
               + ", ".join(f"{p} {c}" for p, c in counts.items())
               + f"; {sum(counts.values())} in all")
         for row in kernels:
-            if row["name"] == copy:
+            if row["name"] == name:
                 row["launches"] = sum(counts.values())
-    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the gather's "
-          "and the scatter-set's summed over every path above, the probes' "
-          "from the serving predicts, the train and sync kernels' from "
-          "train -> sync -> serve, the attention kernels' from the LM "
-          "serving path, the scatter-add's from the LM training run)")
+    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the probes', "
+          "the gather's, the scatter-set's and ftrl_row_update's summed over "
+          "every path above, the codec's from train -> sync -> serve, the "
+          "attention kernels' from the LM serving path, the scatter-add's "
+          "from the LM training run)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

@@ -10,6 +10,20 @@ gather (8,192 ids x 1,536 bf16 from its 152,064-row table). The other
 source's copy entries must take ``(table, row_bytes, ids, n, rows,
 stream)``: the C interface before ``copy_plan``.
 
+The hash probes (``--hashmap-probe``): ``hashmap_probe_hbm`` on maps
+built like the loop's (``probe_maps``): a replica's 2^24-slot map of its
+2^21 ids under the ids of a 4096 x 32 cold request it owns, one
+master's 2^23-slot map of its 2^20 ids under the ids of a 4096 x 32
+train batch it owns (the fused FTRL push), the same replica map with a
+cold L2 (``chip_smoke.cold_probe_batches``: batches of live ids in turn)
+and the smoke's crafted 2^24-slot case; ``hashmap_probe`` (the walk) on
+the serve cache's map under a warm request and the smoke's crafted
+2^20-slot case. The other source's entries are ``hashmap_probe_walk``
+``(keys, cap, shift, ids, n, pos, found, stream)`` and
+``hashmap_probe_window``, which takes the window ``w`` after ``shift``:
+the C interface before the hbm probe's redesign. Each pair must agree in
+``found`` everywhere and in ``pos`` where found.
+
 The int8 row codec (``--delta-codec``): ``quantize_rows`` and
 ``dequantize_rows`` at the sync path's shapes (one master's push, 32,768
 x 8; one record, 16,384 x 8; the bootstrap's encode of a master, 2^20 x
@@ -25,11 +39,14 @@ leaf's length (``"scaled"`` in its line).
         > build/other_embedding_lookup.cu
     git show <rev>:src/repro_torch/kernels/csrc/delta_codec.cu \\
         > build/other_delta_codec.cu
+    git show <rev>:src/repro_torch/kernels/csrc/hashmap_probe.cu \\
+        > build/other_hashmap_probe.cu
     python3 scripts/compare_kernels.py \\
         --embedding-lookup build/other_embedding_lookup.cu \\
-        --delta-codec build/other_delta_codec.cu
+        --delta-codec build/other_delta_codec.cu \\
+        --hashmap-probe build/other_hashmap_probe.cu
 
-Either option may be left out. The other sources are built with the
+Any option may be left out. The other sources are built with the
 port's ``nvcc`` flags into ``build/repro_torch/compare/``. Prints the
 card's name and power limit, a line a shape and kernel, and a JSON object
 of every time last. Device times come from ``chip_smoke._device_ms`` (a
@@ -45,6 +62,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -89,11 +108,12 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _turns(name: str, label: str, old, new, scale: float = 1.0) -> dict:
-    """Time ``old`` and ``new`` in turns; ``scale`` multiplies the other's
-    times (a cut of the shape)."""
+def _turns(name: str, label: str, old, new, scale: float = 1.0,
+           iters: int = 20) -> dict:
+    """Time ``old`` and ``new`` in turns, ``iters`` calls a graph;
+    ``scale`` multiplies the other's times (a cut of the shape)."""
     import chip_smoke as cs
-    t = [cs._device_ms(f) for f in (old, new, new, old)]
+    t = [cs._device_ms(f, iters) for f in (old, new, new, old)]
     t[0] *= scale
     t[3] *= scale
     row = {"name": name, "shape": label, "other_ms": (t[0] + t[3]) / 2,
@@ -228,12 +248,120 @@ def compare_codec(src: Path, dev) -> list[dict]:
     return results
 
 
+def probe_maps(dev):
+    """``(label, kernel, host map, keys on dev, [id batches on dev])`` of
+    the probe comparison, built as the loop's maps are: 2^22 hashed ids
+    split by ``RoutingPlan(4, 2, 8)``, each map filled with its shard's
+    ids in one ``put`` (the loop fills them record by record, so slots
+    differ, not the load), the requests drawn from the seed."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.core.hashmap import IdHashMap
+    from repro_torch.core.routing import RoutingPlan
+    from repro_torch.kernels import ref
+    plan = RoutingPlan(num_master=4, num_slave=2, num_partitions=8)
+    pool = cs.hashed_ids(FM_FTRL.feature_space)
+    rng = np.random.default_rng(cs.SEED)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def drawn():                        # one request's or batch's ids
+        return pool[rng.integers(0, len(pool), size=cs.REQ_BATCH * cs.FIELDS)]
+
+    def filled(ids, pad):
+        m = IdHashMap(16)
+        m.put(ids, np.arange(len(ids)))
+        keys = up(m.key_table)
+        return m, ref.wrap_pad(keys, cap=m.capacity) if pad else keys
+
+    request = drawn()
+    cold = np.unique(request)
+    m, keys = filled(pool[plan.slave_shard(pool) == 0], True)
+    owned = cold[plan.slave_shard(cold) == 0]
+    yield ("a replica's map, the cold request's ids it owns",
+           "hashmap_probe_hbm", m, keys, [up(owned)])
+    batches, touched = cs.cold_probe_batches(m, len(owned), dev)
+    yield (f"the same, L2 cold ({len(batches)} batches of {len(owned)} "
+           f"live ids in turn, home sectors {touched / 1e6:.1f} MB)",
+           "hashmap_probe_hbm", m, keys, batches)
+    del keys, batches
+    m, keys = filled(pool[plan.master_shard(pool) == 0], True)
+    push = np.unique(drawn())
+    yield ("a master's map, a train batch's ids it owns (the fused FTRL "
+           "push)", "hashmap_probe_hbm", m, keys,
+           [up(push[plan.master_shard(push) == 0])])
+    del keys
+    n = cs.REQ_BATCH * cs.FIELDS
+    for name, cap_pow in (("hashmap_probe_hbm", 24), ("hashmap_probe", 20)):
+        m, q = cs.probe_case(cap_pow, (1 << cap_pow) // 5, n, rng)
+        keys = up(m.key_table)
+        if name == "hashmap_probe_hbm":
+            keys = ref.wrap_pad(keys, cap=m.capacity)
+        yield ("the smoke's crafted case", name, m, keys, [up(q)])
+        del keys
+    m, keys = filled(cold, False)
+    yield ("the serve cache's map, a warm request", "hashmap_probe", m,
+           keys, [up(request)])
+
+
+def compare_probes(src: Path, dev) -> list[dict]:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import hashmap_probe as hm
+    other = build_other(src)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    other.hashmap_probe_walk.argtypes = [p, ll, i, p, ll, p, p, p]
+    hbm = other.hashmap_probe_window
+    hbm.argtypes = [p, ll, i, i, p, ll, p, p, p]
+    other.hashmap_probe_walk.restype = hbm.restype = ctypes.c_int
+    results = []
+    for label, name, m, keys, batches in probe_maps(dev):
+        shift, cap = int(m.shift), m.capacity
+        cfunc, extra = other.hashmap_probe_walk, ()
+        if name == "hashmap_probe_hbm":
+            cfunc, extra = hbm, (min(hm._DMA_WINDOW, cap),)
+        outs = [(torch.empty(b.shape[0], dtype=torch.int32, device=dev),
+                 torch.empty(b.shape[0], dtype=torch.bool, device=dev))
+                for b in batches]
+
+        def theirs(k):
+            q, (pos, found) = batches[k], outs[k]
+            _check_rc(cfunc(keys.data_ptr(), cap, shift, *extra,
+                            q.data_ptr(), q.shape[0], pos.data_ptr(),
+                            found.data_ptr(), _stream()))
+
+        mine = getattr(hm, name)
+        for k, q in enumerate(batches):
+            cs.check_probe(name, keys, q, shift, m)
+            pos, found = mine(keys, q, shift=shift)
+            theirs(k)
+            opos, ofound = outs[k]
+            if not (torch.equal(found, ofound)
+                    and torch.equal(pos[found], opos[found])):
+                raise AssertionError(f"{name} at {label}: the other "
+                                     f"version differs")
+        n_found = int(found.sum())
+        results.append(_turns(
+            name, f"{label}: {cap} slots, {batches[0].shape[0]} ids "
+                  f"({n_found} found)",
+            cs._cycling(theirs, list(range(len(batches)))),
+            cs._cycling(lambda q: mine(keys, q, shift=shift), batches),
+            iters=len(batches) if len(batches) > 1 else 20))
+        del keys, batches, outs
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--embedding-lookup", type=Path,
                     help="the other version of csrc/embedding_lookup.cu")
     ap.add_argument("--delta-codec", type=Path,
                     help="the other version of csrc/delta_codec.cu")
+    ap.add_argument("--hashmap-probe", type=Path,
+                    help="the other version of csrc/hashmap_probe.cu")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -252,6 +380,8 @@ def main() -> int:
         results += compare_copies(args.embedding_lookup, dev)
     if args.delta_codec:
         results += compare_codec(args.delta_codec, dev)
+    if args.hashmap_probe:
+        results += compare_probes(args.hashmap_probe, dev)
     print(json.dumps({"card": smi, "rows": results}))
     return 0
 

@@ -7,7 +7,7 @@
 // Contract (both kernels): pos[i] is the table slot of ids[i] where
 // found[i] is 1, bit-equal to core/hashmap.py IdHashMap._probe; where
 // found[i] is 0, pos[i] is the id's home slot. Query ids <= TOMB are
-// never found.
+// never found, and their pos is 0.
 //
 // Hashing: the TPU kernels split ids into uint32 limbs and rebuild the
 // top word of id * floor(2^64/phi) from 16-bit partial products, because
@@ -23,7 +23,6 @@ constexpr long long kEmpty = (long long)0x8000000000000000ULL;  // -2^63
 constexpr long long kTomb = kEmpty + 1;                         // -2^63 + 1
 constexpr unsigned long long kFib = 0x9E3779B97F4A7C15ULL;
 constexpr int kWindow = 8;     // core/hashmap.py _WINDOW
-constexpr int kMaxChunks = 8;  // 256-slot window / 32 lanes
 
 __device__ __forceinline__ long long home_slot(long long id, int shift) {
   return (long long)(((unsigned long long)id * kFib) >> shift);
@@ -82,106 +81,128 @@ __global__ void probe_walk_kernel(const long long* __restrict__ keys,
   }
 }
 
-__device__ __forceinline__ unsigned bit_range(int lo, int hi) {
-  // bits [lo, hi) of a 32-bit mask, 0 <= lo < 32, lo < hi <= 32
-  unsigned upto = hi >= 32 ? 0xffffffffu : ((1u << hi) - 1u);
-  return upto & ~((1u << lo) - 1u);
-}
-
 // Replaces src/repro/kernels/hashmap_probe.py: hashmap_probe_hbm
 // (_dma_probe_kernel, _dma_probe_pass), which DMAs 256-slot windows of a
-// table left in HBM into double-buffered VMEM.
+// table left in HBM into double-buffered VMEM. The 256-slot window was
+// the TPU's DMA unit; this card reads 32-byte sectors, so the design
+// reads only the sectors a chain needs and keeps the whole batch in
+// flight at once.
 //
-// One warp per id over the wrap-padded table (cap + w slots, w =
-// min(256, cap)), so a window starting anywhere below cap never wraps.
-// Each pass the warp reads the window as coalesced 8-byte loads (lane l
-// reads offsets l, l + 32, ...), turns hits and EMPTYs into ballots, and
-// resolves the lowest 8-slot group holding either: a hit in that group
-// beats an EMPTY in it. Pass structure as in _dma_probe_kernel: the first
-// pass checks the home slot (offset 0), then (w - 1) / 8 groups from
-// offset 1; later passes check w / 8 groups from offset 0. What bounds it
-// is bytes: 2 KiB of keys per id per pass, where the function itself
-// needs one 32-byte sector per id at the home slot; the window makes long
-// collision chains cost one pass, not one round trip per 8 slots.
-__global__ void probe_window_kernel(const long long* __restrict__ keys,
-                                    long long cap, int shift, int w,
-                                    long long max_passes,
-                                    const long long* __restrict__ ids,
-                                    long long n, int* __restrict__ pos,
-                                    unsigned char* __restrict__ found) {
-  long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (warp >= n) return;  // uniform across the warp
-  long long id = ids[warp];
-  if (id <= kTomb) {
-    if (lane == 0) {
-      pos[warp] = 0;
-      found[warp] = 0;
+// What bounds it is latency, not bytes: the master and replica tables
+// (64 and 128 MB) lie beyond the 50 MB L2, so an id costs one dependent
+// DRAM round trip at its home slot, and another for each tail step.
+//
+//   Home round, a thread per id. The grid is one wave (occupancy API),
+//   warps walking 32 ids at a time past it. A thread loads its id
+//   (coalesced), hashes it and reads keys[home] once; a hit or an EMPTY
+//   resolves it there (at <= 25% load most ids), sentinel ids (<= TOMB)
+//   resolve as not found. Its pos and found are stored coalesced.
+//   Lane group. A lane that home left open reads the host's
+//   first 8-slot group, home + 1 .. home + 8, alone (eight independent
+//   loads, one round trip): every open lane of a warp at once, so a warp
+//   with many short tails pays one round trip, not one per tail.
+//   Warp walk. Lanes still open take a ballot. The warp walks the lowest
+//   open lane's chain in 32-slot steps (four host groups, 256 bytes, one
+//   coalesced load: lane l reads slot cur + l), and in the same step
+//   resolves every open lane whose chain stands at the same cur (a
+//   cluster of ids sharing a home costs chain / 32 round trips in all):
+//   EMPTYs become a ballot, and each lane finds its own id among the 32
+//   keys by shuffles. The lowest group holding a hit or an EMPTY
+//   decides, and a hit in it beats an EMPTY in it, as the host's window
+//   does. A lane takes at most the host walk's cap / 8 + 2 groups, so a
+//   table with no EMPTY slot ends as not found.
+//
+// Offsets fold through & (cap - 1), so no read leaves the table and the
+// wrap pad (cap + min(256, cap) slots, which the wrapper checks) is never
+// read: it is shorter than a 32-slot read when cap < 32.
+constexpr int kThreads = 256;
+constexpr int kStep = 32;  // slots a warp step reads: four host groups
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kThreads)
+    probe_hbm_kernel(const long long* __restrict__ keys, long long cap,
+                     int shift, const long long* __restrict__ ids,
+                     long long n, int* __restrict__ pos,
+                     unsigned char* __restrict__ found) {
+  const long long imask = cap - 1;
+  const int lane = threadIdx.x & 31;
+  // host groups are home + 1 + 8g for g < cap / 8 + 2; the lane group
+  // takes the first, and a warp step covers four of the rest
+  constexpr int kGroups = kStep / kWindow;
+  const long long groups = cap / kWindow + 1;
+  const long long max_steps = (groups + kGroups - 1) / kGroups;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // base is the warp's first id: uniform across the warp, so every lane
+  // runs every ballot and shuffle below
+  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x -
+                        lane;
+       base < n; base += stride) {
+    const long long i = base + lane;
+    const bool live = i < n;
+    const long long id = live ? ids[i] : kEmpty;
+    const bool valid = id > kTomb;
+    const long long home = valid ? home_slot(id, shift) : 0;
+    int p = (int)home;
+    bool f = false, open = false;
+    if (valid) {
+      const long long k = __ldg(keys + home);
+      f = k == id;
+      open = !f && k != kEmpty;
     }
-    return;
-  }
-  long long imask = cap - 1;
-  long long home = home_slot(id, shift);
-  long long cur = home;
-  int chunks = (w + 31) >> 5;
-  for (long long r = 0; r < max_passes; ++r) {
-    const long long* win = keys + cur;
-    int start = r == 0 ? 1 : 0;
-    int end = start + kWindow * (r == 0 ? (w - 1) / kWindow : w / kWindow);
-    if (r == 0) {
-      long long k0 = win[0];
-      if (k0 == id || k0 == kEmpty) {
-        if (lane == 0) {
-          pos[warp] = (int)cur;
-          found[warp] = k0 == id;
+    long long cur = (home + 1) & imask;
+    if (open) {
+      long long kg[kWindow];
+#pragma unroll
+      for (int j = 0; j < kWindow; ++j)
+        kg[j] = __ldg(keys + ((cur + j) & imask));
+      int hit = -1;
+      bool empty = false;
+#pragma unroll
+      for (int j = kWindow - 1; j >= 0; --j) {
+        if (kg[j] == id) hit = j;
+        empty |= kg[j] == kEmpty;
+      }
+      if (hit >= 0) {
+        p = (int)((cur + hit) & imask);
+        f = true;
+      }
+      open = hit < 0 && !empty;
+      cur = (cur + kWindow) & imask;
+    }
+    long long left = max_steps;
+    for (unsigned pending = __ballot_sync(kFull, open); pending;
+         pending = __ballot_sync(kFull, open)) {
+      const long long c = __shfl_sync(kFull, cur, __ffs(pending) - 1);
+      const long long k = __ldg(keys + ((c + lane) & imask));
+      const unsigned empties = __ballot_sync(kFull, k == kEmpty);
+      // each lane compares its own id with the 32 keys read: independent
+      // shuffles, the same cost for one open lane as for 32
+      unsigned hits = 0;
+#pragma unroll
+      for (int j = 0; j < kStep; ++j)
+        hits |= (unsigned)(__shfl_sync(kFull, k, j) == id) << j;
+      if (open && cur == c) {
+        const unsigned events = hits | empties;
+        if (events) {
+          // the deciding group: the one holding the first event
+          const unsigned group = 0xffu
+                                 << ((__ffs(events) - 1) & ~(kWindow - 1));
+          if (hits & group) {
+            p = (int)((c + __ffs(hits & group) - 1) & imask);
+            f = true;
+          }
+          open = false;
+        } else if (--left == 0) {
+          open = false;
+        } else {
+          cur = (c + kStep) & imask;
         }
-        return;
       }
     }
-    unsigned hitm[kMaxChunks], evm[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      bool hit = false, ev = false;
-      int o = c * 32 + lane;
-      if (c < chunks && o < w) {
-        long long k = win[o];
-        bool valid = o >= start && o < end;
-        hit = valid && k == id;
-        ev = hit || (valid && k == kEmpty);
-      }
-      hitm[c] = __ballot_sync(0xffffffffu, hit);
-      evm[c] = __ballot_sync(0xffffffffu, ev);
+    if (live) {
+      pos[i] = p;
+      found[i] = f;
     }
-    int first_ev = -1;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      if (first_ev < 0 && evm[c]) first_ev = c * 32 + __ffs(evm[c]) - 1;
-    }
-    if (first_ev >= 0) {
-      // the resolving group is the one holding the first event; no hit
-      // precedes that event in the group (a hit is an event), so the
-      // first hit in [first_ev, group end) is the group's first hit
-      int gend = start + kWindow * ((first_ev - start) / kWindow + 1);
-      int hit_off = -1;
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        int lo = first_ev - c * 32, hi = gend - c * 32;
-        if (hit_off < 0 && hi > 0 && lo < 32) {
-          unsigned m = hitm[c] & bit_range(lo < 0 ? 0 : lo, hi > 32 ? 32 : hi);
-          if (m) hit_off = c * 32 + __ffs(m) - 1;
-        }
-      }
-      if (lane == 0) {
-        pos[warp] = hit_off >= 0 ? (int)((cur + hit_off) & imask) : (int)home;
-        found[warp] = hit_off >= 0;
-      }
-      return;
-    }
-    cur = (cur + end) & imask;
-  }
-  if (lane == 0) {
-    pos[warp] = (int)home;
-    found[warp] = 0;
   }
 }
 
@@ -202,15 +223,31 @@ int hashmap_probe_walk(const void* keys, long long cap, int shift,
   return (int)cudaGetLastError();
 }
 
-// keys: cap + w int64 slots, wrap-padded (slot cap + t mirrors slot t).
-int hashmap_probe_window(const void* keys, long long cap, int shift, int w,
-                         const void* ids, long long n, void* pos, void* found,
-                         void* stream) {
-  const int threads = 256;  // 8 warps, one id each
-  long long blocks = (n * 32 + threads - 1) / threads;
-  probe_window_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const long long*)keys, cap, shift, w, cap / kWindow + 2,
-      (const long long*)ids, n, (int*)pos, (unsigned char*)found);
+// keys: cap + min(256, cap) int64 slots, wrap-padded (slot cap + t mirrors
+// slot t; the kernel folds offsets and reads only the first cap). One wave
+// of blocks (SMs x resident blocks, asked of the occupancy API once), or
+// fewer when the batch is smaller. No host sync, no allocation: a CUDA
+// graph captures it.
+int hashmap_probe_hbm(const void* keys, long long cap, int shift,
+                      const void* ids, long long n, void* pos, void* found,
+                      void* stream) {
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, probe_hbm_kernel,
+                                                  kThreads, 0);
+    return b > 0 ? b : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long wave = (long long)(sms > 0 ? sms : 1) * per_sm;
+  const long long want = (n + kThreads - 1) / kThreads;
+  if (want > 0)
+    probe_hbm_kernel<<<(unsigned)(want < wave ? want : wave), kThreads, 0,
+                       (cudaStream_t)stream>>>((const long long*)keys, cap,
+                                               shift, (const long long*)ids,
+                                               n, (int*)pos,
+                                               (unsigned char*)found);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,11 @@ only existed because the TPU has no int64 vector arithmetic.
 
   * ``hashmap_probe`` ("vmem" placement): one thread per id walks the
     table in place (``csrc/hashmap_probe.cu``, ``probe_walk_kernel``).
-  * ``hashmap_probe_hbm``: one warp per id reads 256-slot windows of the
-    wrap-padded table (``probe_window_kernel``).
+  * ``hashmap_probe_hbm``: a thread per id at the home slot, then the
+    first 8-slot group alone, then a warp-wide walk of 32-slot reads for
+    the ids still open (``probe_hbm_kernel``; the table is wrap-padded
+    as the reference keeps it, and the kernel folds offsets instead of
+    reading the pad).
 
 ``ops.hashmap_probe`` routes between them on capacity against
 ``VMEM_SLOT_BOUND``, decision for decision as the reference does.
@@ -32,8 +35,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _WINDOW = ref._WINDOW               # must match core.hashmap._WINDOW
-_DMA_WINDOW = ref._DMA_WINDOW       # slots per id per window pass
-# Capacity above which ops.hashmap_probe routes to the windowed kernel:
+_DMA_WINDOW = ref._DMA_WINDOW       # wrap-pad slots (the reference's window)
+# Capacity above which ops.hashmap_probe routes to the hbm kernel:
 # 2^21 slots are 16 MiB of keys, which the H100's 50 MB L2 holds across a
 # batch (the TPU bound was VMEM; kept so routing matches the reference).
 VMEM_SLOT_BOUND = 1 << 21
@@ -46,9 +49,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hashmap_probe")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.hashmap_probe_walk.argtypes = [p, ll, i, p, ll, p, p, p]
-    lib.hashmap_probe_window.argtypes = [p, ll, i, i, p, ll, p, p, p]
+    lib.hashmap_probe_hbm.argtypes = [p, ll, i, p, ll, p, p, p]
     lib.hashmap_probe_walk.restype = ctypes.c_int
-    lib.hashmap_probe_window.restype = ctypes.c_int
+    lib.hashmap_probe_hbm.restype = ctypes.c_int
     return lib
 
 
@@ -64,8 +67,9 @@ def _check(keys: torch.Tensor, ids: torch.Tensor, shift: int,
             raise ValueError(f"{name} must be a contiguous 1-D int64 tensor,"
                              f" got {t.dtype} {tuple(t.shape)}")
     if keys.shape[0] != cap + pad:
-        raise ValueError(f"key table has {keys.shape[0]} slots, the kernel "
-                         f"reads exactly {cap + pad}")
+        raise ValueError(f"key table has {keys.shape[0]} slots, the layout "
+                         f"takes exactly {cap + pad} (cap + pad; the kernels"
+                         f" read only the first cap)")
     return cap
 
 
@@ -104,7 +108,7 @@ hashmap_probe.launches = 0
 
 def hashmap_probe_hbm(keys: torch.Tensor, ids: torch.Tensor, *,
                       shift: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Probe by 256-slot windows of a wrap-padded key table — same
+    """Probe a wrap-padded key table left in device memory — same
     contract and results as ``hashmap_probe``, for maps past
     ``VMEM_SLOT_BOUND`` or tables pinned to the "hbm" placement.
 
@@ -121,8 +125,8 @@ def hashmap_probe_hbm(keys: torch.Tensor, ids: torch.Tensor, *,
     pos, found = _outputs(ids)
     if ids.shape[0] == 0:
         return pos, found
-    _build.launch("hashmap_probe_hbm", _lib().hashmap_probe_window,
-                  ids.device, keys.data_ptr(), cap, int(shift), w,
+    _build.launch("hashmap_probe_hbm", _lib().hashmap_probe_hbm,
+                  ids.device, keys.data_ptr(), cap, int(shift),
                   ids.data_ptr(), ids.shape[0], pos.data_ptr(),
                   found.data_ptr())
     hashmap_probe_hbm.launches += 1

@@ -71,10 +71,11 @@ def resolve_placement(shift: int, placement: str = "auto") -> str:
 def hashmap_probe(keys: torch.Tensor, ids: torch.Tensor, *, shift: int,
                   placement: str = "auto"):
     """Placement-routed probe: ``"vmem"`` walks the table in place,
-    ``"hbm"`` reads 256-slot windows of the wrap-padded table, ``"auto"``
-    picks by capacity. ``keys`` is in the resolved placement's layout:
-    exact capacity for ``"vmem"``, wrap-padded for ``"hbm"`` (as
-    ``_DeviceMirror`` keeps it). Returns ``(pos int32, found bool)``."""
+    ``"hbm"`` probes the wrap-padded table (a thread per id at home, warp
+    walks for the tails), ``"auto"`` picks by capacity. ``keys`` is in the
+    resolved placement's layout: exact capacity for ``"vmem"``,
+    wrap-padded for ``"hbm"`` (as ``_DeviceMirror`` keeps it). Returns
+    ``(pos int32, found bool)``."""
     if resolve_placement(shift, placement) == "hbm":
         return _hm.hashmap_probe_hbm(keys, ids, shift=shift)
     return _hm.hashmap_probe(keys, ids, shift=shift)

@@ -18,8 +18,11 @@ import chip_smoke as smoke  # noqa: E402
 from chip_smoke import zipf_ids  # noqa: E402
 from repro_torch.core.hashmap import IdHashMap
 from repro_torch.kernels import embedding_lookup as port_el
+from repro_torch.kernels import hashmap_probe as port_hm
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ref as port_ref
+from test_torch_probe_tail import cases as probe_cases
+from test_torch_probe_tail import full_case
 
 
 @pytest.fixture
@@ -54,6 +57,101 @@ def test_probe_kernels_match_plain_on_card(cuda, placement):
     ppos, pfound = plain(keys, qs, shift=int(m.shift))
     assert torch.equal(found, pfound)
     assert torch.equal(pos[found], ppos[pfound])
+
+
+def _probe_hbm(m, qs, dev):
+    """``hashmap_probe_hbm`` on the card over ``m``'s wrap-padded table:
+    one launch, ``pos`` and ``found`` equal to the plain version's
+    everywhere (``pos`` the home slot where not found, 0 for sentinels).
+    Returns them on the host."""
+    keys = port_ref.wrap_pad(torch.from_numpy(m.key_table.copy()).to(dev),
+                             cap=m.capacity)
+    q = torch.from_numpy(qs).to(dev)
+    before = port_hm.hashmap_probe_hbm.launches
+    pos, found = port_hm.hashmap_probe_hbm(keys, q, shift=int(m.shift))
+    assert port_hm.hashmap_probe_hbm.launches == before + 1
+    ppos, pfound = port_ref.hashmap_probe_hbm(keys, q, shift=int(m.shift))
+    assert torch.equal(found, pfound)
+    assert torch.equal(pos, ppos)
+    assert not found[q <= port_ref.TOMB].any()
+    assert (pos[q <= port_ref.TOMB] == 0).all()
+    return pos.cpu().numpy(), found.cpu().numpy()
+
+
+def _same_as_host(m, qs, pos, found):
+    h_pos, h_found = m._probe(qs)
+    np.testing.assert_array_equal(found, h_found)
+    np.testing.assert_array_equal(pos[found], h_pos[h_found])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(probe_cases()))
+def test_probe_hbm_kernel_cases_on_card(cuda, name):
+    """Every ``PROBE_CASES`` size (cap = 16: the wrap pad is shorter than
+    a 32-slot read, so the kernel must fold), the chain case, and the gap
+    case (an EMPTY before a hit in one group)."""
+    m, qs = probe_cases()[name]
+    _same_as_host(m, qs, *_probe_hbm(m, qs, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [16, 64, 4096])
+def test_probe_hbm_kernel_full_table_on_card(cuda, cap):
+    """No EMPTY slot (live and TOMB only): live keys found where the host
+    finds them, other ids not found, and the call ends (the walk stops at
+    the host's cap / 8 + 2 groups); a table of TOMBs finds nothing."""
+    m, live, absent = full_case(cap, cap)
+    pos, found = _probe_hbm(m, np.concatenate([live, absent]), cuda)
+    assert found[:len(live)].all() and not found[len(live):].any()
+    _same_as_host(m, live, pos[:len(live)], found[:len(live)])
+    m._keys[:] = port_ref.TOMB
+    _, found = _probe_hbm(m, live, cuda)
+    assert not found.any()
+
+
+@pytest.mark.cuda
+def test_probe_hbm_kernel_crafted_cluster_on_card(cuda):
+    """A collision cluster of 700 ids at one home (more than 256 slots
+    long), every one of them queried, with ids that walk it to its end."""
+    m, qs = smoke.probe_case(16, (1 << 16) // 5, 8192,
+                             np.random.default_rng(3))
+    _same_as_host(m, qs, *_probe_hbm(m, qs, cuda))
+
+
+@pytest.mark.cuda
+def test_probe_hbm_kernel_past_a_wave_on_card(cuda):
+    """300,000 ids: more than one wave of the card holds (132 SMs x 2,048
+    threads = 270,336 at most), so warps walk on past their first 32."""
+    rng = np.random.default_rng(4)
+    m = IdHashMap(1 << 18)
+    ids = rng.choice(1 << 40, size=60_000, replace=False).astype(np.int64)
+    m.put(ids, np.arange(len(ids)))
+    m.delete(ids[:5_000])
+    pool = np.concatenate([ids, rng.integers(-2 ** 62, 2 ** 62, 20_000),
+                           np.array([-2 ** 63, -2 ** 63 + 1])])
+    qs = pool[rng.integers(0, len(pool), size=300_000)]
+    _same_as_host(m, qs, *_probe_hbm(m, qs, cuda))
+
+
+@pytest.mark.cuda
+def test_probe_hbm_kernel_in_a_cuda_graph_on_card(cuda):
+    """Captured in a CUDA graph (no host sync, no allocation in the C
+    entry) and replayed, it gives the eager call's outputs."""
+    m, qs = probe_cases()["chain"]
+    keys = port_ref.wrap_pad(torch.from_numpy(m.key_table.copy()).to(cuda),
+                             cap=m.capacity)
+    q = torch.from_numpy(qs).to(cuda)
+    shift = int(m.shift)
+    want = port_hm.hashmap_probe_hbm(keys, q, shift=shift)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = port_hm.hashmap_probe_hbm(keys, q, shift=shift)
+    got[0].zero_()
+    got[1].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # (dtype, D) of the copy cases: every branch of copy_plan and of the C

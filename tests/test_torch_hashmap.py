@@ -17,6 +17,7 @@ from repro.core import hashmap as ref_hashmap
 from repro.kernels import ops as ref_ops
 from repro_torch.core import hashmap as port_hashmap
 from repro_torch.kernels import ref as port_ref
+from test_torch_probe_tail import PROBE_CASES, chain_case, probe_case
 
 
 def _drive(mod, seed):
@@ -69,52 +70,13 @@ def test_idhashmap_matches_reference(seed):
     assert len(m2) == 0 and m2.dirty_slots_since(0) is None
 
 
-def _probe_case(cap_pow, n_ids, n_del, seed):
-    """A reference host map with live keys, tombstones and a grown
-    capacity, and queries mixing hits / misses / deleted ids / sentinels
-    (the reference's own kernel-test recipe)."""
-    rng = np.random.default_rng(seed)
-    m = ref_hashmap.IdHashMap(16)
-    ids = rng.choice(1 << 40, size=n_ids, replace=False).astype(np.int64)
-    m.put(ids, np.arange(n_ids))
-    if n_del:
-        m.delete(ids[:n_del])
-    assert m.capacity == 1 << cap_pow
-    absent = rng.choice(1 << 40, size=64, replace=False).astype(np.int64)
-    absent = absent[~np.isin(absent, ids)]
-    qs = np.concatenate([ids[n_del:], ids[:n_del], absent,
-                         np.array([ref_hashmap.EMPTY, ref_hashmap.TOMB, 0, -1],
-                                  np.int64)])
-    return m, qs
-
-
-def _chain_case():
-    """One collision cluster longer than the 16-slot windowed pass: ids
-    whose home slots share a 4-slot neighbourhood pile into one run, so
-    the walk crosses window boundaries (the reference's recipe)."""
-    rng = np.random.default_rng(5)
-    m = ref_hashmap.IdHashMap(1024)
-    cand = rng.choice(1 << 40, size=200_000, replace=False).astype(np.int64)
-    homes = ref_hashmap.home_slots(cand, m.shift)
-    cluster = cand[(homes >= 100) & (homes < 104)][:48]
-    spread = cand[homes % 7 == 0][:120]
-    m.put(np.unique(np.concatenate([cluster, spread])), np.arange(168))
-    assert m.capacity == 1024
-    absent = cand[~np.isin(cand, cluster) & (homes >= 100)
-                  & (homes < 104)][:16]
-    return m, np.concatenate([cluster, absent, spread[:8]])
-
-
-PROBE_CASES = [(4, 3, 1), (8, 60, 10), (10, 200, 40), (12, 1000, 200)]
-
-
 @pytest.mark.parametrize("placement", ["vmem", "hbm"])
 @pytest.mark.parametrize("case", PROBE_CASES + ["chain"])
 def test_plain_probe_matches_reference(case, placement):
     if case == "chain":
-        m, qs = _chain_case()
+        m, qs = chain_case(ref_hashmap)
     else:
-        m, qs = _probe_case(*case, seed=17 + case[0])
+        m, qs = probe_case(ref_hashmap, *case, seed=17 + case[0])
     klo, khi = ref_ops.int64_limbs(m.key_table)
     qlo, qhi = ref_ops.int64_limbs(qs)
     r_pos, r_found = ref_ops.hashmap_probe(klo, khi, qlo, qhi,
@@ -141,7 +103,7 @@ def test_windowed_probe_chains_cross_small_windows(window):
     """The windowed pass structure with windows far shorter than the
     collision run: continuation passes must resolve exactly as the host
     walk does (the reference pins its kernel the same way)."""
-    m, qs = _chain_case()
+    m, qs = chain_case(ref_hashmap)
     h_pos, h_found = m._probe(qs)
     keys = port_ref.wrap_pad(torch.from_numpy(m.key_table.copy()),
                              cap=m.capacity, window=window)
