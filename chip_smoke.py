@@ -61,11 +61,25 @@ Phases (any failure exits non-zero and prints no result line):
    1e-6. The train and sync kernels are then held against their plain
    versions on the path's own inputs and timed, and so is the probe of
    the fused FTRL push (one master's largest group-v push of the last
-   step against that master's 2^23-slot key mirror). Then the int8 codec
-   beyond the path's shapes: rows of zeros, NaN, +Inf and -Inf at a
-   width of every ``codec_plan`` regime, whose codes and scales must be
-   the CPU's plain version's (the reference's: scale NaN or inf, codes
-   0); and ``CODEC_SHAPES`` (the bootstrap's 2^20 x 8 encode and a
+   step against that master's 2^23-slot key mirror). The FTRL rows'
+   bound is the larger of their bytes and their instruction issue: the
+   MUFU and FP32 instructions an element issues, counted in the
+   library's SASS (``cuobjdump -sass``), over 16 MUFU and 128 issued
+   instructions a clock on each of the 132 SMs at the card's top SM
+   clock. ``ftrl_apply_slots``, the push after its probe in one pass, is
+   held bit-equal to its plain version (arenas and row outputs) on the
+   largest group-v and group-w pushes of the last step against their
+   masters' mirrors and arenas, timed beside its bound and beside the
+   chain it replaces (slot translate, two gathers, ``ftrl_row_update``,
+   three scatter-sets); one push through ``ops.fused_ftrl_apply`` must
+   launch exactly two kernels, the probe and the pass: the launch
+   counters and the nodes of a CUDA graph it is captured into
+   (``cuGraphGetNodes``) must show the two, and its ``torch.profiler``
+   profile (which may miss some of them) no other kernel. Then the
+   int8 codec beyond the path's shapes: rows of zeros, NaN, +Inf and
+   -Inf at a width of every ``codec_plan`` regime, whose codes and
+   scales must be the CPU's plain version's (the reference's: scale NaN
+   or inf, codes 0); and ``CODEC_SHAPES`` (the bootstrap's 2^20 x 8 encode and a
    65,536 x 8 record, 65,536 x 1,536, and ONE row of 385,351,680 floats,
    a qwen2-1.5b MLP leaf), each bit-equal to its plain version, then
    timed beside its bound, its plain version and, for dequantize,
@@ -135,7 +149,11 @@ Phases (any failure exits non-zero and prints no result line):
 7. The launches of both probes, the gather, the scatter-set and
    ``ftrl_row_update`` on every path above (serving predicts, bootstrap
    flush, train -> sync -> serve, LM serving, the LM training run and its
-   hot-swap decode), each read after its own reset. A JSON line of
+   hot-swap decode), each read after its own reset. A train push is the
+   probe and one ``ftrl_apply_slots`` launch (counted on
+   ``ftrl_row_update``), so train -> sync -> serve launches no gather or
+   scatter-set for its pushes: their launches there are the sync
+   tick's and the predicts'. A JSON line of
    per-kernel numbers, the card's name and power limit from
    ``nvidia-smi``, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -146,6 +164,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -158,6 +177,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+SMS = 132                           # H100 SXM streaming multiprocessors
+# thread instructions a clock an SM: MUFU (RCP, RSQ) and issue (4 warp
+# schedulers x 32 lanes; the FP32 pipes keep the same pace)
+MUFU_PER_CLOCK, ISSUE_PER_CLOCK = 16, 128
 SEED = 0
 COPY_ROWS = 1 << 21                 # table rows of the CTR copy cases
 COLD_BATCHES = 16                   # id batches of a cold-L2 copy figure
@@ -1037,9 +1060,11 @@ def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
     """The new kernels' inputs as the loop's last step gave them: the
     largest group-"v" push to one master (its ids' (z, n) rows as they
     stand after the step, and its gradients; its ids against that
-    master's key mirror, as the fused FTRL push probes them), the serve
-    values that master's pusher encoded from those rows, and the largest
-    group-"v" record of the last tick."""
+    master's key mirror, as the fused FTRL push probes them), the largest
+    group-"v" and group-"w" pushes of the step against their masters'
+    mirrors (keys, value table, arenas; the fused pass's inputs), the
+    serve values that master's pusher encoded from those rows, and the
+    largest group-"v" record of the last tick."""
     import torch
     last = max(e[4] for e in log)
     mid, _g, ids, grads, _ = max(
@@ -1054,7 +1079,20 @@ def train_kernel_inputs(card, log: list, t_last: float, device) -> dict:
               key=lambda r: len(r.ids))
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     table = card.masters[mid].tables["v"]
+    pushes = []
+    for group in ("v", "w"):
+        pmid, _g, pids, pgrads, _ = max(
+            (e for e in log if e[4] == last and e[1] == group),
+            key=lambda e: len(e[2]))
+        mir = card.masters[pmid].tables[group]._dev
+        pushes.append(SimpleNamespace(
+            what=f"master {pmid}, its largest group-{group} push of the "
+                 f"last step", keys=mir.keys, slot_of=mir.slot_of,
+            shift=mir.shift, placement=mir.placement,
+            arenas=tuple(mir.arenas[k] for k in ("z", "n", "w")),
+            ids=up(pids), grads=up(pgrads)))
     return {"ftrl": (up(slots["z"]), up(slots["n"]), up(grads)),
+            "pushes": pushes,
             "serve": up(serve),
             "record": (up(rec.payload["q"]), up(rec.payload["scale"])),
             "probe": (PROBE_OF[table._dev.placement],
@@ -1094,15 +1132,234 @@ def codec_same(a, b) -> bool:
         a.masked_fill(nan, 0), b.masked_fill(nan, 0)))
 
 
+# FP32 opcodes of the SASS count (the rest are integer, memory, control)
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET")
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def ftrl_issue() -> dict:
+    """Instructions an element of the FTRL kernels issues (a thread a
+    float), read from ``cuobjdump -sass`` of the built library: ``{slots:
+    {"mufu", "fp32", "all", "clocks"}}`` for the kernel that reads rows
+    through the slots (``ftrl_apply_slots``, float32 w arena) or not
+    (``ftrl_row_update``). Counted over the kernel's main body, from its
+    first instruction to its first branch to itself; the subroutines
+    after that are the slow paths of the IEEE divide and square root,
+    taken only for operands the fast path cannot take (denormal, Inf,
+    NaN, huge quotients). ``clocks``: SM clocks an element takes at the
+    H100's rates, the larger of its MUFU instructions over 16 a clock and
+    its MUFU and FP32 instructions over the 128 a clock an SM issues."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("ftrl_row_update"))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"ftrl_kernelILb([01])EfEEv", part.split("\n", 1)[0])
+        if not m:
+            continue
+        ops = []
+        for addr, op, args in _SASS_LINE.findall(part):
+            if op == "BRA" and args.strip() == f"0x{int(addr, 16):x}":
+                break
+            if op != "NOP":
+                ops.append(op)
+        mufu = sum(op.startswith("MUFU") for op in ops)
+        fp32 = sum(op.split(".")[0] in FP32_OPS for op in ops)
+        out[m.group(1) == "1"] = {
+            "mufu": mufu, "fp32": fp32, "all": len(ops),
+            "clocks": max(mufu / MUFU_PER_CLOCK,
+                          (mufu + fp32) / ISSUE_PER_CLOCK)}
+    if len(out) != 2:
+        raise AssertionError(f"FTRL kernels found in the SASS: {sorted(out)}")
+    return out
+
+
+def _sectors(start, nbytes: int) -> int:
+    """Distinct 32-byte sectors that ``nbytes`` from each byte offset of
+    ``start`` (a tensor) cover."""
+    import torch
+    first, last = start // 32, (start + nbytes - 1) // 32
+    cells = [torch.where(first + j <= last, first + j, first)
+             for j in range(int((last - first).max()) + 1)]
+    return int(torch.cat(cells).unique().numel())
+
+
+def apply_bytes(push, pos, found) -> int:
+    """The bytes ``ftrl_apply_slots`` must move on ``push``: 16 an
+    element (g read; z', n', w' row outputs written), the rows' pos and
+    found, the 32-byte sectors of ``slot_of`` the rows read, and the
+    sectors of the arenas they touch: z and n read and written, w
+    written."""
+    import torch
+    b, d = push.grads.shape
+    slot = torch.where(found, push.slot_of[pos.long()], 0).long()
+    zn = _sectors(slot * d * 4, d * 4)
+    esize = push.arenas[2].element_size()
+    w = _sectors(slot * d * esize, d * esize)
+    return (16 * b * d + 5 * b + 32 * _sectors(pos.long() * 4, 4)
+            + 32 * (4 * zn + w))
+
+
+def apply_row(push, ftrl_kw: dict, issue: dict, clock_hz: float) -> dict:
+    """``ftrl_apply_slots`` on one of the path's own pushes: its probe's
+    results, then the pass on a copy of the master's arenas against its
+    plain version on another copy (arenas and row outputs bit-equal),
+    then timed beside its bound and the chain it replaces (the torch slot
+    translate, two gathers, ``ftrl_row_update``, three scatter-sets, this
+    tree's kernels). One push through ``ops.fused_ftrl_apply`` is timed,
+    captured in a CUDA graph and profiled: exactly two kernels, the probe
+    and the pass (the graph's nodes and the launch counters must show the
+    two; the profile, which may miss kernels launched through ctypes late
+    in the process, must show no other)."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ftrl_row_update as fr
+    from repro_torch.kernels import ops, ref
+    kw = dict(shift=push.shift, placement=push.placement)
+    pos, found = ops.hashmap_probe(push.keys, push.ids, **kw)
+    if not bool(found.all()):
+        raise AssertionError(f"ftrl_apply_slots at {push.what}: ids absent "
+                             f"from the map")
+    mine = [a.clone() for a in push.arenas]
+    plain = [a.clone() for a in push.arenas]
+    args = (pos, found, push.slot_of)
+    got = fr.ftrl_apply_slots(*args, *mine, push.grads, **ftrl_kw)
+    want = ref.ftrl_apply_slots(*args, *plain, push.grads, **ftrl_kw)
+    if not all(torch.equal(a, w) for a, w in zip([*got, *mine],
+                                                 [*want, *plain])):
+        raise AssertionError(f"ftrl_apply_slots at {push.what}: not "
+                             f"bit-equal (arenas or row outputs)")
+    b, d = push.grads.shape
+    per = issue[True]
+    row = _row("ftrl_apply_slots", "ftrl_row_update.cu",
+               "src/repro/kernels/ftrl_row_update.py:38", 0.0,
+               lambda: fr.ftrl_apply_slots(*args, *mine, push.grads,
+                                           **ftrl_kw),
+               lambda: ref.ftrl_apply_slots(*args, *plain, push.grads,
+                                            **ftrl_kw), None,
+               apply_bytes(push, pos, found),
+               f"{push.what}: {b}x{d} f32 rows through a "
+               f"{push.slot_of.shape[0]}-slot map into "
+               f"{tuple(mine[0].shape)} arenas",
+               flops=b * d * per["clocks"], peak=SMS * clock_hz,
+               agreement="arenas and row outputs bit-equal to its plain "
+                         "version")
+    row.update(shape=f"{b}x{d}",
+               sass_per_element={k: per[k] for k in ("mufu", "fp32", "all")})
+
+    def chain():
+        slot = torch.where(found, push.slot_of[pos], torch.zeros_like(pos))
+        z2, n2, w2 = fr.ftrl_row_update(el.embedding_lookup(mine[0], slot),
+                                        el.embedding_lookup(mine[1], slot),
+                                        push.grads, **ftrl_kw)
+        for a, v in zip(mine, (z2, n2, w2)):
+            el.embedding_scatter(a, slot, v)
+
+    push_call = lambda: ops.fused_ftrl_apply(  # noqa: E731
+        push.keys, push.slot_of, *mine, push.ids, push.grads, **kw,
+        **ftrl_kw)
+    row["chain_ms"] = _device_ms(chain)
+    row["push_ms"] = _device_ms(push_call)
+    # the push launches the probe and the pass, and nothing else: the
+    # counters, the captured graph's nodes and the profiler must agree
+    before = ops.launch_counts()
+    kinds, graph_names = graph_kernels(push_call)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+    probe = PROBE_OF[push.placement]
+    prof = profile_call(push_call, push.grads.device)
+    names = [k for k, _ in prof["entries"]]
+    ours = lambda k: "probe" in k or "ftrl_kernel" in k
+    two = lambda ks: (len(ks) == 2 and any("probe" in k for k in ks)
+                      and any("ftrl_kernel" in k for k in ks))
+    # the profiler may miss ctypes-launched kernels late in a process (it
+    # listed none, then one of the two): it must list no kernel of another
+    if (kinds != {0: 2} or launched != {probe: 1, "ftrl_row_update": 1}
+            or (graph_names and not two(graph_names))
+            or not all(map(ours, names))):
+        raise AssertionError(
+            f"ops.fused_ftrl_apply at {push.what}: not the probe and "
+            f"ftrl_apply_slots alone: graph nodes by type {kinds} "
+            f"{graph_names}, counted launches {launched}, profiled {names}")
+    seen = (f"{len(names)} of the 2 kernels listed by torch.profiler"
+            + "".join(f", {k[:60]} {ms:.5f}" for k, ms in prof["entries"]))
+    print(f"  the push after its probe: {row['ms']:.5f} ms, the chain it "
+          f"replaces {row['chain_ms']:.5f} ms; the whole push (probe + "
+          f"pass) {row['push_ms']:.5f} ms; SASS per element "
+          f"{row['sass_per_element']}; one push captured: {kinds[0]} "
+          f"kernel nodes and nothing else "
+          f"({', '.join(n[:50] for n in graph_names) or 'names not read'}), "
+          f"counted {launched}; profiled: {seen}", flush=True)
+    return row
+
+
+def graph_kernels(fn) -> tuple[dict, list[str]]:
+    """What one ``fn()`` launches on the card, whatever the profiler
+    sees: it is captured into a CUDA graph, whose nodes libcuda lists
+    (``cuGraphGetNodes``). Returns ``({node type: count}, kernel
+    names)``; type 0 is a kernel, and a kernel's name comes from
+    ``cuFuncGetName`` where libcuda has it (else the list is empty)."""
+    import ctypes
+
+    import torch
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t()
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kinds, names = {}, []
+    params = (ctypes.c_void_p * 16)()    # CUDA_KERNEL_NODE_PARAMS: func first
+    name = ctypes.c_char_p()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
+        if (kind.value == 0 and hasattr(cu, "cuFuncGetName")
+                and not cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node),
+                                                      params)
+                and params[0] and not cu.cuFuncGetName(
+                    ctypes.byref(name), ctypes.c_void_p(params[0]))):
+            names.append(name.value.decode())
+    graph.reset()
+    return kinds, names
+
+
 def train_kernel_rows(inputs: dict, ftrl_kw: dict) -> list[dict]:
     """Each new kernel against its plain version on the path's inputs,
-    bit-equal, then timed beside its byte bound."""
+    bit-equal, then timed beside its bound. The FTRL rows' bound is the
+    larger of their bytes and their instruction issue (``ftrl_issue``);
+    ``ftrl_apply_slots``' rows, one for each of the path's pushes, ride
+    on the ``ftrl_row_update`` entry (one kernel source, one count)."""
     import torch
 
     from repro_torch.kernels import delta_codec as dc
     from repro_torch.kernels import ftrl_row_update as fr
     from repro_torch.kernels import ref
     rows = []
+    clock_hz = max_sm_clock_hz()
+    issue = ftrl_issue()
+    print(f"FTRL kernels' SASS per element (MUFU, FP32, all; SM clocks at "
+          f"{clock_hz / 1e6:.0f} MHz): "
+          + ", ".join(f"{name} {v['mufu']}, {v['fp32']}, {v['all']}; "
+                      f"{v['clocks']:.4f}" for name, v in
+                      (("ftrl_row_update", issue[False]),
+                       ("ftrl_apply_slots", issue[True]))), flush=True)
     z, n, g = inputs["ftrl"]
     got, want = fr.ftrl_row_update(z, n, g, **ftrl_kw), \
         ref.ftrl_row_update(z, n, g, **ftrl_kw)
@@ -1113,7 +1370,11 @@ def train_kernel_rows(inputs: dict, ftrl_kw: dict) -> list[dict]:
                      "src/repro/kernels/ftrl_row_update.py:38", 0.0,
                      lambda: fr.ftrl_row_update(z, n, g, **ftrl_kw),
                      lambda: ref.ftrl_row_update(z, n, g, **ftrl_kw), None,
-                     24 * b * d, f"{b}x{d} f32 rows, one master's push"))
+                     24 * b * d, f"{b}x{d} f32 rows, one master's push",
+                     flops=b * d * issue[False]["clocks"],
+                     peak=SMS * clock_hz))
+    rows[-1]["apply_slots"] = [apply_row(p, ftrl_kw, issue, clock_hz)
+                               for p in inputs["pushes"]]
     x = inputs["serve"]
     (q, s), (pq, ps) = dc.quantize_rows(x), ref.quantize_rows(x)
     if not (torch.equal(q, pq) and torch.equal(s, ps)):
@@ -2296,9 +2557,10 @@ def main() -> int:
                 row["launches"] = sum(counts.values())
     print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the probes', "
           "the gather's, the scatter-set's and ftrl_row_update's summed over "
-          "every path above, the codec's from train -> sync -> serve, the "
-          "attention kernels' from the LM serving path, the scatter-add's "
-          "from the LM training run)")
+          "every path above, ftrl_row_update's all ftrl_apply_slots, whose "
+          "rows ride on its entry; the codec's from train -> sync -> serve, "
+          "the attention kernels' from the LM serving path, the "
+          "scatter-add's from the LM training run)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

@@ -24,6 +24,19 @@ the serve cache's map under a warm request and the smoke's crafted
 the C interface before the hbm probe's redesign. Each pair must agree in
 ``found`` everywhere and in ``pos`` where found.
 
+The FTRL push (``--ftrl-row-update``): the push after its probe on one
+master's 2^23-slot map of its ~2^20 ids (built as ``probe_maps`` builds
+it) with (z, n, w) arenas of as many rows, D = 8 and D = 1, under the
+ids of a 4096 x 32 train batch that the master owns (``probe_maps``'
+master batch). The other side is the chain the push ran before the fused
+pass: the torch slot translate, this tree's two gathers, the other
+source's ``ftrl_row_update`` and this tree's three scatter-sets; this
+side is one ``ftrl_apply_slots``. Then the standalone call on the push's
+gathered rows (contiguous (z, n, g) at D = 8). The other source's entry
+must take ``(z, n, g, count, alpha, beta, l1, l2, z_out, n_out, w_out,
+stream)``, as this tree's does. Arenas and row outputs must be bit-equal
+pair by pair.
+
 The int8 row codec (``--delta-codec``): ``quantize_rows`` and
 ``dequantize_rows`` at the sync path's shapes (one master's push, 32,768
 x 8; one record, 16,384 x 8; the bootstrap's encode of a master, 2^20 x
@@ -41,10 +54,13 @@ leaf's length (``"scaled"`` in its line).
         > build/other_delta_codec.cu
     git show <rev>:src/repro_torch/kernels/csrc/hashmap_probe.cu \\
         > build/other_hashmap_probe.cu
+    git show <rev>:src/repro_torch/kernels/csrc/ftrl_row_update.cu \\
+        > build/other_ftrl_row_update.cu
     python3 scripts/compare_kernels.py \\
         --embedding-lookup build/other_embedding_lookup.cu \\
         --delta-codec build/other_delta_codec.cu \\
-        --hashmap-probe build/other_hashmap_probe.cu
+        --hashmap-probe build/other_hashmap_probe.cu \\
+        --ftrl-row-update build/other_ftrl_row_update.cu
 
 Any option may be left out. The other sources are built with the
 port's ``nvcc`` flags into ``build/repro_torch/compare/``. Prints the
@@ -354,6 +370,104 @@ def compare_probes(src: Path, dev) -> list[dict]:
     return results
 
 
+def master_push(dev):
+    """``(host map, keys on dev (wrap-padded), push ids on dev)``: the
+    master map and train batch of ``probe_maps`` (master 0 of
+    ``RoutingPlan(4, 2, 8)`` over the 2^22 hashed ids, filled in one
+    ``put`` with arena slots 0, 1, ...; the unique ids of the seed's
+    second 4096 x 32 draw that the master owns)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.core.hashmap import IdHashMap
+    from repro_torch.core.routing import RoutingPlan
+    from repro_torch.kernels import ref
+    plan = RoutingPlan(num_master=4, num_slave=2, num_partitions=8)
+    pool = cs.hashed_ids(FM_FTRL.feature_space)
+    rng = np.random.default_rng(cs.SEED)
+    n = cs.REQ_BATCH * cs.FIELDS
+    rng.integers(0, len(pool), size=n)              # probe_maps' request
+    push = np.unique(pool[rng.integers(0, len(pool), size=n)])
+    ids = pool[plan.master_shard(pool) == 0]
+    m = IdHashMap(16)
+    m.put(ids, np.arange(len(ids)))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    keys = ref.wrap_pad(up(m.key_table), cap=m.capacity)
+    return m, keys, up(push[plan.master_shard(push) == 0])
+
+
+def compare_ftrl(src: Path, dev) -> list[dict]:
+    import torch
+
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ftrl_row_update as fr
+    from repro_torch.kernels import hashmap_probe as hm
+    other = build_other(src)
+    p, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    other.ftrl_row_update.argtypes = [p, p, p, ll, f, f, f, f, p, p, p, p]
+    other.ftrl_row_update.restype = ctypes.c_int
+    kw = dict(alpha=FM_FTRL.ftrl_alpha, beta=FM_FTRL.ftrl_beta,
+              l1=FM_FTRL.ftrl_l1, l2=FM_FTRL.ftrl_l2)
+
+    def theirs(z, n, g, outs):
+        _check_rc(other.ftrl_row_update(
+            z.data_ptr(), n.data_ptr(), g.data_ptr(), z.numel(),
+            *kw.values(), *(o.data_ptr() for o in outs), _stream()))
+
+    m, keys, ids = master_push(dev)
+    slot_of = torch.from_numpy(m.val_table.astype(np.int32)).to(dev)
+    pos, found = hm.hashmap_probe_hbm(keys, ids, shift=int(m.shift))
+    if not bool(found.all()):
+        raise AssertionError("the master's push: ids absent from its map")
+    rows, b = len(m), ids.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for d in (8, 1):
+        start = (1.5 * torch.randn(rows, d, generator=gen, device=dev),
+                 4 * torch.rand(rows, d, generator=gen, device=dev),
+                 torch.zeros(rows, d, device=dev))
+        g = torch.randn(b, d, generator=gen, device=dev)
+        outs = [torch.empty(b, d, device=dev) for _ in range(3)]
+
+        def chain(arenas, outs=outs, g=g):
+            slot = torch.where(found, slot_of[pos], torch.zeros_like(pos))
+            theirs(el.embedding_lookup(arenas[0], slot),
+                   el.embedding_lookup(arenas[1], slot), g, outs)
+            for a, v in zip(arenas, outs):
+                el.embedding_scatter(a, slot, v)
+            return outs
+
+        def fused(arenas, g=g):
+            return fr.ftrl_apply_slots(pos, found, slot_of, *arenas, g, **kw)
+
+        a_old = [a.clone() for a in start]
+        a_new = [a.clone() for a in start]
+        got_old, got_new = chain(a_old), fused(a_new)
+        if not all(torch.equal(x, y) for x, y in
+                   zip([*got_old, *a_old], [*got_new, *a_new])):
+            raise AssertionError(f"the push at D = {d}: not bit-equal")
+        label = (f"the push after its probe: {b} ids of a master's "
+                 f"{m.capacity}-slot map into ({rows}, {d}) arenas")
+        results.append(_turns("ftrl_apply_slots", label,
+                              lambda: chain(a_old), lambda: fused(a_new)))
+        if d == 8:
+            slot = slot_of[pos]
+            z, n = (el.embedding_lookup(a, slot) for a in start[:2])
+            mine = fr.ftrl_row_update(z, n, g, **kw)
+            theirs(z, n, g, outs)
+            if not all(torch.equal(x, y) for x, y in zip(mine, outs)):
+                raise AssertionError("ftrl_row_update: not bit-equal")
+            results.append(_turns(
+                "ftrl_row_update", f"{b}x{d} f32 contiguous rows",
+                lambda: theirs(z, n, g, outs),
+                lambda: fr.ftrl_row_update(z, n, g, **kw)))
+        del start, a_old, a_new
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--embedding-lookup", type=Path,
@@ -362,6 +476,8 @@ def main() -> int:
                     help="the other version of csrc/delta_codec.cu")
     ap.add_argument("--hashmap-probe", type=Path,
                     help="the other version of csrc/hashmap_probe.cu")
+    ap.add_argument("--ftrl-row-update", type=Path,
+                    help="the other version of csrc/ftrl_row_update.cu")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -382,6 +498,8 @@ def main() -> int:
         results += compare_codec(args.delta_codec, dev)
     if args.hashmap_probe:
         results += compare_probes(args.hashmap_probe, dev)
+    if args.ftrl_row_update:
+        results += compare_ftrl(args.ftrl_row_update, dev)
     print(json.dumps({"card": smi, "rows": results}))
     return 0
 

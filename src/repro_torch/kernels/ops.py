@@ -4,12 +4,13 @@ reference's jitted ``kernels/ops.py``.
 Where the reference picks interpret mode off the TPU, the port dispatches
 on the tensors' device inside each wrapper: CUDA tensors launch the
 hand-written kernels, CPU tensors run the plain versions in
-``kernels/ref.py``. ``fused_lookup`` (serve) and ``fused_ftrl_apply``
-(train) chain probe → slot translate → gather (→ FTRL → scatter) without
-a host hop, as the reference's jits do. ``flash_attention`` (prefill) and
-``decode_attention`` (decode) are the LM serving path's kernels;
-``embedding_lookup`` gathers the LM's token embeddings and
-``embedding_scatter_add`` is their gradient in training.
+``kernels/ref.py``. ``fused_lookup`` (serve) chains probe → slot
+translate → gather, and ``fused_ftrl_apply`` (train) the probe and one
+fused slot-translate → gather → FTRL → scatter pass
+(``ftrl_apply_slots``), without a host hop, as the reference's jits do.
+``flash_attention`` (prefill) and ``decode_attention`` (decode) are the
+LM serving path's kernels; ``embedding_lookup`` gathers the LM's token
+embeddings and ``embedding_scatter_add`` is their gradient in training.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ embedding_lookup = _el.embedding_lookup
 embedding_scatter = _el.embedding_scatter
 embedding_scatter_add = _el.embedding_scatter_add
 ftrl_row_update = _ftrl.ftrl_row_update
+ftrl_apply_slots = _ftrl.ftrl_apply_slots
 quantize_rows = _dc.quantize_rows
 dequantize_rows = _dc.dequantize_rows
 flash_attention = _fa.flash_attention
@@ -103,8 +105,11 @@ def fused_ftrl_apply(keys: torch.Tensor, slot_of: torch.Tensor,
                      beta: float, l1: float, l2: float,
                      placement: str = "auto"):
     """The sparse training hot path against a device-resident table
-    mirror: probe → slot translate → gather ``(z, n)`` → FTRL row update
-    → scatter ``(z', n', w')`` back into the arenas, no host hop.
+    mirror: the probe, then ``ftrl_apply_slots`` (slot translate → gather
+    ``(z, n)`` → FTRL row update → scatter ``(z', n', w')`` back into the
+    arenas), no host hop. On CUDA tensors that is two launches, the
+    probe's and the fused pass's; on CPU tensors the chain of plain
+    versions.
 
     ``ids`` must be UNIQUE and PRESENT in the map (``MasterShard`` runs
     ``ensure`` first); ``found`` is returned so the caller can check it
@@ -114,12 +119,7 @@ def fused_ftrl_apply(keys: torch.Tensor, slot_of: torch.Tensor,
     outputs (B, D) for the host-authoritative arrays, and the (B,) found
     mask."""
     pos, found = hashmap_probe(keys, ids, shift=shift, placement=placement)
-    slot = torch.where(found, slot_of[pos], torch.zeros_like(pos))
-    z = embedding_lookup(z_arena, slot)
-    n = embedding_lookup(n_arena, slot)
-    z2, n2, w2 = ftrl_row_update(z, n, grads, alpha=alpha, beta=beta,
-                                 l1=l1, l2=l2)
-    embedding_scatter(z_arena, slot, z2)
-    embedding_scatter(n_arena, slot, n2)
-    embedding_scatter(w_arena, slot, w2)
+    z2, n2, w2 = _ftrl.ftrl_apply_slots(pos, found, slot_of, z_arena,
+                                        n_arena, w_arena, grads, alpha=alpha,
+                                        beta=beta, l1=l1, l2=l2)
     return z2, n2, w2, found

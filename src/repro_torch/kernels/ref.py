@@ -18,6 +18,9 @@ The row scatter-add adds each id's duplicates in input order, rounding
 to the table's dtype after every add, bit-equal to the Pallas kernel in
 interpret mode and to the CUDA kernel.
 
+``ftrl_apply_slots`` is the fused train push after its probe composed
+of these plain versions (slot translate, gather, FTRL, scatter-set).
+
 The FTRL and int8 codec versions repeat their kernel's arithmetic op for
 op in float32, bit-equal to the NumPy routes (``FTRL.update_rows``,
 ``Int8Transform._quantize_np``): every scalar is a 0-dim float32 tensor
@@ -257,6 +260,26 @@ def ftrl_row_update(z: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
     sigma = (sqrt_rn(n_new) - sqrt_rn(n)) / p["alpha"]
     z_new = (z + g) - sigma * w_old
     return z_new, n_new, ftrl_weights(z_new, n_new, **p)
+
+
+def ftrl_apply_slots(pos: torch.Tensor, found: torch.Tensor,
+                     slot_of: torch.Tensor, z_arena: torch.Tensor,
+                     n_arena: torch.Tensor, w_arena: torch.Tensor,
+                     grads: torch.Tensor, *, alpha: float, beta: float,
+                     l1: float, l2: float):
+    """The fused train push after its probe, as the chain of plain
+    versions: slot ``slot_of[pos]`` where ``found`` else 0, gather ``(z,
+    n)`` there, ``ftrl_row_update``, scatter ``(z', n', w')`` back into the
+    arenas in place (``w'`` cast to the w arena's dtype). Returns ``(z',
+    n', w')``, each (B, D) float32."""
+    slot = torch.where(found, slot_of[pos.long()], torch.zeros_like(pos))
+    z2, n2, w2 = ftrl_row_update(embedding_lookup(z_arena, slot),
+                                 embedding_lookup(n_arena, slot), grads,
+                                 alpha=alpha, beta=beta, l1=l1, l2=l2)
+    embedding_scatter(z_arena, slot, z2)
+    embedding_scatter(n_arena, slot, n2)
+    embedding_scatter(w_arena, slot, w2)
+    return z2, n2, w2
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -452,6 +452,167 @@ def test_fused_ftrl_apply_on_card_matches_cpu_chain(cuda):
     assert bool(outs["cuda"][-1].all())               # every id found
 
 
+def _slots_inputs(b, d, w_dtype, device, seed, offset=0):
+    """Arguments of ``ftrl_apply_slots`` on ``device``: (z, n, w) arenas of
+    b + 500 rows (views ``offset`` floats into their storage), a 2^14-slot
+    value table mapping b unique probe positions onto distinct arena rows,
+    ``found`` all True, gradient rows holding a zero row, NaN and ±Inf."""
+    rng = np.random.default_rng(seed)
+    rows = b + 500
+    z, n, _ = _ftrl_inputs(rows, d, seed)
+
+    def arena(a, dtype=torch.float32):
+        flat = torch.zeros(rows * d + offset, dtype=dtype, device=device)
+        view = flat[offset:].view(rows, d)
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    w = rng.normal(size=(rows, d)).astype(np.float32)
+    slot_of = rng.integers(0, rows, size=1 << 14).astype(np.int32)
+    pos = rng.choice(1 << 14, size=b, replace=False).astype(np.int32)
+    slot_of[pos] = rng.permutation(rows)[:b]
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    g.reshape(-1)[1:4] = [np.nan, np.inf, -np.inf][:b * d - 1]
+    up = lambda a: torch.from_numpy(a).to(device)
+    return dict(pos=up(pos), found=torch.ones(b, dtype=torch.bool,
+                                              device=device),
+                slot_of=up(slot_of), z_arena=arena(z), n_arena=arena(n),
+                w_arena=arena(w).to(w_dtype) if offset == 0
+                else arena(w, w_dtype), grads=up(g))
+
+
+FTRL_KW = dict(alpha=0.05, beta=1.0, l1=0.5, l2=1.0)
+
+
+def _check_apply_slots(args):
+    """The kernel and its plain version on copies of the same arenas, on
+    the card, and the plain version on the CPU: arenas and row outputs
+    bit-equal (NaN for NaN). One launch, counted on ``ftrl_row_update``;
+    no gather or scatter-set."""
+    from repro_torch.kernels import ftrl_row_update as port_ftrl
+    arenas = ("z_arena", "n_arena", "w_arena")
+    plain = {k: v.clone() if k in arenas else v for k, v in args.items()}
+    host = {k: v.cpu() for k, v in args.items()}
+    before = port_ops.launch_counts()
+    got = port_ftrl.ftrl_apply_slots(**args, **FTRL_KW)
+    after = port_ops.launch_counts()
+    assert after["ftrl_row_update"] == before["ftrl_row_update"] + 1
+    for k in ("embedding_lookup", "embedding_scatter"):
+        assert after[k] == before[k]
+    want = port_ref.ftrl_apply_slots(**plain, **FTRL_KW)
+    cpu = port_ref.ftrl_apply_slots(**host, **FTRL_KW)
+    for a, w, c in zip([*got, *(args[k] for k in arenas)],
+                       [*want, *(plain[k] for k in arenas)],
+                       [*cpu, *(host[k] for k in arenas)]):
+        assert smoke.codec_same(a, w) and smoke.codec_same(a.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float16,
+                                     torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4097])
+@pytest.mark.parametrize("d", [1, 4, 8, 9])
+def test_ftrl_apply_slots_matches_plain_on_card(cuda, d, b, w_dtype):
+    _check_apply_slots(_slots_inputs(b, d, w_dtype, cuda, seed=b + d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_ftrl_apply_slots_on_a_misaligned_arena_on_card(cuda, w_dtype):
+    """Arenas one element into their storage (no 16-byte boundary under
+    their rows): the pass makes no alignment assumption."""
+    args = _slots_inputs(999, 8, w_dtype, cuda, seed=8, offset=1)
+    assert args["z_arena"].data_ptr() % 16 and args["w_arena"].data_ptr() % 8
+    _check_apply_slots(args)
+
+
+def _push_case(device, d=8, b=700, seed=21):
+    """A 4,096-slot map of 1,500 ids, (z, n, w) arenas of 2,000 rows and a
+    push of ``b`` unique present ids, on ``device``."""
+    rng = np.random.default_rng(seed)
+    m = IdHashMap(1 << 12)
+    ids = rng.choice(1 << 40, size=1500, replace=False).astype(np.int64)
+    m.put(ids, rng.permutation(2000)[:1500])
+    z, n, _ = _ftrl_inputs(2000, d, seed)
+    w = np.zeros((2000, d), np.float32)
+    q = rng.permutation(ids)[:b]
+    grads = rng.normal(size=(b, d)).astype(np.float32)
+    t = [torch.from_numpy(a.copy()).to(device) for a in
+         (m.key_table, m.val_table.astype(np.int32), z, n, w, q, grads)]
+    return t, dict(shift=int(m.shift), **FTRL_KW)
+
+
+@pytest.mark.cuda
+def test_fused_ftrl_apply_is_probe_and_one_pass_on_card(cuda):
+    """``ops.fused_ftrl_apply`` on the card: one probe launch and one
+    ``ftrl_apply_slots`` launch (counted on ``ftrl_row_update``), no
+    gather and no scatter-set."""
+    t, kw = _push_case(cuda)
+    before = port_ops.launch_counts()
+    port_ops.fused_ftrl_apply(*t, **kw)
+    after = port_ops.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta["hashmap_probe"] + delta["hashmap_probe_hbm"] == 1
+    assert delta["ftrl_row_update"] == 1
+    assert delta["embedding_lookup"] == delta["embedding_scatter"] == 0
+
+
+@pytest.mark.cuda
+def test_fused_ftrl_apply_in_a_cuda_graph_on_card(cuda):
+    """The push captured in a CUDA graph and replayed equals the chain
+    of plain versions on the same arenas; a replay counts no launch."""
+    t, kw = _push_case(cuda, d=9)
+    start = [a.clone() for a in t[2:5]]
+    for _ in range(2):                          # warm up: build and load
+        port_ops.fused_ftrl_apply(*t, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rows = port_ops.fused_ftrl_apply(*t, **kw)
+    for a, s0 in zip(t[2:5], start):
+        a.copy_(s0)
+    before = port_ops.launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert port_ops.launch_counts() == before
+    plain = [a.clone() for a in start]
+    pos, found = port_ref.hashmap_probe(t[0], t[5], shift=kw["shift"])
+    want = port_ref.ftrl_apply_slots(pos, found, t[1], *plain, t[6],
+                                     **FTRL_KW)
+    for a, w in zip([*rows[:3], *t[2:5]], [*want, *plain]):
+        assert torch.equal(a, w)
+    assert bool(rows[3].all())
+
+
+@pytest.mark.cuda
+def test_fused_update_on_absent_id_raises_and_resyncs_on_card(cuda):
+    """The card twin of ``test_torch_training``'s CPU test: an id absent
+    from the map raises ``RuntimeError``, the mirror's arenas are dropped,
+    and the next push (after a re-upload) gives the CPU table's rows."""
+    from repro_torch.core.ps import SparseTable
+    rng = np.random.default_rng(1)
+    ids = np.sort(rng.choice(1 << 40, size=8, replace=False)).astype(
+        np.int64)
+    grads = rng.normal(size=(8, 4)).astype(np.float32)
+    kw = dict(alpha=0.1, beta=1.0, l1=0.5, l2=0.2)
+    tables = {}
+    for dev in ("cpu", "cuda"):
+        t = SparseTable(4, ("n", "z"), backend="torch", device=dev)
+        sl = t.ensure(ids)
+        before = t.gather(ids)[1]["z"].copy()
+        with pytest.raises(RuntimeError, match="absent"):
+            t.fused_ftrl_update(np.array([ids[0], 12345], np.int64),
+                                np.array([sl[0], 0]),
+                                np.ones((2, 4), np.float32), **kw)
+        np.testing.assert_array_equal(t.gather(ids)[1]["z"], before)
+        tables[dev] = (t, t.fused_ftrl_update(ids, sl, grads, **kw))
+    (tc, wc), (tg, wg) = tables["cpu"], tables["cuda"]
+    np.testing.assert_array_equal(wg, wc)
+    for k in ("z", "n"):
+        np.testing.assert_array_equal(tg.gather(ids)[1][k],
+                                      tc.gather(ids)[1][k])
+
+
 def _tol(dtype):
     """2e-5 in float32 (summation order only), 2e-2 where the output is
     rounded to bfloat16 — the reference's own kernel tolerances."""
