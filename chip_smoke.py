@@ -5,7 +5,9 @@ against its plain PyTorch version at the shapes the path gives it, then
 runs the paper's online-learning loop for the FM-FTRL CTR model at full
 width — train on master shards, stream through the int8 codec to the
 serving replicas, serve from the streamed rows — and checks it against
-the port's host path; then serves qwen2-1.5b at full width (prefill and
+the port's host path; then drives the whole ``WeiPSCluster`` (click
+stream, joiner, pipeline, checkpoints, faults, domino downgrade) beside
+a host twin; then serves qwen2-1.5b at full width (prefill and
 greedy decode with hot weight swaps) and checks it against the same
 model on the plain attention; then trains qwen2-1.5b at full width with
 Adam, streams it to a serving replica and hot-swaps the replica's params
@@ -84,7 +86,43 @@ Phases (any failure exits non-zero and prints no result line):
    a qwen2-1.5b MLP leaf), each bit-equal to its plain version, then
    timed beside its bound, its plain version and, for dequantize,
    ``torch.mul``.
-5. LM serving, qwen2-1.5b at full width (28 layers, random weights from
+5. The cluster: ``WeiPSCluster`` with its defaults (torch PS and codec
+   backends on the card) for FM_FTRL at full width (FTRL l1 0.01, alpha
+   0.2, as the repo's serving tests set it), 4 masters, 2 slave shards x
+   2 replicas, 8 partitions, int8 sync codec, the durable ``FileQueue``,
+   int8 delta-chain checkpoints (local every ~1 s, remote every ~4 s of
+   the stream clock) and the domino downgrade (logloss over 0.72 across
+   10 batches, read once 15 are in). 48 ticks 0.2 s apart, each 4096
+   ``ClickStream`` events (Zipf a = 1.2 over 2^22 ids) through
+   ``SampleJoiner`` → ``TrainPipeline`` → ``train_scheduler.tick`` →
+   ``sync_tick`` → ``maybe_checkpoint`` → ``downgrade_check``; a flush
+   past the join window; warm predicts of 4096 x 32 ids. Then a delta
+   and a full checkpoint, each of whose chains must be the live masters
+   (ids and touch stats equal, (w, z, n) equal to the NumPy int8 codec's
+   round trip, the card's decoded chain equal to the host's); kill →
+   recover of master 1 (its tables equal the chain's shard-1 rows);
+   ``add_slave_replica(0)`` (its ids its peers', its rows the chain's
+   serve rows overlaid with the records after the checkpoint's offsets,
+   and a peer's for every id streamed since); then
+   ``ClickStream.corrupt()`` and ticks until ``downgrade_check`` fires
+   the hot switch (at most 40), after which every replica holds the
+   serve transform of the chosen checkpoint, its scatter sits at the
+   checkpoint's offsets and the serve cache is empty. A host twin (numpy backends, on the
+   CPU) applies the card's recorded pushes and makes the same calls at
+   the same points: masters, queue records, every checkpoint and every
+   replica bit-equal, predictions within 1e-5. ``sync_metrics()``
+   carries the 63 frozen names of ``tests/test_metrics_schema.py`` plus
+   the pipeline's 11. The launch counters are reset before the phase
+   and read after it, the checks' own launches taken out; the probe,
+   the gather, the scatter-set, ``ftrl_row_update`` and the codec must
+   have launched. Train tick, sync tick and warm predict p50 / p99, the
+   join wait, checkpoint times and sizes, the fault times, peak device
+   memory before and after the faults and one profiled tick's busy share
+   are printed. The phase runs in a child process (``--cluster-phase``):
+   its ``torch.profiler`` session stays out of this process, whose later
+   sessions would lose kernels, and its state is gone before the LM
+   phases.
+6. LM serving, qwen2-1.5b at full width (28 layers, random weights from
    the seed). (At the build, before phase 1: the whole ``-Xptxas -v``
    report of ``flash_attention_sm90.cu`` and ``decode_attention.cu``, and
    the count of ``HGMMA`` and ``UTMALDG`` instructions in the bf16 flash
@@ -113,7 +151,7 @@ Phases (any failure exits non-zero and prints no result line):
    timed beside their bound, their plain versions and
    ``torch.nn.functional.scaled_dot_product_attention`` (never used by
    the port).
-6. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
+7. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
    ``embedding_scatter_add`` against its plain version, bit-equal (and
    two calls equal), in float32 and bf16, on a (151936, 1536) table with
    three mixes of 4096 ids: one ``lm_batches`` batch's 4 x 1024 token
@@ -146,10 +184,11 @@ Phases (any failure exits non-zero and prints no result line):
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
    ``decode_attention`` launches a step.
-7. The launches of both probes, the gather, the scatter-set and
-   ``ftrl_row_update`` on every path above (serving predicts, bootstrap
-   flush, train -> sync -> serve, LM serving, the LM training run and its
-   hot-swap decode), each read after its own reset. A train push is the
+8. The launches of both probes, the gather, the scatter-set,
+   ``ftrl_row_update`` and the codec on every path above (serving
+   predicts, bootstrap flush, train -> sync -> serve, the cluster, LM
+   serving, the LM training run and its hot-swap decode), each read
+   after its own reset. A train push is the
    probe and one ``ftrl_apply_slots`` launch (counted on
    ``ftrl_row_update``), so train -> sync -> serve launches no gather or
    scatter-set for its pushes: their launches there are the sync
@@ -192,9 +231,10 @@ PARTIAL_ROUNDS = 3
 TRAIN_STEPS = 16
 SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
                  "embedding_scatter")
-# kernels whose launches are summed over every path (phase 7)
+# kernels whose launches are summed over every path (phase 8)
 PATH_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
-                "embedding_scatter", "ftrl_row_update")
+                "embedding_scatter", "ftrl_row_update", "quantize_rows",
+                "dequantize_rows")
 TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 # sources whose whole ptxas report is printed (the redesigned attention)
 PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
@@ -993,20 +1033,7 @@ def compare_loops(card, host, groups, requests, preds) -> dict:
                             ("n", s["n"], hs["n"])):
                 _same(a, b, f"master {m.shard_id} {g} {k}")
             n_rows += len(ids)
-    n_rec = 0
-    for p in range(card.queue.num_partitions):
-        recs, hrecs = card.queue.consume(p, 0)[0], host.queue.consume(p, 0)[0]
-        if len(recs) != len(hrecs):
-            raise AssertionError(f"partition {p}: record counts differ")
-        for a, b in zip(recs, hrecs):
-            if (a.group, a.op, a.seq, a.producer, a.meta) != \
-                    (b.group, b.op, b.seq, b.producer, b.meta) or \
-                    sorted(a.payload) != sorted(b.payload):
-                raise AssertionError(f"partition {p}: record headers differ")
-            _same(a.ids, b.ids, f"partition {p} record ids")
-            for k in a.payload:
-                _same(a.payload[k], b.payload[k], f"partition {p} {k}")
-            n_rec += 1
+    n_rec = compare_queues(card.queue, host.queue)
     for rs, hrs in zip(card.sets, host.sets):
         for rep, hrep in zip(rs.replicas, hrs.replicas):
             for g in groups:
@@ -1549,6 +1576,638 @@ def drive_loop(device, *, feature_space: int, batch: int, fields: int,
                      - train["pushed_bytes"]},
             "load_s": load_s, "host_train_s": host_train_s}
 
+
+# ---------------------------------------------------------------------------
+# The cluster: WeiPSCluster end to end (ingest → train → sync → checkpoints
+# → faults → domino downgrade) beside a host twin that replays its pushes
+# ---------------------------------------------------------------------------
+
+CLUSTER_EVENTS, CLUSTER_TICKS, CLUSTER_DT = 4096, 48, 0.2
+CLUSTER_CORRUPT_TICKS = 40
+CLUSTER_WARM_REPS = 8
+# kernels the cluster path must launch (the hbm probe only where a map
+# passes VMEM_SLOT_BOUND slots; the phase prints the placements taken)
+CLUSTER_KERNELS = ("hashmap_probe", "embedding_lookup", "embedding_scatter",
+                   "ftrl_row_update", "quantize_rows", "dequantize_rows")
+CLUSTER_DIR = ROOT / "build" / "cluster_smoke"     # queues and remote tiers
+# FTRL as the repo's serving-plane tests set it: with FM_FTRL's l1 = 1
+# every weight stays 0 over the run and the logloss cannot move
+CLUSTER_FTRL = dict(ftrl_l1=0.01, ftrl_alpha=0.2)
+# the domino trigger: the reference tests' logloss threshold over the
+# default 10-batch window, read once 15 batches are in (the first FTRL
+# steps from zero rows overshoot to ~0.8, which a 5-batch warm-up takes
+# for a collapse)
+DOWNGRADE_THRESHOLD, DOWNGRADE_MIN_POINTS = 0.72, 15
+PIPELINE_METRICS = tuple(
+    f"training.scenarios.<scenario>.pipeline.{k}" for k in (
+        "buffered", "pending_feedback", "throttled_ticks", "shed_examples",
+        "joiner.emitted", "joiner.in_flight", "joiner.late_feedback",
+        "joiner.fast_emits", "joiner.negatives_dropped",
+        "joiner.join_delay.p50", "joiner.join_delay.p99"))
+
+
+def metric_snapshot() -> list:
+    """The frozen metric names (``SNAPSHOT`` of
+    ``tests/test_metrics_schema.py``)."""
+    text = (ROOT / "tests" / "test_metrics_schema.py").read_text()
+    return re.search(r'SNAPSHOT = """(.*?)"""', text, re.S).group(1).split()
+
+
+def canonical_metrics(cl) -> set:
+    """The cluster's metric names with scenario segments canonicalized."""
+    scenarios = {s.name for s in cl.serving.registry} | \
+        {s.name for s in cl.training.registry}
+    return {".".join("<scenario>" if s in scenarios else s
+                     for s in name.split("."))
+            for name in cl.metrics_registry.names(1.0)}
+
+
+def cluster_config(backend: str, device, root: Path):
+    from repro_torch.core import ClusterConfig
+    return ClusterConfig(
+        num_master=4, num_slave=2, num_replicas=2, num_partitions=8,
+        codec="int8", ps_backend=backend, codec_backend=backend,
+        device=str(device), queue_dir=str(root / "queue"),
+        ckpt_root=str(root / "ckpt"), ckpt_incremental=True,
+        ckpt_compress="int8", local_ckpt_interval=1.0,
+        remote_ckpt_interval=4.0, join_window=3.0,
+        downgrade_threshold=DOWNGRADE_THRESHOLD)
+
+
+def _sorted_rows(rows: dict) -> dict:
+    """Columnar rows (a table snapshot or a chain's rows) by id, slots
+    flattened beside w."""
+    o = np.argsort(rows["ids"], kind="stable")
+    return {"ids": rows["ids"][o], "w": rows["w"][o],
+            **{k: v[o] for k, v in rows["slots"].items()},
+            "last_touch": rows["last_touch"][o],
+            "touch_count": rows["touch_count"][o]}
+
+
+def _same_tree(a, b, what: str) -> None:
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise AssertionError(f"{what}: keys differ")
+        for k in a:
+            _same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, np.ndarray):
+        _same(a, b, what)
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} != {b!r}")
+
+
+def _roundtrip(a: np.ndarray) -> np.ndarray:
+    """The NumPy int8 codec's round trip of rows (the reference's)."""
+    from repro_torch.core.transform import Int8Transform
+    return Int8Transform.decode(Int8Transform._quantize_np(a),
+                                backend="numpy")
+
+
+def check_chain(card, host, version: int) -> int:
+    """Taken with no training after it, checkpoint ``version``'s chain is
+    the live masters: ids, touch stats, and the NumPy codec's round trip
+    of (w, z, n), bit-equal; the card's materialized chain (decoded by
+    ``dequantize_rows``) equals the host's (NumPy). Returns the rows."""
+    state = card.cold_backup.materialize(version)
+    _same_tree(state["shard_snaps"],
+               host.cold_backup.materialize(version)["shard_snaps"],
+               f"v{version} chain, card vs host")
+    n = 0
+    for m in card.masters:
+        for g, t in m.tables.items():
+            live = _sorted_rows(t.snapshot())
+            rows = _sorted_rows(state["shard_snaps"][m.shard_id]["tables"][g])
+            for k, v in live.items():
+                want = _roundtrip(v) if k in ("w", "z", "n") else v
+                _same(rows[k], want, f"v{version} master {m.shard_id} {g} "
+                                     f"{k} against the live rows")
+            n += len(live["ids"])
+    return n
+
+
+def check_recovered(card, shard_id: int, version: int) -> None:
+    """A recovered master holds its shard's chain rows, bit-equal."""
+    state = card.cold_backup.materialize(version)
+    m = card.masters[shard_id]
+    for g, t in m.tables.items():
+        live = _sorted_rows(t.snapshot())
+        rows = _sorted_rows(state["shard_snaps"][shard_id]["tables"][g])
+        for k in live:
+            _same(live[k], rows[k], f"recovered master {shard_id} {g} {k}")
+        if t.device is None or t.device.type != card.device.type:
+            raise AssertionError("a recovered table is off the device")
+
+
+def expected_replica(host, shard_id: int) -> dict:
+    """What a replica bootstrapped from the latest checkpoint and caught
+    up from its queue offsets holds, from the host twin alone: the
+    chain's serve rows for the shard, overlaid (last record wins) with
+    every record after the checkpoint's offsets, decoded by the NumPy
+    codec. Returns ``{group: (sorted ids, rows, ids streamed after)}``."""
+    from repro_torch.core.transform import decode_record
+    state = host._serve_state()
+    parts = {}
+    for g, (ids, serve) in state["groups"].items():
+        mine = host.plan.slave_shard(ids) == shard_id
+        parts[g] = ([ids[mine]], [serve[mine]])
+    after: dict = {}
+    for p in host.plan.partitions_for_slave(shard_id):
+        recs, _ = host.queue.consume(p, state["queue_offsets"].get(p, 0))
+        for r in recs:
+            if r.group.startswith("dense/") or r.op != "upsert":
+                raise AssertionError(f"unexpected record {r.group} {r.op}")
+            keep = host.plan.slave_shard(r.ids) == shard_id
+            vals = decode_record(r, backend="numpy")
+            parts[r.group][0].append(r.ids[keep])
+            parts[r.group][1].append(vals[keep])
+            after.setdefault(r.group, []).append(r.ids[keep])
+    out = {}
+    for g, (ids_l, val_l) in parts.items():
+        ids, vals = np.concatenate(ids_l), np.concatenate(val_l)
+        uniq, last_rev = np.unique(ids[::-1], return_index=True)
+        out[g] = (uniq, vals[len(ids) - 1 - last_rev],
+                  np.unique(np.concatenate(after.get(g, [ids[:0]]))))
+    return out
+
+
+def check_bootstrap(card, host, new, shard_id: int) -> None:
+    """The new replica, after checkpoint bootstrap and catch-up: its ids
+    are its peers', its rows what bootstrap + catch-up give
+    (``expected_replica``), and equal to a peer's for every id streamed
+    after the checkpoint."""
+    peer = card.replica_sets[shard_id].replicas[0]
+    for g, (ids, rows, streamed) in expected_replica(host, shard_id).items():
+        got = new.tables[g].snapshot()
+        o = np.argsort(got["ids"])
+        _same(got["ids"][o], np.sort(peer.tables[g].all_ids()),
+              f"new replica {g} ids against a peer's")
+        _same(got["ids"][o], ids, f"new replica {g} ids")
+        _same(got["w"][o], rows, f"new replica {g} rows")
+        _same(new.lookup(g, streamed), peer.lookup(g, streamed),
+              f"new replica {g} rows streamed after the checkpoint")
+
+
+def check_hot_switch(card, host, version: int) -> None:
+    """Right after the hot switch: every replica holds the serve transform
+    of checkpoint ``version``'s rows (the host's NumPy materialization),
+    its scatter sits at the checkpoint's offsets, and the serve caches
+    are empty."""
+    state = host._serve_state(version)
+    for rs in card.replica_sets:
+        for rep in rs.replicas:
+            for g, (ids, serve) in state["groups"].items():
+                mine = card.plan.slave_shard(ids) == rep.shard_id
+                if len(rep.tables[g]) != int(mine.sum()):
+                    raise AssertionError(f"hot switch: replica {g} rows")
+                _same(rep.lookup(g, ids[mine]), serve[mine],
+                      f"hot switch: replica {g} against v{version}")
+    offsets = card.store.load(version).queue_offsets
+    for sc in card.scatters:
+        if any(off != offsets.get(p, 0) for p, off in sc.offsets().items()):
+            raise AssertionError("hot switch: scatter offsets")
+    if any(len(s.cache) for s in card.serving.registry):
+        raise AssertionError("hot switch: the serve cache is not empty")
+
+
+def compare_queues(queue, host_queue) -> int:
+    """Queue records (headers, ids, payload bytes) equal across two logs;
+    returns the count."""
+    n_rec = 0
+    for p in range(queue.num_partitions):
+        recs, hrecs = queue.consume(p, 0)[0], host_queue.consume(p, 0)[0]
+        if len(recs) != len(hrecs):
+            raise AssertionError(f"partition {p}: record counts differ")
+        for a, b in zip(recs, hrecs):
+            if (a.group, a.op, a.seq, a.producer, a.meta) != \
+                    (b.group, b.op, b.seq, b.producer, b.meta) or \
+                    sorted(a.payload) != sorted(b.payload):
+                raise AssertionError(f"partition {p}: record headers differ")
+            _same(a.ids, b.ids, f"partition {p} record ids")
+            for k in a.payload:
+                _same(a.payload[k], b.payload[k], f"partition {p} {k}")
+            n_rec += 1
+    return n_rec
+
+
+def compare_clusters(card, host) -> dict:
+    """The card's cluster against the host twin: masters (ids, w, z, n,
+    touch stats), queue records, every checkpoint (kind, base, tier,
+    offsets, payload) and every replica, bit-equal."""
+    n_rows = 0
+    for m, hm in zip(card.masters, host.masters):
+        for g in card.groups:
+            _same_tree(_sorted_rows(m.tables[g].snapshot()),
+                       _sorted_rows(hm.tables[g].snapshot()),
+                       f"master {m.shard_id} {g}")
+            n_rows += len(m.tables[g])
+    n_rec = compare_queues(card.queue, host.queue)
+    if card.store.versions() != host.store.versions():
+        raise AssertionError("checkpoint versions differ")
+    for v in card.store.versions():
+        a, b = card.store.load(v), host.store.load(v)
+        for f in ("kind", "base", "tier", "queue_offsets", "created_at",
+                  "num_shards"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"checkpoint v{v} {f} differs")
+        _same_tree(a.shard_snaps, b.shard_snaps, f"checkpoint v{v}")
+    n_rep = 0
+    for rs, hrs in zip(card.replica_sets, host.replica_sets):
+        if len(rs.replicas) != len(hrs.replicas):
+            raise AssertionError("replica counts differ")
+        for rep, hrep in zip(rs.replicas, hrs.replicas):
+            for g in card.groups:
+                a, b = rep.tables[g].snapshot(), hrep.tables[g].snapshot()
+                oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+                _same(a["ids"][oa], b["ids"][ob], f"replica {g} ids")
+                _same(a["w"][oa], b["w"][ob], f"replica {g} rows")
+            n_rep += 1
+    return {"master_rows": n_rows, "records": n_rec,
+            "checkpoints": len(card.store.versions()), "replicas": n_rep}
+
+
+def mirror_bytes(cl) -> int:
+    """Device bytes the cluster's table mirrors hold (masters, replicas,
+    serve caches): what the held device memory should be made of."""
+    tables = [t for m in cl.masters for t in m.tables.values()]
+    tables += [t for rs in cl.replica_sets for rep in rs.replicas
+               for t in rep.tables.values()]
+    tables += [s.cache.table for s in cl.serving.registry]
+    n = 0
+    for t in tables:
+        mir = t._dev
+        if mir is not None and mir.keys is not None:
+            n += sum(a.nbytes for a in (mir.keys, mir.slot_of,
+                                        *mir.arenas.values()))
+    return n
+
+
+def drive_cluster(device, *, feature_space: int, fields: int, events: int,
+                  ticks: int, corrupt_ticks: int, warm_reps: int,
+                  seed: int = SEED) -> dict:
+    """Drive ``WeiPSCluster`` for FM_FTRL (``fields`` wide, ``feature_space``
+    ids) on ``device`` with its defaults (torch PS and codec backends),
+    the durable queue and int8 delta-chain checkpoints: ``ticks`` ticks of
+    ``events`` Zipf click events (``ClickStream`` → joiner → pipeline →
+    train tick → sync tick → maybe_checkpoint → downgrade_check), a flush
+    past the join window and warm predicts; then a delta and a full
+    checkpoint, kill → recover of master 1, ``add_slave_replica(0)`` and a
+    corrupted stream until the downgrade fires (at most
+    ``corrupt_ticks``). A host twin (numpy backends, on the CPU) applies
+    the card's recorded pushes and the same calls at the same points; the
+    exact checks of the module docstring run along the way. The launch
+    counters are reset before the phase; the checks' own launches are
+    taken out of the path's count."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.core import WeiPSCluster
+    from repro_torch.core.fault_tolerance import (Checkpoint,
+                                                  checkpoint_nbytes)
+    from repro_torch.data import ClickStream
+    from repro_torch.kernels import ops
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    cfg = dataclasses.replace(FM_FTRL, fields=fields,
+                              feature_space=feature_space, **CLUSTER_FTRL)
+    card = WeiPSCluster(cfg, cluster_config("torch", device,
+                                            CLUSTER_DIR / "card"))
+    host = WeiPSCluster(cfg, cluster_config("numpy", "cpu",
+                                            CLUSTER_DIR / "host"))
+    for cl in (card, host):
+        cl.downgrader.trigger.min_points = DOWNGRADE_MIN_POINTS
+    stream = ClickStream(feature_space=feature_space, fields=fields,
+                         zipf_a=1.2, signal_scale=0.8, feedback_delay=1.0,
+                         seed=seed)
+    pipe = card.make_train_pipeline()
+    log: list = []
+    record_pushes(card.masters, log)
+    excluded = dict.fromkeys(ops.KERNELS, 0)
+
+    def checking(fn, *args):
+        """Run a check; its launches do not count on the path."""
+        before = ops.launch_counts()
+        out = fn(*args)
+        sync()
+        for k, v in ops.launch_counts().items():
+            excluded[k] += v - before[k]
+        return out
+
+    def host_replay(mark: int) -> None:
+        for mid, group, ids, grads, st in log[mark:]:
+            host.masters[mid].push_grad(group, ids, grads, step=st)
+
+    times = {"train": [], "sync": [], "ckpt": {}, "tick": []}
+
+    def card_tick(now: float) -> dict:
+        mark = len(log)
+        t0 = time.perf_counter()
+        pipe.ingest(stream.events_batch(events, now))
+        t1 = time.perf_counter()
+        trained = card.train_scheduler.tick(now)
+        sync()
+        t2 = time.perf_counter()
+        pushed = card.sync_tick(now)
+        sync()
+        t3 = time.perf_counter()
+        v = card.maybe_checkpoint(now)
+        sync()
+        t4 = time.perf_counter()
+        fired = card.downgrade_check(now)
+        sync()
+        t5 = time.perf_counter()
+        return {"mark": mark, "trained": any(trained.values()),
+                "pushed": pushed, "v": v, "fired": fired,
+                "ms": [(b - a) * 1e3 for a, b in
+                       zip((t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5))]}
+
+    def host_tick(now: float, r: dict) -> None:
+        host_replay(r["mark"])
+        host.sync_tick(now)
+        if host.maybe_checkpoint(now) != r["v"]:
+            raise AssertionError("checkpoint cadence differs from the host")
+        if r["fired"] is not None:
+            host.downgrader.execute(now, version=r["fired"])
+
+    def keep(r: dict) -> None:
+        times["tick"].append(sum(r["ms"]))
+        if r["trained"]:
+            times["train"].append(r["ms"][1])
+            times["sync"].append(r["ms"][2])
+        if r["v"] is not None:
+            kind = card.store.load(r["v"]).kind
+            times["ckpt"].setdefault(kind, []).append(r["ms"][3])
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    now, prof = 0.0, None
+    for i in range(ticks):
+        if i == ticks - 1:
+            r, prof = profile_step(lambda: card_tick(now), device)
+            prof["ms"] = r["ms"]
+        else:
+            r = card_tick(now)
+            keep(r)
+        host_tick(now, r)
+        if r["fired"] is not None:
+            raise AssertionError(f"downgrade fired on the healthy stream "
+                                 f"at tick {i}")
+        now += CLUSTER_DT
+    # flush past the join window, then warm predicts of fresh traffic
+    now += card.ccfg.join_window + 1.0
+    mark = len(log)
+    card.train_scheduler.flush(now)
+    card.sync_tick(now)
+    host_replay(mark)
+    host.sync_tick(now)
+    req, _ = stream.batch(events)
+    preds = [card.predict(req)]
+    predict_ms = []
+    for _ in range(warm_reps):
+        t0 = time.perf_counter()
+        preds.append(card.predict(req))
+        sync()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    want = host.predict(req)
+    max_dev = max(check_preds(f"cluster predict {events}", req, p, want)
+                  for p in preds)
+    scn = card.training.scenario()
+    joiner = pipe.metrics()["joiner"]
+    loop = {"ticks": ticks, "examples": scn.stats.examples,
+            "batches": scn.stats.batches, "dedup_ratio": scn.stats.dedup_ratio,
+            "gather_dedup": float(np.mean([g.stats.dedup_ratio
+                                           for g in card.gatherers])),
+            "logloss": scn.evaluator.smoothed("logloss"),
+            "auc": scn.evaluator.smoothed("auc"),
+            "join_delay": joiner["join_delay"], "emitted": joiner["emitted"],
+            "rows": {g: sum(len(m.tables[g]) for m in card.masters)
+                     for g in card.groups},
+            "versions": [(v, card.store.load(v).kind)
+                         for v in card.store.versions()],
+            "predict_ms": predict_ms, "max_pred_dev": max_dev}
+
+    # checkpoints with no training after them: the chain is the masters
+    ckpts = {}
+    for kind, tier in (("delta", "local"), ("full", "remote")):
+        t0 = time.perf_counter()
+        v = card.checkpoint(now, tier=tier)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        host.checkpoint(now, tier=tier)
+        ck = card.store.load(v)
+        if ck.kind != kind:
+            raise AssertionError(f"checkpoint v{v} is {ck.kind}, not {kind}")
+        rows = checking(check_chain, card, host, v)
+        plain = Checkpoint(v, now, checking(card.cold_backup.materialize,
+                                            v)["shard_snaps"], {}, 4)
+        ckpts[kind] = {"v": v, "ms": ms, "rows": rows,
+                       "nbytes": checkpoint_nbytes(ck),
+                       "plain_nbytes": checkpoint_nbytes(plain)}
+        del plain
+
+    # faults: kill → recover master 1, a replica from the chain
+    mem = {"mirrors_before": mirror_bytes(card)}
+    if cuda:
+        mem["peak_before"] = torch.cuda.max_memory_allocated()
+        mem["before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    faults = {}
+    for cl in (card, host):
+        cl.kill_master(1)
+    t0 = time.perf_counter()
+    v = card.recover_master(1)
+    sync()
+    faults["recover_master_ms"] = (time.perf_counter() - t0) * 1e3
+    if host.recover_master(1) != v:
+        raise AssertionError("recover_master versions differ")
+    checking(check_recovered, card, 1, v)
+    faults["recovered_from"] = v
+    for cl in (card, host):              # stream the recovered shard
+        cl.sync_tick(now)
+    t0 = time.perf_counter()
+    new = card.add_slave_replica(0)
+    sync()
+    faults["add_replica_ms"] = (time.perf_counter() - t0) * 1e3
+    host.add_slave_replica(0)
+    checking(check_bootstrap, card, host, new, 0)
+
+    # a corrupted stream until the domino downgrade fires
+    stream.corrupt()
+    now += CLUSTER_DT
+    fired = None
+    for i in range(corrupt_ticks):
+        r = card_tick(now)
+        keep(r)
+        host_tick(now, r)
+        now += CLUSTER_DT
+        if r["fired"] is not None:
+            fired = r["fired"]
+            faults.update(downgrade_tick=i, downgrade_to=fired,
+                          hot_switch_ms=r["ms"][4],
+                          logloss=scn.evaluator.smoothed(
+                              "logloss", card.ccfg.downgrade_window))
+            checking(check_hot_switch, card, host, fired)
+            break
+    if fired is None:
+        raise AssertionError(f"no downgrade within {corrupt_ticks} ticks of "
+                             f"the corrupted stream")
+    for cl in (card, host):              # replay from the offsets
+        cl.sync_tick(now)
+    preds = card.predict(req)
+    faults["max_pred_dev"] = check_preds("cluster predict after the switch",
+                                         req, preds, host.predict(req))
+    sync()
+    launches = {k: v - excluded[k] for k, v in ops.launch_counts().items()}
+    mem["mirrors_after"] = mirror_bytes(card)
+    if cuda:
+        mem["peak_after"] = torch.cuda.max_memory_allocated()
+        mem["after"] = torch.cuda.memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+
+    compared = compare_clusters(card, host)
+    names = canonical_metrics(card)
+    want_names = set(metric_snapshot()) | set(PIPELINE_METRICS)
+    if names != want_names:
+        raise AssertionError(f"metric names: extra {sorted(names - want_names)}"
+                             f", missing {sorted(want_names - names)}")
+    placements = sorted({t.mirror_metrics()["placement"]
+                         for t in [t for m in card.masters
+                                   for t in m.tables.values()]
+                         + [t for rs in card.replica_sets
+                            for rep in rs.replicas
+                            for t in rep.tables.values()]
+                         + [s.cache.table for s in card.serving.registry]
+                         if t.mirror_metrics() is not None})
+    staleness = card.sync_metrics(now)["staleness"]
+    for cl in (card, host):
+        cl.queue.close()
+    del card, host, new, pipe, stream, log, scn, cl
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        mem["freed"] = torch.cuda.memory_allocated()
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    return {"loop": loop, "times": times, "profile": prof, "ckpts": ckpts,
+            "faults": faults, "mem": mem, "launches": launches,
+            "compared": compared, "placements": placements,
+            "metric_names": len(names), "staleness": staleness,
+            "phase_s": phase_s}
+
+
+def cluster_child(out_path: str) -> int:
+    """Phase 5 on its own: the child process ``run_cluster_phase`` starts.
+    Prints the phase's report and writes its launch counts to
+    ``out_path``."""
+    import torch
+
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    res = drive_cluster(torch.device("cuda"),
+                        feature_space=FM_FTRL.feature_space,
+                        fields=FM_FTRL.fields, events=CLUSTER_EVENTS,
+                        ticks=CLUSTER_TICKS,
+                        corrupt_ticks=CLUSTER_CORRUPT_TICKS,
+                        warm_reps=CLUSTER_WARM_REPS)
+    report_cluster(res)
+    Path(out_path).write_text(json.dumps(res["launches"]))
+    return 0
+
+
+def run_cluster_phase() -> dict:
+    """Run phase 5 in a child process and return its launch counts. The
+    child has a torch.profiler of its own: a further profiling session in
+    this process makes later sessions here list only some of a call's
+    kernels (the LM training phase's scatter-add check saw its kernel
+    without the sort). The child's state is gone when it exits."""
+    out = CLUSTER_DIR.with_name("cluster_launches.json")
+    out.unlink(missing_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--cluster-phase", str(out)], timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the cluster phase failed (exit "
+                             f"{proc.returncode})")
+    launches = json.loads(out.read_text())
+    out.unlink()
+    return launches
+
+
+def _pcts(v) -> str:
+    return (f"p50 {np.percentile(v, 50):.3f} ms, p99 "
+            f"{np.percentile(v, 99):.3f} ms over {len(v)}")
+
+
+def report_cluster(res: dict) -> None:
+    """Print the cluster phase's numbers and hold its launches."""
+    lp, tm, ck, ft = res["loop"], res["times"], res["ckpts"], res["faults"]
+    print(f"cluster: WeiPSCluster(FM_FTRL fields={FIELDS} embed 8, "
+          f"{lp['ticks']} ticks of {CLUSTER_EVENTS} Zipf events) in "
+          f"{res['phase_s']:.1f} s with its host twin; trained "
+          f"{lp['examples']} examples in {lp['batches']} batches, logloss "
+          f"{lp['logloss']:.4f}, auc {lp['auc']:.4f}; master rows "
+          f"{lp['rows']}; checkpoints {lp['versions']}", flush=True)
+    print(f"  dedup ratio of the Zipf traffic: per train batch "
+          f"{lp['dedup_ratio']:.4f}, per sync gather "
+          f"{lp['gather_dedup']:.4f}")
+    for what, v in (("train tick", tm["train"]), ("sync tick", tm["sync"]),
+                    ("whole tick", tm["tick"]),
+                    (f"warm predict {CLUSTER_EVENTS}", lp["predict_ms"])):
+        print(f"  {what:>18}: {_pcts(v)}")
+    jd = lp["join_delay"]
+    print(f"  event -> deployed staleness: join wait p50 {jd['p50']:.3f} s, "
+          f"p99 {jd['p99']:.3f} s (stream clock) + train -> deployed (the "
+          f"sync tick after each train tick, wall) {_pcts(tm['sync'])}; "
+          f"scatter staleness on the stream clock {res['staleness']}")
+    for kind, v in sorted(tm["ckpt"].items()):
+        print(f"  maybe_checkpoint {kind:>5}: {_pcts(v)}")
+    for kind, c in ck.items():
+        print(f"  checkpoint {kind} v{c['v']}: {c['ms']:.1f} ms, "
+              f"checkpoint_nbytes {c['nbytes']} int8 ({c['plain_nbytes']} "
+              f"as float32); chain == live masters ({c['rows']} rows, int8 "
+              f"round trip bit-equal to the NumPy codec's)")
+    print(f"  recover_master(1) from v{ft['recovered_from']}: "
+          f"{ft['recover_master_ms']:.1f} ms; add_slave_replica(0): "
+          f"{ft['add_replica_ms']:.1f} ms; downgrade after "
+          f"{ft['downgrade_tick'] + 1} corrupted ticks (logloss "
+          f"{ft['logloss']:.4f}) to v{ft['downgrade_to']}, hot switch "
+          f"{ft['hot_switch_ms']:.1f} ms")
+    mem = res["mem"]
+    if "peak_before" in mem:
+        print(f"  device memory: peak {mem['peak_before']} B before the "
+              f"faults ({mem['before']} B held, table mirrors "
+              f"{mem['mirrors_before']} B), peak {mem['peak_after']} B "
+              f"during them ({mem['after']} B held, table mirrors "
+              f"{mem['mirrors_after']} B), {mem['freed']} B after the "
+              f"phase's state was freed")
+    prof = res["profile"]
+    busy = "not visible to torch.profiler" if prof["busy_ms"] is None \
+        else (f"{prof['busy_ms']:.3f} ms "
+              f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy)")
+    print(f"  profiled last tick: wall {prof['wall_ms']:.1f} ms, device "
+          f"{busy}; host time by function (own ms): "
+          + ", ".join(f"{k} {ms:.2f}" for k, ms in prof["top"][:8]))
+    cmp = res["compared"]
+    print(f"  host twin: {cmp['master_rows']} master rows, {cmp['records']} "
+          f"queue records, {cmp['checkpoints']} checkpoints and "
+          f"{cmp['replicas']} replicas bit-equal; predictions within "
+          f"{max(lp['max_pred_dev'], ft['max_pred_dev']):.3g}; "
+          f"{res['metric_names']} metric names (the 63 frozen + the "
+          f"pipeline's {len(PIPELINE_METRICS)})")
+    print(f"  placements {res['placements']}; launches in the cluster "
+          f"phase: {res['launches']}", flush=True)
+    missing = [k for k in CLUSTER_KERNELS if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the cluster "
+                             f"phase: {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -2505,6 +3164,12 @@ def main() -> int:
     print("codec kernels beyond the path's own shapes:", flush=True)
     check_codec_special(dev)
     codec_shape_lines(dev)
+    del out
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths["cluster"] = run_cluster_phase()
+    print(f"cluster phase in {time.perf_counter() - t:.1f} s (a child "
+          f"process)", flush=True)
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2556,11 +3221,11 @@ def main() -> int:
             if row["name"] == name:
                 row["launches"] = sum(counts.values())
     print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the probes', "
-          "the gather's, the scatter-set's and ftrl_row_update's summed over "
-          "every path above, ftrl_row_update's all ftrl_apply_slots, whose "
-          "rows ride on its entry; the codec's from train -> sync -> serve, "
-          "the attention kernels' from the LM serving path, the "
-          "scatter-add's from the LM training run)")
+          "the gather's, the scatter-set's, ftrl_row_update's and the "
+          "codec's summed over every path above, ftrl_row_update's all "
+          "ftrl_apply_slots, whose rows ride on its entry; the attention "
+          "kernels' from the LM serving path, the scatter-add's from the LM "
+          "training run)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
@@ -2572,4 +3237,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--cluster-phase":
+        sys.exit(cluster_child(sys.argv[2]))
     sys.exit(main())

@@ -3,7 +3,9 @@
 ``load_lm_params`` carries an LM's parameter tree (the JAX package's
 ``models.init_params`` output, as NumPy arrays) into the port's tensors;
 ``load_lm_train_state`` carries a whole LM ``TrainState`` (params,
-optimizer slots, step).
+optimizer slots, step). ``load_checkpoint`` carries a checkpoint the JAX
+package wrote (full or delta, plain or int8-compressed) into the port's
+``Checkpoint``, so its chain restores into the port's masters.
 
 The port deploys rows to its serving replicas through its own sync
 stream (``core/streaming.py``: Pusher → int8 codec → queue → Scatter).
@@ -201,3 +203,58 @@ def load_lm_train_state(cfg: ModelConfig, state, device="cuda"):
 
     slots = map_like(slot_dict, params, state.slots)
     return TrainState(params=params, slots=slots, step=int(state.step))
+
+
+def _plain(obj):
+    """Nested dicts of array leaves as dicts of NumPy array copies
+    (Python scalars and strings stay as they are)."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (int, float, str, type(None))):
+        return obj
+    return np.array(obj)
+
+
+def load_checkpoint(ckpt):
+    """The port's ``fault_tolerance.Checkpoint`` from one the JAX package
+    wrote.
+
+    Args:
+      ckpt: the reference ``Checkpoint``'s fields — a mapping (e.g.
+        ``dataclasses.asdict`` of it) or any object with the attributes
+        ``version``, ``created_at``, ``shard_snaps``, ``queue_offsets``,
+        ``num_shards``, ``metrics``, ``tier``, ``kind`` and ``base``.
+        ``shard_snaps`` is ``{shard_id: snapshot}`` in the
+        ``MasterShard.snapshot`` / ``delta_snapshot`` wire format (plain
+        dicts of arrays; an int8-compressed table holds ``{"q",
+        "scale"}`` blocks), which both packages share.
+    Returns a ``Checkpoint`` holding copies of the arrays; save it into a
+    ``CheckpointStore`` in version order to restore the chain.
+    """
+    import dataclasses
+
+    from repro_torch.core.fault_tolerance import Checkpoint
+    get = ckpt.get if hasattr(ckpt, "get") else \
+        (lambda k, d=None: getattr(ckpt, k, d))
+    missing = [f.name for f in dataclasses.fields(Checkpoint)
+               if get(f.name, Checkpoint) is Checkpoint]
+    if missing:
+        raise ValueError(f"checkpoint lacks fields {missing}")
+    kind = get("kind")
+    if kind not in ("full", "delta") or (kind == "delta") == (
+            get("base") is None):
+        raise ValueError(f"checkpoint kind {kind!r} with base "
+                         f"{get('base')!r}")
+    snaps = {int(sid): _plain(snap)
+             for sid, snap in get("shard_snaps").items()}
+    for sid, snap in snaps.items():
+        if not {"step", "tables"} <= set(snap):
+            raise ValueError(f"shard {sid} snapshot lacks step or tables")
+    return Checkpoint(
+        version=int(get("version")), created_at=float(get("created_at")),
+        shard_snaps=snaps,
+        queue_offsets={int(p): int(o)
+                       for p, o in get("queue_offsets").items()},
+        num_shards=int(get("num_shards")), metrics=dict(get("metrics")),
+        tier=str(get("tier")), kind=kind,
+        base=None if get("base") is None else int(get("base")))

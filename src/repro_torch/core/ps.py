@@ -19,13 +19,14 @@ the row engine:
     through the hand-written kernels on CUDA, through their plain
     versions on ``device="cpu"``.
 
-Not ported yet (checkpoint slice): ``SparseTable.delta_snapshot``,
-``DenseBank.snapshot_delta`` and ``MasterShard.snapshot`` /
-``delta_snapshot`` / ``load_table_rows`` / ``load_snapshot``.
+Snapshots (the checkpoint plane's input, ``core/fault_tolerance.py``)
+read rows through the same backend-routed gather; the host arrays stay
+authoritative, so a snapshot of a ``torch`` table holds the host's bits.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -81,7 +82,10 @@ class _DeviceMirror:
     8 bytes, a slot-map entry 4)."""
 
     def __init__(self, table: "SparseTable"):
-        self._t = table
+        # a weak back-reference: the table owns its mirror, so a table
+        # that is replaced (recovery, hot switch) frees the mirror's
+        # device tensors by refcount, without waiting for a GC cycle
+        self._tref = weakref.ref(table)
         self.device = table.device
         self._map_version = -1
         self._synced_mut = -1
@@ -97,6 +101,10 @@ class _DeviceMirror:
         self.key_bytes_uploaded = 0
         self.arena_bytes_uploaded = 0
         table._map.track_dirty_slots()
+
+    @property
+    def _t(self) -> "SparseTable":
+        return self._tref()
 
     @property
     def shift(self) -> int:
@@ -495,10 +503,11 @@ class SparseTable:
         per_row = self._w.itemsize * self.dim * (1 + len(self._slots))
         return live * per_row
 
-    # -- snapshot -------------------------------------------------------------
+    # -- snapshot (checkpointing) -------------------------------------------
     @property
     def version(self) -> int:
-        """Mutation-clock reading."""
+        """Mutation-clock reading; rows with ``row_version > v`` are dirty
+        relative to a snapshot taken at clock ``v``."""
         return self._mut
 
     def snapshot(self) -> dict:
@@ -510,8 +519,25 @@ class SparseTable:
                 "touch_count": self.touch_count[sl].copy(),
                 "version": self._mut}
 
+    def delta_snapshot(self, since: int) -> dict:
+        """Columnar snapshot of ONLY the rows written after clock ``since``
+        plus the ids evicted after it — the payload of an incremental
+        checkpoint. One vectorized scan of the reverse map + row_version;
+        no hash probes."""
+        live = self._id_of[:self._top] != _NO_ID
+        sl = np.flatnonzero(live & (self.row_version[:self._top] > since))
+        w, slots = self.read_rows(sl)
+        dead = [ids for mut, ids in self._evict_log if mut > since]
+        deleted = np.unique(np.concatenate(dead)) if dead else \
+            np.empty(0, np.int64)
+        return {"ids": self._id_of[sl].copy(), "w": w, "slots": slots,
+                "last_touch": self.last_touch[sl].copy(),
+                "touch_count": self.touch_count[sl].copy(),
+                "deleted": deleted, "since": since, "version": self._mut}
+
     def trim_evict_log(self, before: int) -> None:
-        """Drop eviction entries at or below clock ``before``."""
+        """Drop eviction entries at or below clock ``before`` — safe once
+        every future delta is taken against a mark >= ``before``."""
         self._evict_log = [(m, i) for m, i in self._evict_log if m > before]
 
     def load_rows(self, rows: dict) -> None:
@@ -562,6 +588,18 @@ class DenseBank:
             "slots": {k: {n: a.copy() for n, a in s.items()}
                       for k, s in self.slots.items()},
             "versions": dict(self.versions),
+        }
+
+    def snapshot_delta(self, since: dict[str, int]) -> dict:
+        """Same format as ``snapshot`` but holding only tensors whose
+        version counter moved past ``since[name]``."""
+        names = [k for k, v in self.versions.items()
+                 if v > since.get(k, -1)]
+        return {
+            "tensors": {k: self.tensors[k].copy() for k in names},
+            "slots": {k: {n: a.copy() for n, a in self.slots[k].items()}
+                      for k in names if k in self.slots},
+            "versions": {k: self.versions[k] for k in names},
         }
 
     @classmethod
@@ -701,10 +739,70 @@ class MasterShard:
                      lambda: {g: m for g, t in self.tables.items()
                               if (m := t.mirror_metrics()) is not None})
 
+    # -- fault tolerance ---------------------------------------------------
+    def snapshot(self) -> dict:
+        return {
+            "shard_id": self.shard_id,
+            "step": self.step,
+            "kind": "full",
+            "tables": {g: t.snapshot() for g, t in self.tables.items()},
+            "dense": self.dense.snapshot(),
+        }
+
+    def delta_snapshot(self, marks: dict[str, int],
+                       dense_marks: dict[str, int]) -> dict:
+        """Incremental snapshot: per group, only the rows written after
+        ``marks[group]`` (the table's mutation clock at the previous
+        checkpoint) plus the ids evicted since; dense tensors only where
+        the version counter moved."""
+        return {
+            "shard_id": self.shard_id,
+            "step": self.step,
+            "kind": "delta",
+            "tables": {g: t.delta_snapshot(marks.get(g, 0))
+                       for g, t in self.tables.items()},
+            "dense": self.dense.snapshot_delta(dense_marks),
+        }
+
+    def load_table_rows(self, group: str, rows: dict) -> None:
+        """Bulk-load columnar rows (ids/w/slots + touch stats) into one
+        group — the unit the recovery router emits. An empty table takes
+        the probe-free ``SparseTable.load_rows`` insert; a live table
+        (merging load) ensure + write."""
+        if not len(rows["ids"]):
+            return
+        t = self.tables[group]
+        if len(t) == 0:
+            t.load_rows(rows)
+            return
+        sl = t.ensure(rows["ids"])
+        t.write_rows(sl, rows["w"], rows["slots"])
+        t.last_touch[sl] = rows["last_touch"]
+        t.touch_count[sl] = rows["touch_count"]
+
+    def load_snapshot(self, snap: dict, *, ids_filter=None) -> None:
+        self.step = snap["step"]
+        for g, tsnap in snap["tables"].items():
+            rows = {k: tsnap[k] for k in
+                    ("ids", "w", "slots", "last_touch", "touch_count")}
+            if ids_filter is not None:
+                keep = ids_filter(rows["ids"])
+                rows = {"slots": {k: v[keep]
+                                  for k, v in rows["slots"].items()},
+                        **{k: rows[k][keep] for k in
+                           ("ids", "w", "last_touch", "touch_count")}}
+            self.load_table_rows(g, rows)
+        # a filtered load is a partial/routed restore — table rows only;
+        # dense tensors follow the unfiltered owner-shard load
+        if ids_filter is None and snap.get("dense") is not None:
+            self.dense = DenseBank.restore(snap["dense"])
+
     def kill(self) -> None:
         self.alive = False
 
     def clear(self) -> None:
+        """Fresh empty tables on the shard's device (the old tables and
+        their device mirrors are released) and an empty dense bank."""
         for g, t in list(self.tables.items()):
             self.tables[g] = SparseTable(t.dim, t.slot_names, dtype=t.dtype,
                                          backend=t.backend,

@@ -1,5 +1,6 @@
-"""Observability: span tracer (``obs.trace``) and metrics registry
-(``obs.metrics``), both pure stdlib, copied from the reference package."""
+"""Observability: span tracer (``obs.trace``), metrics registry
+(``obs.metrics``) and Chrome/Perfetto trace export (``obs.perfetto``),
+all pure stdlib, copied from the reference package."""
 
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.trace import Tracer, configure, disable, get_tracer

@@ -1,6 +1,7 @@
-"""Optimizers with named slots (SGD, Adam and FTRL ported so far)."""
+"""Optimizers with named slots."""
 
-from repro_torch.optim.optimizers import (FTRL, SGD, Adam, Optimizer,
-                                          get_optimizer)
+from repro_torch.optim.optimizers import (FTRL, SGD, Adafactor, Adagrad, Adam,
+                                          Momentum, Optimizer, get_optimizer)
 
-__all__ = ["Adam", "FTRL", "Optimizer", "SGD", "get_optimizer"]
+__all__ = ["Adafactor", "Adagrad", "Adam", "FTRL", "Momentum", "Optimizer",
+           "SGD", "get_optimizer"]

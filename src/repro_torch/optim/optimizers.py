@@ -20,9 +20,9 @@ Each optimizer exposes:
     ``update_tree`` updates params and slots IN PLACE (``update_``),
     where the reference's jitted train step donates its state.
 
-All math is fp32, params cast back to their dtype. Ported so far:
-``SGD``, ``Adam`` and ``FTRL``. ``get_optimizer`` raises ``KeyError``
-naming the optimizers not ported yet.
+All math is fp32, params cast back to their dtype: ``SGD``,
+``Momentum``, ``Adagrad``, ``Adam``, ``FTRL`` and ``Adafactor``, each in
+the reference's op order.
 """
 
 from __future__ import annotations
@@ -36,11 +36,13 @@ from repro_torch.core.tree import map_like
 from repro_torch.kernels import ref
 
 
-def _zeros_like(param):
+def _zeros_like(param, shape=None):
+    """float32 zeros of ``shape`` (default the param's) as the param's
+    kind: a tensor on its device, or a NumPy array."""
+    shape = tuple(np.shape(param)) if shape is None else tuple(shape)
     if isinstance(param, torch.Tensor):
-        return torch.zeros(param.shape, dtype=torch.float32,
-                           device=param.device)
-    return np.zeros(np.shape(param), np.float32)
+        return torch.zeros(shape, dtype=torch.float32, device=param.device)
+    return np.zeros(shape, np.float32)
 
 
 def _host(a) -> torch.Tensor:
@@ -139,6 +141,42 @@ class SGD(Optimizer):
 
     def update_(self, param, slots, grad, step):
         param.copy_(param.float() - grad.float() * self.lr)
+
+
+@dataclass(frozen=True)
+class Momentum(Optimizer):
+    momentum: float = 0.9
+    name: str = "momentum"
+
+    def init_slots(self, param):
+        return {"m": _zeros_like(param)}
+
+    def update(self, param, slots, grad, step):
+        return _step_like(self, param, slots, grad, step)
+
+    def update_(self, param, slots, grad, step):
+        m = slots["m"]
+        m.mul_(self.momentum).add_(grad.float())
+        param.copy_(param.float() - m * self.lr)
+
+
+@dataclass(frozen=True)
+class Adagrad(Optimizer):
+    eps: float = 1e-8
+    name: str = "adagrad"
+
+    def init_slots(self, param):
+        return {"n": _zeros_like(param)}
+
+    def update(self, param, slots, grad, step):
+        return _step_like(self, param, slots, grad, step)
+
+    def update_(self, param, slots, grad, step):
+        g = grad.float()
+        n = slots["n"]
+        n.add_(g * g)
+        param.copy_(param.float()
+                    - (g * self.lr).div_(n.sqrt().add_(self.eps)))
 
 
 @dataclass(frozen=True)
@@ -250,16 +288,51 @@ class FTRL(Optimizer):
         return self._np_weights(z_new, n_new), {"z": z_new, "n": n_new}
 
 
-_OPTIMIZERS = {"sgd": SGD, "adam": Adam, "ftrl": FTRL}
-# the reference's other optimizers, not ported yet
-_NOT_PORTED = ("adafactor", "adagrad", "momentum")
+@dataclass(frozen=True)
+class Adafactor(Optimizer):
+    """Factored second-moment optimizer (Shazeer & Stern 2018, simplified:
+    no update clipping, fixed decay). Slots for an (a, b, ...) tensor are
+    row/col moment factors — O(a+b) memory instead of O(a·b)."""
+
+    eps: float = 1e-30
+    decay: float = 0.8
+    name: str = "adafactor"
+
+    def init_slots(self, param):
+        shape = tuple(np.shape(param))
+        if len(shape) >= 2:
+            return {"vr": _zeros_like(param, shape[:-1]),
+                    "vc": _zeros_like(param, shape[:-2] + shape[-1:])}
+        return {"v": _zeros_like(param)}
+
+    def update(self, param, slots, grad, step):
+        return _step_like(self, param, slots, grad, step)
+
+    def update_(self, param, slots, grad, step):
+        g = grad.float()
+        t = int(step) + 1
+        beta = 1.0 - t ** (-self.decay)
+        g2 = (g * g).add_(self.eps)
+        if param.dim() >= 2:
+            vr, vc = slots["vr"], slots["vc"]
+            vr.mul_(beta).add_(g2.mean(dim=-1) * (1 - beta))
+            vc.mul_(beta).add_(g2.mean(dim=-2) * (1 - beta))
+            rfac = vr / vr.mean(dim=-1, keepdim=True).clamp_min(self.eps)
+            v = rfac[..., None] * vc[..., None, :]
+        else:
+            v = slots["v"]
+            v.mul_(beta).add_(g2 * (1 - beta))
+        upd = g * v.clamp_min(self.eps).rsqrt()
+        param.copy_(param.float() - upd.mul_(self.lr))
+
+
+_OPTIMIZERS = {
+    "sgd": SGD, "momentum": Momentum, "adagrad": Adagrad, "adam": Adam,
+    "ftrl": FTRL, "adafactor": Adafactor,
+}
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:
-    if name in _NOT_PORTED:
-        raise KeyError(f"optimizer {name!r} is not ported yet (not ported: "
-                       f"{', '.join(_NOT_PORTED)}; ported: "
-                       f"{', '.join(sorted(_OPTIMIZERS))})")
     if name not in _OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}: {sorted(_OPTIMIZERS)}")
     return _OPTIMIZERS[name](**kw)

@@ -970,3 +970,124 @@ def test_lm_gradients_on_card_match_plain_versions(cuda, monkeypatch, what,
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             scale = float(w.float().abs().max())
             assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint plane and the cluster on the card
+# ---------------------------------------------------------------------------
+def _ckpt_masters(backend, device):
+    from repro_torch.core.ps import MasterShard
+    from repro_torch.optim import get_optimizer
+    return [MasterShard(i, {"w": 1, "v": 8},
+                        get_optimizer("ftrl", alpha=0.1, l1=0.05),
+                        backend=backend, device=device) for i in range(2)]
+
+
+def _ckpt_traffic(sides, seed):
+    from repro_torch.core.routing import RoutingPlan
+    rng = np.random.default_rng(seed)
+    plan = RoutingPlan(2, 1, 1)
+    pool = rng.choice(1 << 40, size=5000, replace=False).astype(np.int64)
+    for step in range(3):
+        for g, dim in (("w", 1), ("v", 8)):
+            ids = pool[rng.integers(0, len(pool), size=4096)]
+            grads = rng.normal(size=(4096, dim)).astype(np.float32)
+            owner = plan.master_shard(ids)
+            for mid in (0, 1):
+                for shards in sides:
+                    shards[mid].push_grad(g, ids[owner == mid],
+                                          grads[owner == mid], step=step)
+    for shards in sides:
+        for m in shards:
+            m.delete_rows("v", pool[:40])
+
+
+def _same_snap(a, b):
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _same_snap(a[k], b[k])
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    else:
+        assert a == b
+
+
+@pytest.mark.cuda
+def test_checkpoint_kill_recover_on_card(cuda):
+    """Masters on the card and on the host take the same pushes; int8
+    checkpoints (a full, then a delta) are bit-equal across the two, and
+    a killed card master recovers to the host twin's restored rows."""
+    from repro_torch.core import fault_tolerance as ft
+    card, host = _ckpt_masters("torch", cuda), _ckpt_masters("numpy", "cpu")
+    pol = dict(incremental=True, compress="int8")
+    cbs = [ft.ColdBackup(s, ft.CheckpointStore(), ft.BackupPolicy(**pol),
+                         codec_backend=b, device=d)
+           for s, b, d in ((card, "torch", cuda), (host, "numpy", "cpu"))]
+    before = port_ops.launch_counts()
+    _ckpt_traffic((card, host), 1)
+    for cb in cbs:
+        assert cb.checkpoint(1.0, tier="remote") == 1
+    _ckpt_traffic((card, host), 2)
+    for cb in cbs:
+        assert cb.checkpoint(2.0) == 2
+    a, b = (cb.store.load(2) for cb in cbs)
+    assert a.kind == b.kind == "delta"
+    for v in (1, 2):
+        _same_snap(cbs[0].store.load(v).shard_snaps,
+                   cbs[1].store.load(v).shard_snaps)
+    for shards in (card, host):
+        shards[1].kill()
+    assert cbs[0].recover_shard(card[1]) == cbs[1].recover_shard(host[1])
+    torch.cuda.synchronize()
+    after = port_ops.launch_counts()
+    for k in ("quantize_rows", "dequantize_rows", "ftrl_row_update",
+              "embedding_lookup"):
+        assert after[k] > before[k], k
+    for m, h in zip(card, host):
+        _same_snap(m.snapshot(), h.snapshot())
+    assert card[1].tables["v"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 9, 1536])
+def test_int8_checkpoint_blocks_bit_equal_on_card(cuda, d):
+    from repro_torch.core import fault_tolerance as ft
+    rng = np.random.default_rng(d)
+    a = (rng.normal(size=(777, d)) * rng.uniform(1e-3, 50, (777, 1))) \
+        .astype(np.float32)
+    a[::97] = 0.0
+    got, want = ft._pack_rows(a, "torch", cuda), ft._pack_rows(a, "numpy")
+    _same_snap(got, want)
+    _same_snap(ft._unpack_rows(got, "torch", cuda),
+               ft._unpack_rows(want, "numpy"))
+
+
+@pytest.mark.cuda
+def test_hot_switch_frees_replaced_tables_on_card(cuda, tmp_path):
+    """Three hot switches to one checkpoint: the replaced replica tables
+    release their device mirrors, so the allocated memory after the third
+    is within 5% of after the first; the serve cache is emptied."""
+    import dataclasses
+
+    from repro_torch.configs.weips_ctr import FM_FTRL
+    from repro_torch.core import ClusterConfig, WeiPSCluster
+    cl = WeiPSCluster(dataclasses.replace(FM_FTRL, ftrl_l1=0.01),
+                      ClusterConfig(codec="int8", ckpt_compress="int8",
+                                    ckpt_root=str(tmp_path)))
+    rng = np.random.default_rng(3)
+    ids = rng.choice(1 << 40, size=(4096, 32)).astype(np.int64)
+    for step in range(3):
+        cl.train_on_batch(ids, (rng.random(4096) < 0.3).astype(np.float32),
+                          now=float(step))
+        cl.sync_tick(float(step))
+    ckpt = cl.store.load(cl.checkpoint(3.0))
+    cl.predict(ids[:512])
+    mem = []
+    for _ in range(3):
+        cl._hot_switch(ckpt)
+        assert all(len(s.cache) == 0 for s in cl.serving.registry)
+        cl.predict(ids[:512])            # mirrors the new tables
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    assert mem[2] <= mem[0] * 1.05, mem

@@ -33,6 +33,12 @@ SLICE_MODULES = {
     "repro_torch.launch.train", "repro_torch.training.trainer",
     "repro_torch.launch.serve", "repro_torch.models.model",
     "repro_torch.kernels.embedding_lookup", "repro_torch.core.streaming",
+    "repro_torch.core.cluster", "repro_torch.core.downgrade",
+    "repro_torch.core.fault_tolerance", "repro_torch.core.queue",
+    "repro_torch.core.scheduler", "repro_torch.data.joiner",
+    "repro_torch.training.pipeline", "repro_torch.training.scheduler",
+    "repro_torch.optim.optimizers", "repro_torch.obs.perfetto",
+    "repro_torch.convert",
 }
 
 

@@ -1,4 +1,4 @@
-"""The port's FTRL against the JAX package's, on the CPU.
+"""The port's optimizers against the JAX package's, on the CPU.
 
 The NumPy route and the ``ftrl_row_update`` plain version (what the
 port's wrapper runs on CPU tensors) must be bit-equal to the reference's
@@ -111,9 +111,8 @@ def test_slots_and_registry():
     assert get_optimizer("ftrl", alpha=0.2).alpha == 0.2
     assert get_optimizer("adam", lr=0.01).name == "adam"
     assert get_optimizer("sgd").name == "sgd"
-    for name in ("momentum", "adagrad", "adafactor"):
-        with pytest.raises(KeyError, match="not ported"):
-            get_optimizer(name)
+    for name in ("momentum", "adagrad", "adafactor"):     # ported now
+        assert get_optimizer(name, lr=0.01).name == name
     with pytest.raises(KeyError, match="unknown"):
         get_optimizer("lamb")
     with pytest.raises(ValueError):
@@ -130,3 +129,63 @@ def test_empty_batch():
                                   np.zeros((0, 8), np.float32), 0,
                                   backend="torch", device="cpu")
     assert w.shape == (0, 8) and slots["z"].shape == (0, 8)
+
+
+# Momentum, Adagrad and Adafactor: ``update`` on tensors (dense leaves),
+# ``update_rows`` on NumPy rows (the master shard's non-FTRL route) and
+# ``update_tree`` in place, against the reference's jnp ``update`` over
+# several steps, at rtol 1e-6 (PyTorch's CPU sqrt / rsqrt may round an
+# ulp away from XLA's).
+OTHER = [("momentum", dict(lr=0.05, momentum=0.8)),
+         ("adagrad", dict(lr=0.1)),
+         ("adafactor", dict(lr=0.01))]
+
+
+@pytest.mark.parametrize("name,kw", OTHER, ids=[n for n, _ in OTHER])
+@pytest.mark.parametrize("shape", [(257,), (33, 8), (2, 5, 12)])
+def test_other_optimizers_match_reference(name, kw, shape):
+    rng = np.random.default_rng(len(shape) * 100 + len(name))
+    port, ref_opt = get_optimizer(name, **kw), ref_get_optimizer(name, **kw)
+    p0 = rng.normal(size=shape).astype(np.float32)
+    ref_p = jnp.asarray(p0)
+    ref_s = ref_opt.init_slots(ref_p)
+    p = torch.from_numpy(p0.copy())
+    slots = port.init_slots(p)
+    assert sorted(slots) == sorted(ref_s)
+    for k in slots:
+        assert tuple(slots[k].shape) == tuple(ref_s[k].shape)
+        assert slots[k].dtype == torch.float32
+    tree_p = {"a": [torch.from_numpy(p0.copy())]}
+    tree_s = port.init_slots_tree(tree_p)
+    for step in range(4):
+        g = rng.normal(size=shape).astype(np.float32)
+        ref_p, ref_s = ref_opt.update(ref_p, ref_s, jnp.asarray(g), step)
+        p, slots = port.update(p, slots, torch.from_numpy(g), step)
+        port.update_tree(tree_p, tree_s, {"a": [torch.from_numpy(g)]}, step)
+        for got in (p, tree_p["a"][0]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref_p),
+                                       rtol=1e-6, atol=1e-7)
+        for k in slots:
+            for got in (slots[k], tree_s["a"][0][k]):
+                np.testing.assert_allclose(got.numpy(), np.asarray(ref_s[k]),
+                                           rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("name,kw", OTHER[:2], ids=[n for n, _ in OTHER[:2]])
+def test_other_optimizers_rows_match_reference(name, kw):
+    """The master shard's row route on NumPy rows: numpy in, numpy out,
+    the host arrays untouched."""
+    rng = np.random.default_rng(9)
+    port, ref_opt = get_optimizer(name, **kw), ref_get_optimizer(name, **kw)
+    w = rng.normal(size=(50, 8)).astype(np.float32)
+    slots = {k: np.abs(rng.normal(size=(50, 8))).astype(np.float32)
+             for k in port.init_slots(w)}
+    g = rng.normal(size=(50, 8)).astype(np.float32)
+    before = {k: v.copy() for k, v in slots.items()}
+    got_w, got = port.update_rows(w, slots, g, 3, backend="numpy")
+    want_w, want = ref_opt.update_rows(w, dict(before), g, 3)
+    assert isinstance(got_w, np.ndarray)
+    np.testing.assert_allclose(got_w, want_w, rtol=1e-6, atol=1e-7)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(slots[k], before[k])
