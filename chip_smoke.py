@@ -7,7 +7,9 @@ width — train on master shards, stream through the int8 codec to the
 serving replicas, serve from the streamed rows — and checks it against
 the port's host path; then drives the whole ``WeiPSCluster`` (click
 stream, joiner, pipeline, checkpoints, faults, domino downgrade) beside
-a host twin; then serves qwen2-1.5b at full width (prefill and
+a host twin; then the multi-process ``ClusterRuntime`` (a process per
+shard, SIGKILLs at its crash windows) beside a host twin and a
+fault-free run; then serves qwen2-1.5b at full width (prefill and
 greedy decode with hot weight swaps) and checks it against the same
 model on the plain attention; then trains qwen2-1.5b at full width with
 Adam, streams it to a serving replica and hot-swaps the replica's params
@@ -122,6 +124,34 @@ Phases (any failure exits non-zero and prints no result line):
    its ``torch.profiler`` session stays out of this process, whose later
    sessions would lose kernels, and its state is gone before the LM
    phases.
+5b. The multi-process runtime: ``ClusterRuntime`` (``repro_torch.launch``)
+   at LR_FTRL's full width (group emb of width 1, FTRL, 32 ids a sample
+   over 2^22, batches of 4096), int8 sync codec, 4 masters and 2 slave
+   shards x 2 replicas, each its own OS process with its own CUDA
+   context on ``cuda:0``, 8 partitions of the ``FileQueue``, a
+   manifest-committed cut every 4 steps (every third full), traced.
+   24 steps under ``runtime_plan()``: SIGKILLs of a master at
+   ``mid_train``, one at ``mid_flush``, one at ``mid_ckpt`` while it
+   writes a delta, and of a slave replica at ``pre_apply``; a dropped
+   fetch and a delayed flush; ``add_replica(0)`` at step 16 and
+   ``remove_replica`` at step 20. Then lookup RPCs of 4096 x 32 ids
+   each replica owns on every replica (the serve cache is off, so each
+   takes the replica's probe and gather; the first call apart from 8
+   warm ones). The same run on a host twin (numpy backends, CPU) must
+   give bit-equal masters, slaves, queue offsets and lookups, and a
+   fault-free run on the card bit-equal masters (the trajectory
+   invariant); ``recoveries`` must equal the kills, the merged Perfetto
+   trace must hold ``driver.step``, ``fault.kill`` and ``recover``, and
+   the workers' ``kernels`` counters, summed, must show a probe,
+   ``ftrl_row_update``, the gather, the scatter-set and both codec
+   kernels launched. Startup, step p50 / p99 (host clock around
+   ``step_once``), each recovery from the first ``WorkerDied`` back to
+   the step that died (with its reap, respawn and restore), the
+   ``add_replica`` and checkpoint commit times, lookup times and each
+   worker's device memory (``nvidia-smi --query-compute-apps``) are
+   printed. The phase runs in a child process (``--runtime-phase``),
+   whose supervisor spawns the workers; the twin and the fault-free run
+   run side by side, after the timed run.
 6. LM serving, qwen2-1.5b at full width (28 layers, random weights from
    the seed). (At the build, before phase 1: the whole ``-Xptxas -v``
    report of ``flash_attention_sm90.cu`` and ``decode_attention.cu``, and
@@ -186,8 +216,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``decode_attention`` launches a step.
 8. The launches of both probes, the gather, the scatter-set,
    ``ftrl_row_update`` and the codec on every path above (serving
-   predicts, bootstrap flush, train -> sync -> serve, the cluster, LM
-   serving, the LM training run and its hot-swap decode), each read
+   predicts, bootstrap flush, train -> sync -> serve, the cluster, the
+   runtime's workers, LM serving, the LM training run and its hot-swap
+   decode), each read
    after its own reset. A train push is the
    probe and one ``ftrl_apply_slots`` launch (counted on
    ``ftrl_row_update``), so train -> sync -> serve launches no gather or
@@ -2211,6 +2242,353 @@ def report_cluster(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The multi-process runtime: ClusterRuntime's process-per-shard grid with
+# every worker's PS on the card, SIGKILLs at the four crash windows, beside
+# a host twin and a fault-free run
+# ---------------------------------------------------------------------------
+
+# LR_FTRL at full width (configs/weips_ctr.py): 2^22 ids, 32 a sample
+RUNTIME_VOCAB, RUNTIME_FEATS, RUNTIME_BATCH = 1 << 22, 32, 4096
+RUNTIME_STEPS = 24
+RUNTIME_ADD_AT, RUNTIME_REMOVE_AT = 16, 20
+RUNTIME_REMOVED = "slave-0.0"
+RUNTIME_LOOKUP_REPS = 8
+RUNTIME_DEVICE = "cuda:0"           # every worker on one card, by index
+RUNTIME_DIR = ROOT / "build" / "runtime_smoke"
+# kernels the runtime's workers must launch (either probe, by placement)
+RUNTIME_KERNELS = ("embedding_lookup", "embedding_scatter",
+                   "ftrl_row_update", "quantize_rows", "dequantize_rows")
+RUNTIME_SPANS = ("driver.step", "fault.kill", "recover")
+
+
+def runtime_plan():
+    """The phase's fault plan over 24 steps (ckpt_every 4, full_every 3):
+    a master killed at ``mid_train`` (step 5, after the delta v2 of step
+    4), another at ``mid_flush`` (step 9), a third at ``mid_ckpt`` while
+    it writes the delta of step 16, a slave replica at ``pre_apply``
+    (step 19); one dropped fetch and one delayed flush."""
+    from repro_torch.launch.chaos import FaultEvent, FaultPlan
+    return FaultPlan(seed=SEED, events=[
+        FaultEvent("slave-0.0", "pre_apply", 2, "drop"),
+        FaultEvent("master-0", "mid_train", 5, "kill"),
+        FaultEvent("master-3", "mid_flush", 7, "delay", 0.05),
+        FaultEvent("master-1", "mid_flush", 9, "kill"),
+        FaultEvent("master-2", "mid_ckpt", 16, "kill"),
+        FaultEvent("slave-1.0", "pre_apply", 19, "kill")])
+
+
+def runtime_config(root: Path, device, backend: str, *, vocab: int,
+                   batch: int, feats: int, trace: bool):
+    """LR_FTRL's runtime shape: group emb of width 1, FTRL, int8 sync
+    codec, 4 masters, 2 slave shards x 2 replicas, 8 partitions, a cut
+    every 4 steps and every third cut full. The serve cache is off, so
+    every lookup takes the replica's device path (a cache hit is a host
+    probe)."""
+    from repro_torch.launch.runtime import RuntimeConfig
+    return RuntimeConfig(
+        root=str(root), num_master=4, num_slave=2, num_replicas=2,
+        num_partitions=8, groups={"emb": 1}, optimizer="ftrl",
+        codec="int8", vocab=vocab, batch_size=batch,
+        feats_per_sample=feats, ckpt_every=4, full_every=3, trace=trace,
+        serve_cache_rows=0, device=str(device), ps_backend=backend,
+        codec_backend=backend)
+
+
+def runtime_lookup_ids(rt, count: int) -> dict:
+    """Per slave shard, ``count`` ids it owns from the batches of the
+    steps before ``rt.step`` (trained ids, so the lookups hit)."""
+    out = {}
+    for shard in range(rt.cfg.num_slave):
+        got, step, n = [], rt.step, 0
+        while n < count and step > 0:
+            step -= 1
+            flat = rt._batch(step)[0].reshape(-1)
+            own = flat[rt.routing.slave_shard(flat) == shard]
+            got.append(own)
+            n += len(own)
+        out[shard] = np.concatenate(got)[:count]
+    return out
+
+
+def gpu_memory_by_pid() -> dict:
+    """``{pid: used MiB}`` of the compute processes ``nvidia-smi`` lists
+    (empty where it cannot see them)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    mem = {}
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            mem[int(parts[0])] = parts[1]
+    return mem
+
+
+def _kernel_sum(trees) -> dict:
+    out: dict = {}
+    for t in trees:
+        for k, n in t.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def runtime_run(root: Path, device, backend: str, plan, *, steps: int,
+                vocab: int, batch: int, feats: int, elastic: bool,
+                lookup_reps: int, trace: bool) -> dict:
+    """One ``ClusterRuntime`` run to ``steps``: start, drive (recovering
+    from every death, each recovery timed from the first ``WorkerDied``
+    until the cluster is back at the step that died), with ``elastic``
+    ``add_replica(0)`` at ``RUNTIME_ADD_AT`` and ``remove_replica`` of
+    ``RUNTIME_REMOVED`` at ``RUNTIME_REMOVE_AT``; then lookup RPCs of
+    ``batch * feats`` owned ids on every slave replica (the first call
+    apart from ``lookup_reps`` warm ones); returns the end state and the
+    timings. The workers' ``kernels`` counters count from their spawn:
+    the launches of a killed life are lost with it."""
+    from repro_torch.launch.runtime import ClusterRuntime
+    from repro_torch.launch.transport import WorkerDied
+    cfg = runtime_config(root, device, backend, vocab=vocab, batch=batch,
+                         feats=feats, trace=trace)
+    rt = ClusterRuntime(cfg, plan)
+    res = {"step_ms": [], "recoveries": [], "ckpt": [], "removed": {}}
+    commit = rt.checkpoint
+
+    def timed_checkpoint(force_full: bool = False) -> int:
+        t = time.perf_counter()
+        v = commit(force_full=force_full)
+        res["ckpt"].append((v, rt.store.load(v).kind, rt.step,
+                            1e3 * (time.perf_counter() - t)))
+        return v
+    rt.checkpoint = timed_checkpoint
+
+    def drive(to: int) -> None:
+        open_rec = None
+        while rt.step < to:
+            replay = rt.step < rt._replaying_until
+            t0 = time.perf_counter()
+            try:
+                rt.step_once()
+            except WorkerDied:
+                t_died = time.perf_counter()
+                if open_rec is None:
+                    open_rec = {"died_at": rt.step, "t0": t_died}
+                rt.recover()
+                open_rec.setdefault("parts", []).append(
+                    dict(rt.last_recovery, rewind_to=rt.step))
+            else:
+                if not replay and open_rec is None:
+                    res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            if open_rec is not None and rt.step >= open_rec["died_at"]:
+                open_rec["s"] = time.perf_counter() - open_rec.pop("t0")
+                res["recoveries"].append(open_rec)
+                open_rec = None
+
+    try:
+        t = time.perf_counter()
+        rt.start()
+        res["start_s"] = time.perf_counter() - t
+        res["workers"] = len(rt.procs)
+        if elastic:
+            drive(RUNTIME_ADD_AT)
+            t = time.perf_counter()
+            res["added"] = rt.add_replica(0)
+            res["add_replica_s"] = time.perf_counter() - t
+            drive(RUNTIME_REMOVE_AT)
+            res["removed"] = rt.clients[RUNTIME_REMOVED].call(
+                "metrics")["kernels"]
+            rt.remove_replica(RUNTIME_REMOVED)
+        drive(steps)
+        ids = runtime_lookup_ids(rt, batch * feats)
+        res["lookups"], res["lookup_ms"] = {}, {"first": [], "warm": []}
+        for name in rt.slave_names():
+            q = ids[int(name.split("-")[1].split(".")[0])]
+            c = rt.clients[name]
+            t = time.perf_counter()
+            first = c.call("lookup", group="emb", ids=q)
+            res["lookup_ms"]["first"].append(1e3 * (time.perf_counter() - t))
+            for _ in range(lookup_reps):
+                t = time.perf_counter()
+                warm = c.call("lookup", group="emb", ids=q)
+                res["lookup_ms"]["warm"].append(
+                    1e3 * (time.perf_counter() - t))
+                _same(warm, first, f"{name}: a warm lookup")
+            res["lookups"][name] = first
+        res["masters"] = rt.master_state()
+        res["slaves"] = rt.slave_state()
+        res["offsets"] = {n: rt.clients[n].call("offsets")
+                          for n in rt.slave_names()}
+        res["metrics"] = rt.cluster_metrics()
+        res["n_recoveries"] = rt.recoveries
+        res["versions"] = rt.store.versions()
+        res["pids"] = {n: p.pid for n, p in rt.procs.items()}
+        res["gpu_mib"] = gpu_memory_by_pid() if device != "cpu" else {}
+        if trace:
+            path = str(root / "runtime_trace.json")
+            res["trace_events"] = rt.export_trace(path)
+            from repro_torch.obs import perfetto
+            res["span_names"] = sorted({s["name"]
+                                        for s in perfetto.load_spans(path)})
+    finally:
+        rt.shutdown()
+    trees = [m["kernels"] for m in res.get("metrics", {}).get(
+        "workers", {}).values() if m]
+    res["launches"] = _kernel_sum(trees + [res["removed"]])
+    return res
+
+
+def drive_runtime(device, *, vocab: int, batch: int, feats: int,
+                  steps: int = RUNTIME_STEPS,
+                  lookup_reps: int = RUNTIME_LOOKUP_REPS) -> dict:
+    """Phase 5b: ``ClusterRuntime`` with ``runtime_plan()`` on ``device``
+    (the torch backends, every worker its own process and CUDA context),
+    traced, alone and timed; then, side by side in two threads, the same
+    run on the host twin (numpy backends on the CPU, the same plan and
+    the same replica moves and lookups) and a fault-free run on
+    ``device``. Masters, slaves, queue offsets and lookups must equal
+    the twin's bit for bit, and masters the fault-free run's."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.obs import trace as obs_trace
+    shutil.rmtree(RUNTIME_DIR, ignore_errors=True)
+    plan = runtime_plan()
+    shape = dict(steps=steps, vocab=vocab, batch=batch, feats=feats,
+                 lookup_reps=lookup_reps)
+    t_phase = time.perf_counter()
+    try:
+        card = runtime_run(RUNTIME_DIR / "card", device, "torch", plan,
+                           elastic=True, trace=True, **shape)
+        obs_trace.disable()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            twin_f = pool.submit(runtime_run, RUNTIME_DIR / "twin", "cpu",
+                                 "numpy", plan, elastic=True, trace=False,
+                                 **shape)
+            free_f = pool.submit(runtime_run, RUNTIME_DIR / "free", device,
+                                 "torch", None, elastic=False, trace=False,
+                                 **dict(shape, lookup_reps=0))
+            twin, free = twin_f.result(), free_f.result()
+        compare_s = time.perf_counter() - t
+    finally:
+        obs_trace.disable()
+        shutil.rmtree(RUNTIME_DIR, ignore_errors=True)
+    for what in ("masters", "slaves", "offsets", "lookups"):
+        _same_tree(card[what], twin[what], f"runtime {what}: card vs twin")
+    _same_tree(card["masters"], free["masters"],
+               "runtime masters: chaos run vs fault-free run")
+    kills = len(plan.kills())
+    for label, r, want in (("card", card, kills), ("twin", twin, kills),
+                           ("fault-free", free, 0)):
+        if r["n_recoveries"] != want or len(r["recoveries"]) != want:
+            raise AssertionError(f"runtime {label} run: "
+                                 f"{r['n_recoveries']} recoveries, "
+                                 f"{want} wanted")
+    missing = [s for s in RUNTIME_SPANS if s not in card["span_names"]]
+    if missing:
+        raise AssertionError(f"runtime trace lacks spans {missing}")
+    return {"card": card, "twin": twin, "free": free, "kills": kills,
+            "compare_s": compare_s, "phase_s": time.perf_counter() - t_phase,
+            "launches": card["launches"]}
+
+
+def report_runtime(res: dict) -> None:
+    """Print the runtime phase's numbers and hold its launches."""
+    card = res["card"]
+    n_rows = sum(len(s["ids"]) for s in card["masters"].values())
+    print(f"runtime: ClusterRuntime (LR_FTRL, {RUNTIME_BATCH} x "
+          f"{RUNTIME_FEATS} ids a step over 2^22, int8 sync, 4 masters, "
+          f"2 slave shards x 2 replicas, one process each on "
+          f"{RUNTIME_DEVICE}) in {res['phase_s']:.1f} s: {RUNTIME_STEPS} "
+          f"steps, {res['kills']} kills, {card['n_recoveries']} recoveries; "
+          f"master rows {n_rows}; checkpoints {card['versions']}",
+          flush=True)
+    print(f"  startup (spawn {card['workers']} workers, connect, "
+          f"bootstrap checkpoint): {card['start_s']:.2f} s")
+    first, rest = card["step_ms"][0], card["step_ms"][1:]
+    print(f"  step (host clock around step_once, replays out): first "
+          f"{first:.1f} ms (each worker's first device call creates its "
+          f"CUDA context), then {_pcts(rest)}")
+    for r in card["recoveries"]:
+        parts = "; ".join(
+            f"{','.join(p['workers'])}: reap {p['reap_s']:.3f} s, respawn "
+            f"{p['respawn_s']:.2f} s, restore {p['restore_s']:.2f} s, "
+            f"rewind to {p['rewind_to']}" for p in r["parts"])
+        print(f"  recovery of step {r['died_at']}: {r['s']:.2f} s back to "
+              f"it ({parts})")
+    print(f"  add_replica(0) -> {card['added']}: "
+          f"{card['add_replica_s']:.2f} s")
+    for v, kind, step, ms in card["ckpt"]:
+        print(f"  checkpoint v{v} ({kind}) at step {step}: commit "
+              f"{ms:.1f} ms")
+    lk = card["lookup_ms"]
+    print(f"  lookup {RUNTIME_BATCH} x {RUNTIME_FEATS} ids (RPC, probe + "
+          f"gather on the replica): first call p50 "
+          f"{np.percentile(lk['first'], 50):.3f} ms over "
+          f"{len(lk['first'])} replicas, warm {_pcts(lk['warm'])}")
+    mem = card["gpu_mib"]
+    mine = {n: mem[pid] for n, pid in sorted(card["pids"].items())
+            if pid in mem}
+    print("  device memory by worker (nvidia-smi used_memory, MiB): "
+          + (", ".join(f"{n} {v}" for n, v in mine.items()) if mine else
+             f"no worker pid listed (another pid namespace); it lists "
+             f"(pid, MiB) {sorted(mem.items())} for the "
+             f"{len(card['pids'])} workers"
+             if mem else "nvidia-smi lists no compute process"))
+    held = {n: m["device_memory"] for n, m in
+            sorted(card["metrics"]["workers"].items())
+            if m and "device_memory" in m}
+    print("  allocator bytes by worker (reserved / allocated, the context "
+          "not in them): " + ", ".join(
+              f"{n} {d['reserved']} / {d['allocated']}"
+              for n, d in held.items()))
+    print(f"  host twin (numpy backends, CPU) and fault-free card run in "
+          f"{res['compare_s']:.1f} s: masters, slaves, offsets and "
+          f"{len(card['lookups'])} replicas' lookups bit-equal to the "
+          f"twin; masters bit-equal to the fault-free run; merged trace "
+          f"{card['trace_events']} events with {', '.join(RUNTIME_SPANS)}")
+    print(f"  launches summed over the workers (killed lives lost): "
+          f"{res['launches']}", flush=True)
+    ln = res["launches"]
+    missing = [k for k in RUNTIME_KERNELS if ln.get(k, 0) <= 0]
+    if ln.get("hashmap_probe", 0) + ln.get("hashmap_probe_hbm", 0) <= 0:
+        missing.append("hashmap_probe / hashmap_probe_hbm")
+    if missing:
+        raise AssertionError(f"kernels never launched in the runtime "
+                             f"phase: {missing}")
+
+
+def runtime_child(out_path: str) -> int:
+    """Phase 5b on its own, in the child process ``run_runtime_phase``
+    starts. Prints the phase's report and writes its launch counts to
+    ``out_path``."""
+    res = drive_runtime(RUNTIME_DEVICE, vocab=RUNTIME_VOCAB,
+                        batch=RUNTIME_BATCH, feats=RUNTIME_FEATS)
+    report_runtime(res)
+    Path(out_path).write_text(json.dumps(res["launches"]))
+    return 0
+
+
+def run_runtime_phase() -> dict:
+    """Run phase 5b in a child process (its supervisor spawns the workers;
+    nothing of it stays in this process) and return the workers' launch
+    counts."""
+    out = RUNTIME_DIR.with_name("runtime_launches.json")
+    out.unlink(missing_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--runtime-phase", str(out)], timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the runtime phase failed (exit "
+                             f"{proc.returncode})")
+    launches = json.loads(out.read_text())
+    out.unlink()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # LM serving: qwen2-1.5b prefill and greedy decode with hot swap
 # ---------------------------------------------------------------------------
 
@@ -3170,6 +3548,10 @@ def main() -> int:
     paths["cluster"] = run_cluster_phase()
     print(f"cluster phase in {time.perf_counter() - t:.1f} s (a child "
           f"process)", flush=True)
+    t = time.perf_counter()
+    paths["runtime"] = run_runtime_phase()
+    print(f"runtime phase in {time.perf_counter() - t:.1f} s (a child "
+          f"process and its workers)", flush=True)
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3239,4 +3621,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--cluster-phase":
         sys.exit(cluster_child(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--runtime-phase":
+        sys.exit(runtime_child(sys.argv[2]))
     sys.exit(main())

@@ -1091,3 +1091,66 @@ def test_hot_switch_frees_replaced_tables_on_card(cuda, tmp_path):
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
     assert mem[2] <= mem[0] * 1.05, mem
+
+
+@pytest.fixture(scope="module")
+def runtime_runs(tmp_path_factory):
+    """Runs of the multi-process runtime at the chaos suite's shape with
+    the int8 codec, one a (engine, plan), shared by the tests below."""
+    import torch_runtime_harness as h
+    cache: dict = {}
+
+    def get(engine: str, kill: bool):
+        if (engine, kill) not in cache:
+            from repro_torch.launch.chaos import FaultEvent, FaultPlan
+            plan = FaultPlan(seed=0, events=[
+                FaultEvent("master-0", "mid_train", 6, "kill")]) \
+                if kill else None
+            kw = dict(device="cuda:0") if engine == "card" \
+                else h.ENGINES["numpy"]
+            root = tmp_path_factory.mktemp(f"{engine}-{kill}")
+            cache[engine, kill] = h.run_cluster(root, plan, codec="int8",
+                                                **kw)
+        return cache[engine, kill]
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kill", [False, True])
+def test_runtime_on_card_equals_host_twin(cuda, runtime_runs, kill):
+    """The process-per-shard grid with every worker's PS on the card,
+    fault-free and with master-0 SIGKILLed at ``mid_train``: masters,
+    slaves and queue offsets bit-equal to the same run on the numpy
+    backends, and the kill run's to the fault-free card run."""
+    import torch_runtime_harness as h
+    card, twin = runtime_runs("card", kill), runtime_runs("host", kill)
+    assert card["recoveries"] == twin["recoveries"] == int(kill)
+    h.assert_states_equal(card["masters"], twin["masters"], "masters")
+    h.assert_states_equal(card["slaves"], twin["slaves"], "slaves")
+    assert card["offsets"] == twin["offsets"]
+    if kill:
+        free = runtime_runs("card", False)
+        h.assert_states_equal(card["masters"], free["masters"],
+                              "masters after the kill")
+        h.assert_states_equal(card["slaves"], free["slaves"],
+                              "slaves after the kill")
+
+
+@pytest.mark.cuda
+def test_runtime_workers_count_kernel_launches_on_card(cuda, runtime_runs):
+    """The workers' ``kernels`` metrics: masters launch the probe, the
+    fused FTRL pass and the int8 encode, slaves the int8 decode; each
+    holds allocator bytes on the card (``device_memory``); the host
+    twin's workers launch none and report no device memory."""
+    workers = runtime_runs("card", False)["metrics"]["workers"]
+    for name, tree in workers.items():
+        k = tree["kernels"]
+        if name.startswith("master-"):
+            assert k["hashmap_probe"] + k["hashmap_probe_hbm"] > 0, name
+            assert k["ftrl_row_update"] > 0 and k["quantize_rows"] > 0, name
+        else:
+            assert k["dequantize_rows"] > 0, name
+        assert tree["device_memory"]["reserved"] > 0, name
+    for tree in runtime_runs("host", False)["metrics"]["workers"].values():
+        assert set(tree["kernels"].values()) == {0}
+        assert "device_memory" not in tree

@@ -39,6 +39,10 @@ SLICE_MODULES = {
     "repro_torch.training.pipeline", "repro_torch.training.scheduler",
     "repro_torch.optim.optimizers", "repro_torch.obs.perfetto",
     "repro_torch.convert",
+    "repro_torch.launch.transport", "repro_torch.launch.chaos",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.worker", "repro_torch.launch.runtime",
+    "repro_torch.launch.slo",
 }
 
 
