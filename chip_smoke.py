@@ -9,11 +9,12 @@ the port's host path; then drives the whole ``WeiPSCluster`` (click
 stream, joiner, pipeline, checkpoints, faults, domino downgrade) beside
 a host twin; then the multi-process ``ClusterRuntime`` (a process per
 shard, SIGKILLs at its crash windows) beside a host twin and a
-fault-free run; then serves qwen2-1.5b at full width (prefill and
-greedy decode with hot weight swaps) and checks it against the same
-model on the plain attention; then trains qwen2-1.5b at full width with
-Adam, streams it to a serving replica and hot-swaps the replica's params
-into a decoding driver.
+fault-free run; then serves qwen2-1.5b and the MoE granite-moe-3b-a800m
+at full width (prefill and greedy decode with hot weight swaps) and
+checks each against the same model on the plain attention; then trains
+both at full width with Adam, streams them to a serving replica (the
+MoE's experts by (repeat, expert) id) and hot-swaps the replica's
+params into a decoding driver.
 
     python3 chip_smoke.py
 
@@ -181,6 +182,32 @@ Phases (any failure exits non-zero and prints no result line):
    timed beside their bound, their plain versions and
    ``torch.nn.functional.scaled_dot_product_attention`` (never used by
    the port).
+6b. MoE serving, granite-moe-3b-a800m at full width (32 layers,
+   d_model 1536, 24 / 8 heads of 64, 40 experts of d_ff 512, top-8;
+   random weights from the seed), after printing the host's available
+   memory. First both attentions against their plain versions at its
+   shapes (q (4, 24, 2048, 64) causal in bf16 and f32, a ragged S =
+   1000, a full case; decode q (4, 24, 64) against a (4, 4096, 8, 64)
+   cache, lengths 1..4096; 2e-5 f32, 2e-2 bf16), and the MoE's two row
+   gathers at 4 x 2048 tokens (the dispatch's E * C rows through the
+   inverse slot map, the combine's T * k rows), bit-equal to their plain
+   versions and timed (extra entries of the gather's JSON row). Then
+   phase 6's path through ``launch.serve --arch granite-moe-3b-a800m``:
+   prefill 4 x 2048 in float32 and bf16, the launcher's own run (batch
+   4, 32 steps, a hot swap every 8) and a decode against a cache seeded
+   to 4000 of 4096. Every layer's routes are recorded on both paths
+   (``record_routes``): a token whose experts differ first flips where
+   the plain path's k-th and (k+1)-th probabilities nearly tie; in
+   float32 every such first flip must lie under ``NEAR_TIE`` (1e-5, each
+   printed), and the logit bounds (float32 1e-3, bf16
+   ``BF16_LOGIT_BOUND``) hold on the tokens whose routes agree in every
+   layer (how many, and the share of assignments that differ, printed).
+   Launches, each held exactly: ``flash_attention`` 32 a forward,
+   ``decode_attention`` 32 a step, ``embedding_lookup`` 65 a forward
+   and a step (the token gather and each layer's two MoE gathers). One
+   bf16 forward with stream stamps around ``moe_ffn`` and its parts
+   prints the MoE's share of the stream time (routing, the dispatch,
+   the combine, the expert products) and layer 0's expert counts.
 7. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
    ``embedding_scatter_add`` against its plain version, bit-equal (and
    two calls equal), in float32 and bf16, on a (151936, 1536) table with
@@ -214,12 +241,31 @@ Phases (any failure exits non-zero and prints no result line):
    on the initial params decodes 4 steps, hot-swaps in the replica's
    ``device_params`` and decodes 8 more: logits finite, 28
    ``decode_attention`` launches a step.
+7b. MoE training, granite-moe-3b-a800m at full width (bf16, Adam,
+   remat). One float32 train step against the plain path at full width
+   and 4 of the 32 layers (the cut: two float32 gradient sets of the
+   whole model do not fit beside each other), without remat: routes
+   equal (near ties as in 6b), loss within ``F32_LOSS_RTOL``, the embed,
+   layer-0 router and ``w_gate`` and last-layer ``w_down`` gradients
+   within ``F32_GRAD_BOUND``. Then ``launch.train``'s own run
+   (``MOE_TRAIN_ARGV``: 4 steps of 4 x 1024, cast16, a sync period of 3
+   on the step clock, so one periodic flush and the final one): the
+   three stacked expert leaves classified ``"experts"``, each (32, 40,
+   ...) or 1,280 (repeat, expert) ids, the router ``"dense"``; each
+   flush's expert records hold exactly the pairs the steps' counts
+   routed to, cumulated (Adam); staleness under 2e-3; launches a step
+   ``embedding_scatter_add`` 65 (the embedding and the MoE gathers'
+   gradients), ``embedding_lookup`` 129 (remat recomputes the MoE
+   gathers), ``flash_attention`` 64. Step p50, tokens/s, ``mfu`` on
+   active-parameter FLOPs, peak memory, each flush's time, records and
+   bytes and the share of experts dirty are printed. Then phase 7's int8
+   flush (every (repeat, expert) id a codec row) and hot-swap decode.
 8. The launches of both probes, the gather, the scatter-set,
    ``ftrl_row_update`` and the codec on every path above (serving
    predicts, bootstrap flush, train -> sync -> serve, the cluster, the
    runtime's workers, LM serving, the LM training run and its hot-swap
    decode), each read
-   after its own reset. A train push is the
+   after its own reset, granite's paths among them. A train push is the
    probe and one ``ftrl_apply_slots`` launch (counted on
    ``ftrl_row_update``), so train -> sync -> serve launches no gather or
    scatter-set for its pushes: their launches there are the sync
@@ -233,6 +279,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -262,10 +309,6 @@ PARTIAL_ROUNDS = 3
 TRAIN_STEPS = 16
 SERVE_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
                  "embedding_scatter")
-# kernels whose launches are summed over every path (phase 8)
-PATH_KERNELS = ("hashmap_probe", "hashmap_probe_hbm", "embedding_lookup",
-                "embedding_scatter", "ftrl_row_update", "quantize_rows",
-                "dequantize_rows")
 TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 # sources whose whole ptxas report is printed (the redesigned attention)
 PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
@@ -2630,6 +2673,166 @@ def plain_attention():
             setattr(ops, name, fn)
 
 
+NEAR_TIE = 1e-5                     # a flipped route with a smaller gap
+
+
+@contextlib.contextmanager
+def record_routes(log: list, gaps: bool = True):
+    """Every ``models.moe.route`` call inside appends ``(idx (T, k), top)``
+    to ``log``: the chosen experts and, with ``gaps``, the k + 1 largest
+    router probabilities sorted (recomputed from the same inputs; else
+    None). The model looks ``route`` up on the module at each call, so
+    wrapping it there is enough."""
+    import torch
+
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(router_w, x, cfg):
+        idx, gate, aux = route(router_w, x, cfg)
+        top = None
+        if gaps:
+            with torch.no_grad():
+                probs = torch.softmax(x.detach().float()
+                                      @ router_w.detach().float(), dim=-1)
+                top = torch.topk(probs, min(cfg.experts_per_token + 1,
+                                            cfg.num_experts), dim=-1).values
+        log.append((idx.detach(), top))
+        return idx, gate, aux
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def compare_routes(kernel: list, plain: list):
+    """Layer by layer, the kernel path's routes (``record_routes``)
+    against the plain path's. For each token, the first layer whose
+    experts differ is its flip: the gap there is the plain path's
+    probability at the first differing position minus the next one
+    (the k-th minus the (k+1)-th for a changed expert); later layers of
+    that token follow from the flip and are not counted again. Returns
+    None without MoE layers, else the flips ``(layer, token, gap)``, the
+    share of assignments whose expert differs, and ``agree``: the tokens
+    whose routes agree in every layer."""
+    import torch
+    if not kernel and not plain:
+        return None
+    if len(kernel) != len(plain):
+        raise AssertionError(f"{len(kernel)} routed layers on the kernel "
+                             f"path, {len(plain)} on the plain path")
+    seen = None
+    flips, differ, total = [], 0, 0
+    for layer, ((ki, _), (pi, top)) in enumerate(zip(kernel, plain)):
+        diff = (ki != pi).cpu()
+        differ += int(diff.sum())
+        total += diff.numel()
+        row = diff.any(-1)
+        new = row if seen is None else row & ~seen
+        if bool(new.any()):
+            toks = new.nonzero()[:, 0]
+            j = diff[toks].int().argmax(-1)
+            top = top.cpu()
+            gap = top[toks, j] - top[toks, torch.clamp(j + 1,
+                                                       max=top.shape[1] - 1)]
+            flips += [(layer, int(t), float(g)) for t, g in zip(toks, gap)]
+        seen = row if seen is None else seen | row
+    agree = ~seen
+    return {"layers": len(kernel), "rows": int(agree.numel()),
+            "held": int(agree.sum()), "assignments": total,
+            "differ": differ, "flips": flips, "agree": agree}
+
+
+def merge_routes(parts: list):
+    """``compare_routes`` of several calls (decode steps) summed; None
+    without MoE layers."""
+    parts = [r for r in parts if r is not None]
+    if not parts:
+        return None
+    return {"layers": parts[0]["layers"],
+            "rows": sum(r["rows"] for r in parts),
+            "held": sum(r["held"] for r in parts),
+            "assignments": sum(r["assignments"] for r in parts),
+            "differ": sum(r["differ"] for r in parts),
+            "flips": [(i, *f) for i, r in enumerate(parts)
+                      for f in r["flips"]]}
+
+
+def _agree(routes, shape):
+    """The rows to hold a logit bound on: those whose routes agree in
+    every layer (every row without MoE layers)."""
+    return None if routes is None else routes["agree"].view(shape)
+
+
+def _routes_line(label: str, r) -> str:
+    worst = max((f[-1] for f in r["flips"]), default=0.0)
+    return (f"  routes, {label}: {r['layers']} routed layers, "
+            f"{r['differ']} of {r['assignments']} assignments differ from "
+            f"the plain path ({r['differ'] / r['assignments']:.3g}); "
+            f"{len(r['flips'])} tokens flip first at a gap of at most "
+            f"{worst:.3g}; {r['held']} of {r['rows']} tokens take the same "
+            f"experts in every layer")
+
+
+def _stamp(device):
+    """A point on the device's stream (a CUDA event), or the host clock
+    off the card."""
+    import torch
+    if device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _span_ms(a, b) -> float:
+    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
+
+
+def moe_share(cfg, params, tokens, device) -> dict:
+    """One forward of ``tokens`` with a stream stamp before and after the
+    whole forward and around every call of ``moe_ffn``, ``route``,
+    ``_dispatch`` (the slot map and the dispatch gather) and ``_combine``
+    (the combine gather, the gates and the sum over k), each wrapped on
+    ``models.moe`` where the model looks it up. Each part's stream time
+    summed over the layers; the expert products (three ``bmm`` and the
+    SiLU) are the rest of ``moe_ffn``. Also layer 0's expert counts."""
+    import torch
+
+    from repro_torch.models import forward, moe
+    names = ("moe_ffn", "route", "_dispatch", "_combine")
+    saved = {n: getattr(moe, n) for n in names}
+    spans: dict = {n: [] for n in names}
+
+    def timed(name):
+        def call(*args):
+            a = _stamp(device)
+            out = saved[name](*args)
+            spans[name].append((a, _stamp(device)))
+            return out
+        return call
+
+    for n in names:
+        setattr(moe, n, timed(n))
+    try:
+        with torch.no_grad():
+            t0 = _stamp(device)
+            _, metrics = forward(params, cfg, tokens)
+            t1 = _stamp(device)
+    finally:
+        for n, fn in saved.items():
+            setattr(moe, n, fn)
+    _sync(device)
+    ms = {n: sum(_span_ms(a, b) for a, b in v) for n, v in spans.items()}
+    ms["expert products"] = ms["moe_ffn"] - ms["route"] - ms["_dispatch"] \
+        - ms["_combine"]
+    return {"forward_ms": _span_ms(t0, t1), "ms": ms,
+            "layer0_counts": metrics["expert_counts_per_layer"][0]["pos0"][
+                0].tolist()}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2652,10 +2855,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _logit_dev(a, b, vocab: int) -> tuple[float, float]:
+def _logit_dev(a, b, vocab: int, keep=None) -> tuple[float, float]:
     """Largest |a - b| over the real vocabulary columns, and the share of
-    rows whose greedy token agrees."""
+    rows whose greedy token agrees; with ``keep`` (a bool mask of a's
+    leading shape), over the kept rows only (0.0 and 1.0 when none is)."""
     a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    if keep is not None:
+        a, b = a[keep], b[keep]
+        if not a.numel():
+            return 0.0, 1.0
     dev = float((a - b).abs().max())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     return dev, agree
@@ -2720,14 +2928,18 @@ def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     p32 = _tree_map(lambda t: t.float(), params)
     step32 = make_prefill_step(cfg32)
+    kr, pr = [], []
     before = fa.launches
-    kernel = step32(p32, batch)
+    with record_routes(kr, gaps=False):
+        kernel = step32(p32, batch)
     _sync(device)
     per_forward = fa.launches - before
-    with plain_attention():
+    with plain_attention(), record_routes(pr):
         plain = step32(p32, batch)
-    f32_dev, f32_agree = _logit_dev(kernel, plain, cfg.vocab_size)
-    del p32, kernel, plain
+    f32_routes = compare_routes(kr, pr)
+    f32_dev, f32_agree = _logit_dev(kernel, plain, cfg.vocab_size,
+                                    _agree(f32_routes, tokens.shape))
+    del p32, kernel, plain, kr, pr
     step = make_prefill_step(cfg)
     ms = []
     for _ in range(reps + 1):                   # the first warms up
@@ -2735,17 +2947,32 @@ def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
         kernel = step(params, batch)
         _sync(device)
         ms.append((time.perf_counter() - t0) * 1e3)
-    with plain_attention():
+    forwards = len(ms) + 2
+    kr, pr = [], []
+    if cfg.num_experts:          # the compared forward, its routes recorded
+        with record_routes(kr, gaps=False):
+            kernel = step(params, batch)
+        forwards += 1
+    with plain_attention(), record_routes(pr):
         plain = step(params, batch)
-    bf16_dev, bf16_agree = _logit_dev(kernel, plain, cfg.vocab_size)
+    bf16_routes = compare_routes(kr, pr)
+    bf16_dev, bf16_agree = _logit_dev(kernel, plain, cfg.vocab_size,
+                                      _agree(bf16_routes, tokens.shape))
+    bf16_all = _logit_dev(kernel, plain, cfg.vocab_size)
     if not (torch.isfinite(kernel[..., :cfg.vocab_size]).all()
             and kernel.shape == (*tokens.shape, cfg.padded_vocab)):
         raise AssertionError("prefill logits not finite of shape (B, S, V)")
-    del kernel, plain
+    del kernel, plain, kr, pr
     prof = profile_call(lambda: step(params, batch), device)
-    return {"per_forward": per_forward, "forwards": len(ms) + 2,
+    moe = None
+    if cfg.num_experts:
+        moe = moe_share(cfg, params, tokens, device)
+        forwards += 1
+    return {"per_forward": per_forward, "forwards": forwards,
             "f32_dev": f32_dev, "f32_agree": f32_agree, "bf16_dev": bf16_dev,
-            "bf16_agree": bf16_agree, "ms": ms[1:], "profile": prof}
+            "bf16_agree": bf16_agree, "ms": ms[1:], "profile": prof,
+            "f32_routes": f32_routes, "bf16_routes": bf16_routes,
+            "bf16_all": bf16_all, "moe": moe}
 
 
 def _recording(step_fn, records: list):
@@ -2768,16 +2995,26 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     records: list = []
     driver.step_fn = _recording(driver.step_fn, records)
     plain_cache = _tree_map(lambda t: t.clone(), driver.cache)
+    kr: list = []
     t0 = time.perf_counter()
-    tokens, lat = serve.run(driver, params, args, gen)
+    with record_routes(kr, gaps=False):
+        tokens, lat = serve.run(driver, params, args, gen)
     wall = time.perf_counter() - t0
-    devs, agree = [], []
+    layers = len(kr) // max(1, len(records))       # MoE layers a step
+    devs, agree, routes, every = [], [], [], []
     with plain_attention():
-        for p, tok, pos, logits in records:
-            plain, plain_cache = decode_step(p, cfg, plain_cache, tok, pos)
-            d, a = _logit_dev(logits, plain, cfg.vocab_size)
+        for i, (p, tok, pos, logits) in enumerate(records):
+            pr: list = []
+            with record_routes(pr):
+                plain, plain_cache = decode_step(p, cfg, plain_cache, tok,
+                                                 pos)
+            routes.append(compare_routes(kr[i * layers:(i + 1) * layers],
+                                         pr))
+            d, a = _logit_dev(logits, plain, cfg.vocab_size,
+                              _agree(routes[-1], tok.shape[:1]))
             devs.append(d)
             agree.append(a)
+            every.append(_logit_dev(logits, plain, cfg.vocab_size))
     if tokens.shape != (args.batch, args.steps) or not (
             (0 <= tokens) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"decode tokens of shape {tokens.shape} or out "
@@ -2785,7 +3022,9 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     _sync(device)
     return {"lat_ms": [x * 1e3 for x in lat], "wall_s": wall,
             "max_dev": max(devs), "agree": float(np.mean(agree)),
-            "steps": len(records)}
+            "steps": len(records), "routes": merge_routes(routes),
+            "all_dev": max(d for d, _ in every),
+            "all_agree": float(np.mean([a for _, a in every]))}
 
 
 def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
@@ -2833,6 +3072,7 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
     prefill = prefill_phase(cfg, params, tokens, prefill_reps, device)
     after_prefill = ops.launch_counts()
     serve_run = decode_run(cfg, driver, params, args, gen, device)
+    driver.hot_swap(params)             # frees its last swapped-in copy
     after_serve = ops.launch_counts()
     long_run = decode_run(cfg, long_driver, params, long_args, gen, device)
     launches = ops.launch_counts()
@@ -2971,6 +3211,24 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
     return rows
 
 
+def _moe_layers(cfg) -> int:
+    from repro_torch.configs.base import MOE
+    return sum(spec.ffn == MOE for spec in cfg.layer_specs())
+
+
+def check_near_ties(label: str, routes) -> None:
+    """Fail when a float32 route flips at a gap of ``NEAR_TIE`` or more:
+    that is a fault, not rounding. Each flip is printed."""
+    if routes is None:
+        return
+    for flip in routes["flips"]:
+        print(f"  {label}: route flip (layer, token, gap) {flip}")
+    bad = [f for f in routes["flips"] if f[-1] >= NEAR_TIE]
+    if bad:
+        raise AssertionError(f"{label}: routes flip at gaps >= {NEAR_TIE}: "
+                             f"{bad[:8]}")
+
+
 def report_lm(lm: dict) -> None:
     """Print the LM phase's numbers and hold them to their limits."""
     cfg, pre, n = lm["cfg"], lm["prefill"], lm["layers"]
@@ -3008,17 +3266,40 @@ def report_lm(lm: dict) -> None:
                         pre["profile"]))
     print(_profile_line(f"decode step at length {LONG_POS + LONG_STEPS + 1}",
                         lm["long"]["profile"]))
+    if pre["f32_routes"] is not None:
+        print("  (the logit bounds above hold on the tokens whose routes "
+              "agree with the plain path's in every layer; over every "
+              "token, bf16 max deviation / greedy agreement: prefill "
+              f"{pre['bf16_all'][0]:.3g} / {pre['bf16_all'][1]:.4f}, "
+              f"launcher's decode {lm['serve']['all_dev']:.3g} / "
+              f"{lm['serve']['all_agree']:.4f}, long-cache decode "
+              f"{lm['long']['all_dev']:.3g} / {lm['long']['all_agree']:.4f})")
+    for label, r in (("float32 prefill", pre["f32_routes"]),
+                     ("bf16 prefill", pre["bf16_routes"]),
+                     ("launcher's decode", lm["serve"]["routes"]),
+                     ("long-cache decode", lm["long"]["routes"])):
+        if r is not None:
+            print(_routes_line(label, r))
+    if pre["moe"] is not None:
+        moe = pre["moe"]
+        print(f"  MoE share of one bf16 prefill's stream time "
+              f"({moe['forward_ms']:.3f} ms, stamps around each part): "
+              + ", ".join(f"{k} {v:.3f} ms ({100 * v / moe['forward_ms']:.1f}"
+                          f"%)" for k, v in moe["ms"].items())
+              + f"; layer 0's expert counts {moe['layer0_counts']}")
     print(f"  launches in the LM path: {launches}")
     steps = lm["serve"]["steps"] + lm["long"]["steps"]
+    gathers = 1 + 2 * _moe_layers(cfg)      # the token gather, 2 a MoE
     want = {"flash_attention": n * pre["forwards"],
             "decode_attention": n * steps,
-            "embedding_lookup": pre["forwards"] + steps}
+            "embedding_lookup": gathers * (pre["forwards"] + steps)}
     if pre["per_forward"] != n or {k: launches[k] for k in want} != want:
         raise AssertionError(f"LM launches {launches}, want {want} and "
                              f"{n} per forward")
     if pre["f32_dev"] > F32_LOGIT_ATOL:
         raise AssertionError(f"float32 prefill logits deviate by "
                              f"{pre['f32_dev']:.3g}")
+    check_near_ties("float32 prefill", pre["f32_routes"])
     worst = max(pre["bf16_dev"], lm["serve"]["max_dev"],
                 lm["long"]["max_dev"])
     if worst > BF16_LOGIT_BOUND:
@@ -3174,51 +3455,69 @@ def scatter_add_row(cfg, device) -> dict:
     return row
 
 
-def check_train_f32(cfg, device) -> dict:
+def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
+                    layers=None) -> dict:
     """One float32 train step's loss and gradients at full width from the
     seed, on the kernel path and on the plain path (``plain_attention``),
     each freed before the next: the loss within ``F32_LOSS_RTOL``, the
-    ``GRAD_LEAVES`` gradients within ``F32_GRAD_BOUND`` of their largest
-    magnitude."""
+    ``leaves``' gradients within ``F32_GRAD_BOUND`` of their largest
+    magnitude. ``layers`` cuts each segment to that many repeats, without
+    remat (for a MoE, whose routes are recorded once a layer: they must
+    agree on both paths, near ties apart)."""
     import torch
 
+    from repro_torch.configs.base import Segment
     from repro_torch.core import tree
     from repro_torch.models import init_params
     from repro_torch.training import loss_and_grads
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    if layers:
+        cfg32 = dataclasses.replace(cfg32, remat=False, segments=tuple(
+            Segment(seg.pattern, layers) for seg in cfg.segments))
     params = init_params(cfg32, torch.Generator(device=device).manual_seed(
         SEED))
     batch = {"tokens": _batch_ids(cfg, device)}
-    out = {}
+    out, routes = {}, {}
     for path in ("kernel", "plain"):
+        routes[path] = []
         with (plain_attention() if path == "plain"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                record_routes(routes[path], gaps=path == "plain"):
             loss, _, grads = loss_and_grads(params, cfg32, batch)
         flat = dict(tree.flatten_with_paths(grads))
         out[path] = (float(loss), {
             label: (flat[leaf] if layer is None else flat[leaf][layer]).clone()
-            for label, leaf, layer in GRAD_LEAVES})
+            for label, leaf, layer in leaves})
         del grads, flat
         _sync(device)
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     devs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max())
             for k in gk}
+    route_cmp = compare_routes(routes["kernel"], routes["plain"])
+    check_near_ties("float32 train step", route_cmp)
     if abs(lk - lp) > F32_LOSS_RTOL * abs(lp):
         raise AssertionError(f"float32 loss {lk} vs plain {lp}")
     if max(devs.values()) > F32_GRAD_BOUND:
         raise AssertionError(f"float32 grads deviate: {devs}")
-    return {"loss": lk, "plain_loss": lp, "grad_devs": devs}
+    return {"loss": lk, "plain_loss": lp, "grad_devs": devs,
+            "layers": cfg32.num_layers, "routes": route_cmp}
 
 
 def model_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step (forward + backward, remat's
-    recompute not counted): 6 per token per matmul parameter (the tied
-    head included; the embedding gather does none) and causal attention's
-    two products, 2 * B * H * S^2 * hd a layer forward, 3x in training."""
+    recompute not counted): 6 per token per matmul parameter a token
+    uses (the head included; the embedding gather does none; a MoE layer
+    counts its router and its k active experts, not the capacity's
+    padding) and causal attention's two products, 2 * B * H * S^2 * hd a
+    layer forward, 3x in training."""
     d, f = cfg.d_model, cfg.d_ff
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    per_layer = 2 * d * h * hd + 2 * d * g * hd + 3 * d * f
-    matmul = cfg.num_layers * per_layer + cfg.padded_vocab * d
+    moe = _moe_layers(cfg)
+    proj = 2 * d * h * hd + 2 * d * g * hd
+    matmul = (cfg.num_layers * proj + (cfg.num_layers - moe) * 3 * d * f
+              + moe * (d * cfg.num_experts
+                       + cfg.experts_per_token * 3 * d * f)
+              + cfg.padded_vocab * d)
     attn = cfg.num_layers * 6.0 * batch * h * seq * seq * hd
     return 6.0 * batch * seq * matmul + attn
 
@@ -3226,14 +3525,30 @@ def model_flops(cfg, batch: int, seq: int) -> float:
 INT8_STALENESS_BOUND = 2e-2         # the reference's int8 bound
 
 
+def _all_experts(cfg) -> list:
+    """``expert_counts_per_layer`` with every (repeat, expert) routed."""
+    from repro_torch.configs.base import MOE
+    return [{f"pos{i}": np.ones((seg.repeats, cfg.num_experts), np.int32)
+             for i, spec in enumerate(seg.pattern) if spec.ffn == MOE}
+            for seg in cfg.segments]
+
+
+def _records(engine) -> list:
+    return [r for p in range(engine.queue.num_partitions)
+            for r in engine.queue.consume(p, 0)[0]]
+
+
 def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
     """The trained ``params`` streamed once through a ``ModelSyncEngine``
-    with the int8 codec on ``device`` (``--codec int8``; every leaf ONE
-    codec row) to one replica that starts from ``initial``: a
-    ``collect_step`` bumps every leaf's version, one flush pushes them
-    all. Returns the flush's time, records and bytes, the codec's launches
-    in it and the launches its plans want, the replica's staleness before
-    and after, and whether the largest leaf's codes and scale equal the
+    with the int8 codec on ``device`` (``--codec int8``) to one replica
+    that starts from ``initial``: a ``collect_step`` marks everything
+    dirty (every leaf's version, every token row, every (repeat, expert)
+    id of a MoE), one flush pushes it all: a dense leaf ONE codec row, an
+    expert leaf one row a (repeat, expert) id, embedding rows in chunks.
+    Returns the flush's time, records and bytes, the codec's launches in
+    it and the launches the plans of its records' row widths want, the
+    replica's staleness after it (before, it is 1: the norms start at
+    zero), and whether the largest leaf's codes and scales equal the
     plain version's on ``device``."""
     import torch
 
@@ -3245,28 +3560,32 @@ def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
     engine = ModelSyncEngine(cfg, initial, SyncConfig(
         gather_mode="period", period=1.0, codec="int8",
         codec_backend="torch", device=device.type))
-    before = engine.replicas[0].staleness(params)
-    engine.collect_step(np.zeros((1, 1), np.int64))
+    engine.collect_step(np.arange(cfg.vocab_size)[None],
+                        {"expert_counts_per_layer": _all_experts(cfg)})
     ops.reset_launches()
     flush = train._tick(engine, params, 1e9)
     launches = ops.launch_counts()
-    leaves = tree.flatten_with_paths(params)
-    path, leaf = max(leaves, key=lambda e: e[1].numel())
-    rec = next(r for p in range(engine.queue.num_partitions)
-               for r in engine.queue.consume(p, 0)[0]
-               if r.meta["path"] == path)
-    pq, ps = ref.quantize_rows(leaf.detach().float().reshape(1, -1))
+    records = _records(engine)
+    path, leaf = max(tree.flatten_with_paths(params),
+                     key=lambda e: e[1].numel())
+    rec = next(r for r in records if r.meta["path"] == path)
+    rows = leaf.detach().reshape(1, -1)
+    if rec.meta["kind"] == "experts":
+        rows = leaf.detach().reshape(-1, rows.numel() // (
+            leaf.shape[0] * leaf.shape[1]))[torch.from_numpy(rec.ids)
+                                            .to(device)]
+    pq, ps = ref.quantize_rows(rows.float())
     equal = (torch.equal(torch.from_numpy(rec.payload["q"]).to(device), pq)
              and torch.equal(torch.from_numpy(rec.payload["scale"])
                              .to(device), ps))
-    del pq, ps, rec
+    del pq, ps, rows
     return {**flush, "launches": launches,
             "want": {"quantize_rows": sum(
-                dc.codec_plan(t.numel()).quantize_launches
-                for _, t in leaves), "dequantize_rows": flush["records"]},
-            "staleness_before": before,
+                dc.codec_plan(r.payload["q"].shape[1]).quantize_launches
+                for r in records), "dequantize_rows": flush["records"]},
             "staleness": engine.replicas[0].staleness(params),
-            "largest": (path, leaf.numel()), "largest_equal": equal}
+            "largest": (path, leaf.numel(), tuple(rec.payload["q"].shape)),
+            "largest_equal": equal}
 
 
 def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
@@ -3283,6 +3602,16 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     from repro_torch.serving.predictor import ServeDriver
     args = train.parse_args([*train_argv, "--device", device.type])
     cfg, state, step_fn, engine, batches = train.build(args)
+    routed: list = []       # each step's expert counts, read to the host
+    collect = engine.collect_step
+
+    def logging_collect(tokens, metrics=None):
+        if metrics and "expert_counts_per_layer" in metrics:
+            routed.append([{k: v.cpu().numpy() for k, v in seg.items()}
+                           for seg in metrics["expert_counts_per_layer"]])
+        collect(tokens, metrics)
+
+    engine.collect_step = logging_collect
     initial = _tree_map(lambda t: t.detach().clone(), state.params)
     driver = ServeDriver(cfg=cfg, params=initial, batch=TRAIN_BATCH,
                          max_len=64, cache_dtype=torch.float32,
@@ -3316,11 +3645,134 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
                      "finite": bool(torch.isfinite(
                          swapped[..., :cfg.vocab_size]).all())}
     rec["metrics"] = engine.metrics()
+    if cfg.num_experts:
+        rec["experts"] = expert_flushes(cfg, engine, routed)
+    del engine, collect, logging_collect    # its replica's host arrays
+    gc.collect()
     rec["int8"] = int8_flush(cfg, initial, state.params, device)
     # one more train step, profiled (after every count and comparison)
     batch = {"tokens": torch.from_numpy(next(batches)).to(device)}
     rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
-    return {"cfg": cfg, "args": args, "run": rec}
+    return {"cfg": cfg, "args": args, "run": rec, "argv": train_argv}
+
+
+def expert_flushes(cfg, engine, routed: list) -> dict:
+    """The expert leaves' classification and records against the counts
+    each step reported (``routed``): each flush's expert record of a leaf
+    holds the (repeat, expert) ids, ``rep * E + expert``, routed to in
+    that layer since the last flush, or since the start under Adam /
+    Momentum (cumulative mode). The flush at the sync clock's time ``t``
+    follows the first ``t`` steps; the final one all of them."""
+    from repro_torch.configs.base import MOE
+    e = cfg.num_experts
+    experts = sorted(p for p, k in engine.kinds.items() if k == "experts")
+    shapes = {p: engine.replicas[0].host[p].shape for p in experts}
+    routers = {p: k for p, k in engine.kinds.items()
+               if p.endswith("/router")}
+    by_t: dict = {}
+    for r in _records(engine):
+        if r.meta["kind"] == "experts":
+            by_t.setdefault(r.meta["t"], {})[r.meta["path"]] = r.ids
+    mode = engine._embed_mode
+    match, dirty, last = True, [], 0
+    for t in sorted(by_t):
+        upto = min(int(t), len(routed))
+        since = 0 if mode == "cumulative" else last
+        for path, ids in by_t[t].items():
+            si, pos = path.split("/")[1:3]
+            c = sum(step[int(si)][pos] for step in routed[since:upto])
+            reps, ex = np.nonzero(c > 0)
+            match &= np.array_equal(np.sort(ids), reps * e + ex)
+        dirty.append(sum(map(len, by_t[t].values()))
+                     / sum(s[0] * s[1] for s in shapes.values()))
+        last = upto
+    positions = sum(spec.ffn == MOE for seg in cfg.segments
+                    for spec in seg.pattern)
+    ok = (match and len(experts) == 3 * positions
+          and all(s[1] == e for s in shapes.values())
+          and set(routers.values()) == {"dense"} and len(by_t) >= 2)
+    return {"leaves": {p: tuple(s) for p, s in shapes.items()},
+            "ids": sorted({s[0] * s[1] for s in shapes.values()}),
+            "routers": routers, "mode": mode, "match": match,
+            "dirty": [round(d, 4) for d in dirty], "ok": ok}
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: granite-moe-3b-a800m served and trained at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SERVE_ARGV = ("--arch", MOE_ARCH, *SERVE_ARGV[2:])
+MOE_TRAIN_STEPS = 4
+# a sync period of 3 on the step clock: one flush after step 3, the final
+MOE_TRAIN_ARGV = ("--arch", MOE_ARCH, "--steps", str(MOE_TRAIN_STEPS),
+                  "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                  "--codec", "cast16", "--sync-period", "3", "--seed",
+                  str(SEED), "--log-every", "2")
+# the float32 step against the plain path runs 4 of the 32 layers: two
+# float32 gradient sets of the whole model do not fit beside each other
+MOE_F32_LAYERS = 4
+MOE_GRAD_LEAVES = (("embed", "embed", None),
+                   ("layer 0 router", "segments/0/pos0/ffn/router", 0),
+                   ("layer 0 w_gate", "segments/0/pos0/ffn/w_gate", 0),
+                   ("last layer w_down", "segments/0/pos0/ffn/w_down", -1))
+
+
+def host_available() -> int:
+    """The host's available memory in bytes (``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+def moe_gather_rows(cfg, device) -> dict:
+    """The MoE's two row gathers at the bf16 prefill's shapes (4 x 2048
+    tokens from the seed, routed by a router at the model's init scale):
+    the dispatch's, E * C buffer rows through the inverse slot map (an
+    empty slot reads the zero row appended to the tokens), and the
+    combine's, T * k assignment rows of the experts' output. Each is
+    bit-equal to its plain version and timed beside its bound (the rows
+    read once, the ids, the rows written), its plain version and
+    ``index_select``. Returns them as extra entries of the gather's
+    row."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    t, d, e, k = (PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts,
+                  cfg.experts_per_token)
+    xt = torch.randn((t, d), generator=gen, device=device).bfloat16()
+    router = torch.randn((d, e), generator=gen, device=device) * d ** -0.5
+    idx, _, _ = moe.route(router, xt, cfg)
+    cap = moe.moe_capacity(t, cfg)
+    buf, rows, keep, _ = moe._dispatch(xt, idx, cap, cfg)
+    xt0 = torch.cat([xt, xt.new_zeros((1, d))])
+    src = torch.full((e * cap,), t, device=device)
+    src[rows[keep]] = torch.arange(t * k, device=device)[keep] // k
+    flat = buf.reshape(-1, d)
+    out = {}
+    for what, table, ids in (("moe_dispatch", xt0, src.int()),
+                             ("moe_combine", flat, rows.int())):
+        got = ops.embedding_lookup(table, ids)
+        if not torch.equal(got, ref.embedding_lookup(table, ids)):
+            raise AssertionError(f"{what} gather: not bit-equal")
+        distinct = int(ids.unique().numel())
+        ids64 = ids.long()
+        row = _row("embedding_lookup", "embedding_lookup.cu",
+                   "src/repro/kernels/embedding_lookup.py:30", 0.0,
+                   lambda: ops.embedding_lookup(table, ids),
+                   lambda: ref.embedding_lookup(table, ids),
+                   lambda: torch.index_select(table, 0, ids64),
+                   (distinct + ids.numel()) * d * 2 + ids.numel() * 4,
+                   f"{what}: {ids.numel()} ids ({distinct} distinct) x {d} "
+                   f"bf16 from ({table.shape[0]}, {d})")
+        out[what] = {key: row[key] for key in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "library_ms")}
+    print(f"  MoE gathers at {t} tokens, capacity {cap} an expert: "
+          f"{int(keep.sum())} of {t * k} assignments kept", flush=True)
+    return out
 
 
 def report_lm_train(lm: dict, f32: dict) -> None:
@@ -3334,13 +3786,16 @@ def report_lm_train(lm: dict, f32: dict) -> None:
     flops = model_flops(cfg, args.batch, args.seq)
     print(f"LM training: {cfg.name} ({n} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}), random "
-          f"weights from seed {SEED}; launcher {' '.join(TRAIN_ARGV)}, sync clock = steps",
-          flush=True)
-    print(f"  float32 step, kernel vs plain path: loss {f32['loss']:.6f} vs "
+          f"weights from seed {SEED}; launcher {' '.join(lm['argv'])}, "
+          f"sync clock = steps", flush=True)
+    print(f"  float32 step ({f32['layers']} layers), kernel vs plain path: "
+          f"loss {f32['loss']:.6f} vs "
           f"{f32['plain_loss']:.6f} (limit rtol {F32_LOSS_RTOL}); grads max "
           f"|deviation| / max |grad|: "
           + ", ".join(f"{k} {v:.3g}" for k, v in f32["grad_devs"].items())
           + f" (limit {F32_GRAD_BOUND})")
+    if f32["routes"] is not None:
+        print(_routes_line("float32 train step", f32["routes"]))
     print(f"  {steps} steps of {args.batch} x {args.seq}: step p50 "
           f"{p50:.3f} ms, p99 {np.percentile(step_ms, 99):.3f} ms "
           f"(first {step_ms[0]:.3f}); {tokens / p50 * 1e3:.0f} tokens/s; "
@@ -3354,31 +3809,44 @@ def report_lm_train(lm: dict, f32: dict) -> None:
               f"{fl['bytes']} bytes")
     print(f"  sync {rec['metrics']}; replica staleness vs the trained "
           f"params {rec['staleness']:.3g} (limit {STALENESS_BOUND})")
+    if "experts" in rec:
+        ex = rec["experts"]
+        print(f"  experts: {ex['leaves']} classified \"experts\", each "
+              f"{ex['ids']} (repeat, expert) ids; router leaves "
+              f"{ex['routers']}; each flush's expert records hold the routed "
+              f"pairs ({ex['mode']}): {ex['match']}; share of experts dirty "
+              f"per flush {ex['dirty']}", flush=True)
     i8 = rec["int8"]
-    print(f"  int8 flush (--codec int8, every leaf one codec row, from the "
+    print(f"  int8 flush (--codec int8, a dense leaf one codec row, an "
+          f"expert leaf one a (repeat, expert) id, from the "
           f"initial params' replica): {i8['s']:.3f} s, {i8['records']} "
           f"records, {i8['bytes']} bytes (the cast16 flushes above: "
           + ", ".join(f"{fl['s']:.3f} s" for fl in rec["flushes"])
           + f"); launches quantize_rows {i8['launches']['quantize_rows']}, "
           f"dequantize_rows {i8['launches']['dequantize_rows']} (the plans "
           f"want {i8['want']}); replica staleness vs the trained params "
-          f"{i8['staleness_before']:.3g} -> {i8['staleness']:.3g} (limit "
+          f"{i8['staleness']:.3g} (limit "
           f"{INT8_STALENESS_BOUND}); largest leaf {i8['largest'][0]} "
-          f"({i8['largest'][1]} elements) codes and scale equal to the plain "
-          f"version's: {i8['largest_equal']}", flush=True)
+          f"({i8['largest'][1]} elements, codes {i8['largest'][2]}) codes "
+          f"and scales equal to the plain version's: {i8['largest_equal']}",
+          flush=True)
     dec = rec["decode"]
     print(f"  hot swap of the replica's bf16 device params in "
           f"{dec['swap_s']:.3f} s, then {dec['steps']} decode steps: logits "
           f"finite {dec['finite']}; launches {dec['launches']}")
     print(_profile_line("train step", rec["profile"]))
     print(f"  launches in the training run: {rec['launches']}")
-    want = {"embedding_scatter_add": steps, "embedding_lookup": steps,
-            "flash_attention": 2 * n * steps}
+    moe, passes = _moe_layers(cfg), 2 if cfg.remat else 1
+    # the token gather and its gradient, and a MoE's two row gathers a
+    # pass (remat's recompute runs them again) and their two gradients
+    want = {"embedding_scatter_add": steps * (1 + 2 * moe),
+            "embedding_lookup": steps * (1 + 2 * passes * moe),
+            "flash_attention": passes * n * steps}
     if {k: rec["launches"][k] for k in want} != want:
         raise AssertionError(f"training launches {rec['launches']}, want "
                              f"{want}")
     want_dec = {"decode_attention": n * dec["steps"],
-                "embedding_lookup": dec["steps"]}
+                "embedding_lookup": dec["steps"] * (1 + 2 * moe)}
     if {k: dec["launches"][k] for k in want_dec} != want_dec:
         raise AssertionError(f"decode launches {dec['launches']}, want "
                              f"{want_dec}")
@@ -3395,6 +3863,8 @@ def report_lm_train(lm: dict, f32: dict) -> None:
                              f"largest leaf equal {i8['largest_equal']}")
     if not (dec["finite"] and np.isfinite(rec["losses"]).all()):
         raise AssertionError("non-finite losses or decode logits")
+    if "experts" in rec and not rec["experts"]["ok"]:
+        raise AssertionError(f"expert records: {rec['experts']}")
 
 
 def main() -> int:
@@ -3575,6 +4045,30 @@ def main() -> int:
     del lm, lm_rows
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    moe_cfg = get_config(MOE_ARCH)
+    print(f"MoE phases: host memory available {host_available()} bytes; "
+          f"LM kernels against their plain versions at {MOE_ARCH}'s "
+          f"shapes:", flush=True)
+    for line in check_lm_kernels(moe_cfg, dev):
+        print(f"  {line}")
+    by_name = {row["name"]: row for row in kernels}
+    by_name["embedding_lookup"].update(moe_gather_rows(moe_cfg, dev))
+    moe_lm = drive_lm(dev, MOE_SERVE_ARGV, prefill_batch=PREFILL_BATCH,
+                      prefill_len=PREFILL_LEN, prefill_reps=PREFILL_REPS,
+                      long_len=LONG_LEN, long_pos=LONG_POS,
+                      long_steps=LONG_STEPS)
+    report_lm(moe_lm)
+    for row in lm_kernel_rows(moe_lm["cfg"], moe_lm.pop("decode_inputs"),
+                              dev):
+        by_name[row["name"]][MOE_ARCH] = {k: row[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}
+    paths[f"{MOE_ARCH} serving"] = moe_lm["launches"]
+    print(f"MoE serving phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    del moe_lm
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     print(f"LM training kernel against its plain version at {LM_ARCH}'s "
           f"shapes:", flush=True)
     for line in check_scatter_add(lm_cfg, dev):
@@ -3594,7 +4088,23 @@ def main() -> int:
     del lm_train
     print(f"LM training phase in {time.perf_counter() - t:.1f} s",
           flush=True)
-    for name in PATH_KERNELS:
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    print(f"MoE training: host memory available {host_available()} bytes",
+          flush=True)
+    f32 = check_train_f32(moe_cfg, dev, MOE_GRAD_LEAVES,
+                          layers=MOE_F32_LAYERS)
+    torch.cuda.empty_cache()
+    moe_train = drive_lm_train(dev, MOE_TRAIN_ARGV,
+                               decode_steps=SWAP_DECODE_STEPS)
+    report_lm_train(moe_train, f32)
+    paths[f"{MOE_ARCH} training run"] = moe_train["run"]["launches"]
+    paths[f"{MOE_ARCH} hot-swap decode"] = \
+        moe_train["run"]["decode"]["launches"]
+    del moe_train
+    print(f"MoE training phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}
         print(f"launches of {name} by path: "
               + ", ".join(f"{p} {c}" for p, c in counts.items())
@@ -3602,12 +4112,9 @@ def main() -> int:
         for row in kernels:
             if row["name"] == name:
                 row["launches"] = sum(counts.values())
-    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: the probes', "
-          "the gather's, the scatter-set's, ftrl_row_update's and the "
-          "codec's summed over every path above, ftrl_row_update's all "
-          "ftrl_apply_slots, whose rows ride on its entry; the attention "
-          "kernels' from the LM serving path, the scatter-add's from the LM "
-          "training run)")
+    print("kernels: " + ", ".join(ops.KERNELS) + " (launches: each "
+          "kernel's summed over every path above, ftrl_row_update's all "
+          "ftrl_apply_slots, whose rows ride on its entry)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

@@ -8,6 +8,11 @@ Granularity per parameter (the reference's rules):
                      gather window), or one dense tensor when the
                      embedding is tied to the LM head, whose CE gradient
                      is dense over the vocabulary;
+  * MoE experts    — ``segments/*/pos*/ffn/w_{gate,up,down}`` of shape
+                     (R, E, ...): (repeat, expert) granularity, id ``rep
+                     * E + expert``, dirty = the experts routed to in the
+                     window (``expert_counts_per_layer``), or every expert
+                     ever routed to under Adam / Momentum;
   * everything else — tensor granularity with version counters (every
                      train step bumps them; the gather window dedups).
 
@@ -21,13 +26,15 @@ Backends: ``SyncConfig.codec_backend`` ``"numpy" | "torch"`` with a
 ``device`` (``core.transform.CODEC_BACKENDS``): under ``torch`` the int8
 codec runs the ``quantize_rows`` / ``dequantize_rows`` kernels on the
 device (their plain versions on ``device="cpu"``); identity and cast16
-stay NumPy. A dense leaf is ONE codec row, as in the reference.
+stay NumPy. A dense leaf is ONE codec row, an expert leaf one row a
+(repeat, expert) id, as in the reference.
 
-Not ported: MoE expert-granular sync (no MoE model is ported; a config
-with experts raises ``NotImplementedError``). Deliberate difference: the
-pusher keeps its last-pushed shadow of a dense leaf only when
-``delta_threshold`` is on, the one case that reads it (the reference
-copies every pushed leaf).
+Deliberate differences: the pusher keeps its last-pushed shadow of a
+dense leaf only when ``delta_threshold`` is on, the one case that reads
+it (the reference copies every pushed leaf); and it selects an expert
+leaf's dirty (repeat, expert) slices on the leaf's device before the
+copy to the host (the reference reads the whole leaf, then indexes it).
+The values are the same.
 """
 
 from __future__ import annotations
@@ -59,6 +66,27 @@ def _host_f32(leaf, copy: bool = False) -> np.ndarray:
             out = out.clone()
         return out.numpy()
     return np.array(leaf, dtype=np.float32, copy=copy)
+
+
+def _is_expert_leaf(cfg: ModelConfig, path: str, leaf) -> bool:
+    """MoE expert tensors: segments/*/pos*/ffn/w_* with (R, E, ...) shape."""
+    if cfg.num_experts == 0 or "/ffn/" not in path:
+        return False
+    name = path.rsplit("/", 1)[-1]
+    return name in ("w_gate", "w_up", "w_down") and leaf.ndim >= 3 \
+        and leaf.shape[1] == cfg.num_experts
+
+
+def _expert_rows(leaf, ids: np.ndarray, num_experts: int) -> np.ndarray:
+    """The (repeat, expert) slices ``ids`` (``rep * E + expert``) of an
+    (R, E, ...) leaf as host float32 rows, one an id: a tensor's slices
+    are selected on its device, then copied."""
+    r, e = ids // num_experts, ids % num_experts
+    if isinstance(leaf, torch.Tensor):
+        sel = leaf.detach()[torch.from_numpy(r).to(leaf.device),
+                            torch.from_numpy(e).to(leaf.device)]
+        return _host_f32(sel).reshape(len(ids), -1)
+    return np.asarray(leaf, dtype=np.float32)[r, e].reshape(len(ids), -1)
 
 
 @dataclass
@@ -121,8 +149,13 @@ class ServeReplica:
                 self.versions[path] = ver
         elif kind == "rows":                      # embed rows
             self.host[path][rec.ids] = values
+        elif kind == "experts":                   # ids = rep * E + expert
+            arr = self.host[path]
+            e = self.cfg.num_experts
+            arr[rec.ids // e, rec.ids % e] = values.reshape(
+                (len(rec.ids),) + arr.shape[2:])
         else:
-            raise ValueError(f"record kind {kind!r} is not ported")
+            raise ValueError(f"unknown record kind {kind!r}")
         self._applied_seq[key] = rec.seq
         self.applied += 1
         return True
@@ -130,8 +163,8 @@ class ServeReplica:
     def apply_batch(self, recs: list) -> int:
         """A poll's worth of records: row records coalesced per path into
         ONE indexed write (arrival order kept, so overlapping ids resolve
-        last-writer-wins as sequential ``apply`` would); dense records one
-        by one. Returns the number of records applied."""
+        last-writer-wins as sequential ``apply`` would); dense and expert
+        records one by one. Returns the number of records applied."""
         applied = 0
         rows_by_path: dict[str, tuple[list, list]] = {}
         for rec in recs:
@@ -186,9 +219,6 @@ class ModelSyncEngine:
                  sync: Optional[SyncConfig] = None, queue=None):
         """``queue`` injects a transport with the ``PartitionedQueue``
         interface; by default the engine owns an in-memory queue."""
-        if cfg.num_experts:
-            raise NotImplementedError(f"{cfg.name}: expert-granular sync "
-                                      f"of MoE layers is not ported yet")
         self.cfg = cfg
         self.sync = sync or SyncConfig()
         s = self.sync
@@ -197,6 +227,8 @@ class ModelSyncEngine:
             self._embed_mode = ("cumulative" if cfg.optimizer in
                                 self._MOMENTUM_OPTS else "window")
         self._embed_touched: set[int] = set()
+        # momentum optimizers keep updating previously routed experts too
+        self._expert_touched: dict[str, set[int]] = {}
         if queue is not None and queue.num_partitions != s.num_partitions:
             raise ValueError("injected queue partition count must match "
                              "SyncConfig")
@@ -206,9 +238,16 @@ class ModelSyncEngine:
                                         device=s.device)
         self.gatherer = Gatherer(s.gather_mode, threshold=s.threshold,
                                  period=s.period)
-        self.paths = [p for p, _ in tree.flatten_with_paths(params)]
-        self.kinds = {p: ("rows" if p == "embed" and not cfg.tie_embeddings
-                          else "dense") for p in self.paths}
+        flat = tree.flatten_with_paths(params)
+        self.paths = [p for p, _ in flat]
+        self.kinds = {}
+        for path, leaf in flat:
+            if path == "embed":
+                self.kinds[path] = "dense" if cfg.tie_embeddings else "rows"
+            elif _is_expert_leaf(cfg, path, leaf):
+                self.kinds[path] = "experts"
+            else:
+                self.kinds[path] = "dense"
         self._path_ids = {p: i for i, p in enumerate(self.paths)}
         self.versions = {p: 0 for p in self.paths}
         self._seq = -1
@@ -225,9 +264,11 @@ class ModelSyncEngine:
 
     # -- collect -----------------------------------------------------------
     def collect_step(self, tokens, metrics: Optional[dict] = None) -> None:
-        """Record dirty ids after a train step: the unique token rows and a
-        version bump for every dense tensor. ``metrics`` (the reference's
-        expert counts) has nothing to add for a dense model."""
+        """Record dirty ids after a train step: the unique token rows, a
+        version bump for every dense tensor, and the routed experts of
+        each MoE layer from ``metrics["expert_counts_per_layer"]`` (one
+        ``{"pos{i}": (R, E)}`` dict a segment, tensors or arrays; the
+        tensors are read to the host in one copy)."""
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
         uniq = np.unique(np.asarray(tokens).reshape(-1)).astype(np.int64)
@@ -236,11 +277,36 @@ class ModelSyncEngine:
         for path, kind in self.kinds.items():
             if kind == "rows":
                 events.append((path, uniq, "upsert"))
-            else:
+            elif kind == "dense":
                 self.versions[path] += 1
                 events.append((f"dense::{path}", np.zeros(1, np.int64),
                                "upsert"))
+        if metrics and "expert_counts_per_layer" in metrics and \
+                self.cfg.num_experts:
+            events += self._expert_events(metrics["expert_counts_per_layer"])
         self.gatherer.offer(events)
+
+    def _expert_events(self, per_layer: list) -> list:
+        e = self.cfg.num_experts
+        keys = [(si, pos) for si, seg in enumerate(per_layer) for pos in seg]
+        counts = [per_layer[si][pos] for si, pos in keys]
+        if counts and isinstance(counts[0], torch.Tensor):
+            flat = torch.cat([c.reshape(-1) for c in counts]).cpu().numpy()
+            counts = np.split(flat, np.cumsum([c.numel()
+                                               for c in counts])[:-1])
+            counts = [c.reshape(-1, e) for c in counts]
+        events = []
+        for (si, pos), c in zip(keys, counts):
+            reps, experts = np.nonzero(np.asarray(c) > 0)       # (R, E)
+            ids = reps.astype(np.int64) * e + experts
+            for name in ("w_gate", "w_up", "w_down"):
+                path = f"segments/{si}/{pos}/ffn/{name}"
+                if self.kinds.get(path) == "experts":
+                    if self._embed_mode == "cumulative":
+                        self._expert_touched.setdefault(path, set()).update(
+                            ids.tolist())
+                    events.append((path, ids, "upsert"))
+        return events
 
     # -- push ---------------------------------------------------------------
     def _next_seq(self) -> int:
@@ -267,8 +333,9 @@ class ModelSyncEngine:
 
     def tick(self, params: dict, now: float, *, scatter: bool = True) -> int:
         """Gather-window flush: read the full current values of the dirty
-        leaves and rows from the live training params (each dirty leaf to
-        host float32), encode, produce; then the replicas consume.
+        leaves, rows and experts from the live training params (each dirty
+        leaf, or an expert leaf's dirty slices, to host float32), encode,
+        produce; then the replicas consume.
         Returns the number of records produced."""
         n = 0
         if not self.gatherer.ready(now):
@@ -281,9 +348,23 @@ class ModelSyncEngine:
         for (group, op), ids in gathered.items():
             path = group[len("dense::"):] if group.startswith("dense::") \
                 else group
-            leaf = _host_f32(flat[path])
             meta = {"codec": self.transform.name, "kind": self.kinds[path],
                     "path": path, "t": now}
+            if self.kinds[path] == "experts":
+                if self._embed_mode == "cumulative" and \
+                        path in self._expert_touched:
+                    tset = self._expert_touched[path]
+                    ids = np.fromiter(tset, dtype=np.int64, count=len(tset))
+                    ids.sort()
+                payload = self.transform.encode(_expert_rows(
+                    flat[path], ids, self.cfg.num_experts), {})
+                self._produce(
+                    self._path_ids[path] % self.queue.num_partitions,
+                    Record(group=group, op=op, ids=ids, payload=payload,
+                           seq=self._next_seq(), producer=0, meta=meta))
+                n += 1
+                continue
+            leaf = _host_f32(flat[path])
             if self.kinds[path] == "dense":
                 if not self._changed_enough(path, leaf):
                     self.skipped_dense += 1

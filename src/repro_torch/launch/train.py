@@ -85,8 +85,9 @@ def _tick(engine: ModelSyncEngine, params: dict, now: float):
 
 def run(args: argparse.Namespace, cfg, state, step_fn, engine, batches,
         clock: Optional[Callable[[int], float]] = None):
-    """``args.steps`` train steps, each followed by ``collect_step`` and a
-    sync ``tick`` at ``clock(step)`` (default: seconds since the run
+    """``args.steps`` train steps, each followed by ``collect_step`` (the
+    tokens, and a MoE's routed expert counts) and a sync ``tick`` at
+    ``clock(step)`` (default: seconds since the run
     began, as the reference launcher ticks), then the final flush.
     Returns ``(state, record)``: ``record`` holds the per-step times in
     seconds (each ends in a device sync) and pre-update losses, each
@@ -103,7 +104,7 @@ def run(args: argparse.Namespace, cfg, state, step_fn, engine, batches,
         _sync(dev)
         step_s.append(time.perf_counter() - t)
         losses.append(float(metrics["loss"]))
-        engine.collect_step(tokens)
+        engine.collect_step(tokens, metrics)
         flush = _tick(engine, state.params, clock(i))
         if flush:
             flushes.append(flush)

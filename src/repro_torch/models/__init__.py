@@ -1,6 +1,6 @@
 """The paper's sparse CTR models (LR / FM / DNN, ``models.ctr``) and the
-LM serving path (``models.model``: dense attention + MLP stacks) in
-PyTorch."""
+LM path (``models.model``: attention with MLP or MoE FFNs,
+``models.moe``) in PyTorch."""
 from repro_torch.models.model import (decode_step, forward, head_logits,
                                       init_cache, init_params,
                                       lm_head_weights)

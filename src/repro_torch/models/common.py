@@ -13,37 +13,44 @@ import torch
 from repro_torch.kernels import ops
 
 
-class _EmbedTokens(torch.autograd.Function):
-    """Token-embedding gather whose gradient is a row scatter-add. The
-    reference writes ``embed[tokens]`` and XLA differentiates the gather;
-    here the forward is ``ops.embedding_lookup`` and the backward
-    ``ops.embedding_scatter_add`` into a zeros table of the param's
-    dtype: the transpose of the gather, duplicate tokens accumulating."""
+class _GatherRows(torch.autograd.Function):
+    """Row gather whose gradient is a row scatter-add: ``table[ids]``.
+    The reference writes the gather as indexing and XLA differentiates
+    it; here the forward is ``ops.embedding_lookup`` and the backward
+    ``ops.embedding_scatter_add`` into a zeros table of the gradient's
+    dtype: the transpose of the gather, rows of duplicate ids
+    accumulating in input order (no atomics, so two runs and a remat
+    recompute agree to the bit)."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
-        ids = tokens.reshape(-1).to(torch.int32)
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor):
+        ids = ids.reshape(-1).to(torch.int32)
         ctx.save_for_backward(ids)
         ctx.table_shape = table.shape
-        rows = ops.embedding_lookup(table, ids)
-        return rows.view(*tokens.shape, table.shape[1])
+        return ops.embedding_lookup(table, ids)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (ids,) = ctx.saved_tensors
         d_table = torch.zeros(ctx.table_shape, dtype=grad.dtype,
                               device=grad.device)
-        ops.embedding_scatter_add(d_table, ids,
-                                  grad.reshape(-1, ctx.table_shape[1]))
+        ops.embedding_scatter_add(d_table, ids, grad)
         return d_table, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: (V, D) contiguous table, (N,) integer ids in bounds
+    -> (N, D) in the table's dtype. Forward through the
+    ``embedding_lookup`` kernel, gradient through
+    ``embedding_scatter_add`` (plain versions on CPU tensors)."""
+    return _GatherRows.apply(table, ids)
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``: (V, D) table, integer tokens of any shape ->
-    tokens.shape + (D,), in the table's dtype. Forward through the
-    ``embedding_lookup`` kernel, gradient through
-    ``embedding_scatter_add`` (plain versions on CPU tensors)."""
-    return _EmbedTokens.apply(table, tokens)
+    tokens.shape + (D,), in the table's dtype, through ``gather_rows``."""
+    return gather_rows(table, tokens.reshape(-1)).view(*tokens.shape,
+                                                       table.shape[1])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,6 +1,7 @@
 """LM composition: parameter init, full-sequence forward (prefill and
 training) and single-token decode — the counterpart of the reference's
-``models/model.py`` for dense ``ATTN`` + ``MLP`` stacks.
+``models/model.py`` for stacks of global attention with an ``MLP`` or a
+``MOE`` FFN (``models.moe``).
 
 Parameters are a plain dict with the reference's nesting (``embed``,
 ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"]``, ``lm_head``
@@ -15,8 +16,11 @@ grad enabled, recomputes each layer in the backward
 are embedded through ``common.embed_tokens``: the ``embedding_lookup``
 kernel forward, ``embedding_scatter_add`` backward.
 
-MoE and Mamba layers, sliding-window, encoder and cross attention, and
-encoder-decoder or frontend-context models raise ``NotImplementedError``.
+A MoE layer returns its aux loss and expert counts beside its output (out
+of the checkpointed block too, as tensors); ``forward`` returns them as
+the reference's metrics. Mamba layers, sliding-window, encoder and cross
+attention, and encoder-decoder or frontend-context models raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, MLP, ModelConfig, Segment
+from repro_torch.configs.base import (ATTN, MLP, MOE, LayerSpec, ModelConfig,
+                                      Segment)
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import dense_init, embed_tokens, rms_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,10 +52,11 @@ def _check_ported(cfg: ModelConfig) -> None:
     not run yet."""
     for seg in cfg.segments:
         for spec in seg.pattern:
-            if spec.mixer != ATTN or spec.ffn != MLP:
+            if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
                 raise NotImplementedError(
                     f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is not "
-                    f"ported yet; the port runs ({ATTN}, {MLP}) layers")
+                    f"ported yet; the port runs ({ATTN}, {MLP}) and "
+                    f"({ATTN}, {MOE}) layers")
     if cfg.encoder_segments or cfg.has_encoder_context:
         raise NotImplementedError(f"{cfg.name}: encoder / frontend context "
                                   f"is not ported yet")
@@ -88,11 +95,28 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
     }
 
 
+def _init_moe(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
+    """The router in float32 whatever ``param_dtype``, as the reference
+    draws it."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pd = _dtype(cfg.param_dtype)
+    return {
+        "norm": torch.zeros((r, d), dtype=pd, device=gen.device),
+        "router": dense_init(gen, (r, d, e), d, torch.float32),
+        "w_gate": dense_init(gen, (r, e, d, f), d, pd),
+        "w_up": dense_init(gen, (r, e, d, f), d, pd),
+        "w_down": dense_init(gen, (r, e, f, d), f, pd),
+    }
+
+
+_FFN_INIT = {MLP: _init_mlp, MOE: _init_moe}
+
+
 def _init_segment(gen: torch.Generator, seg: Segment,
                   cfg: ModelConfig) -> dict:
     return {f"pos{i}": {"mixer": _init_attn(gen, cfg, seg.repeats),
-                        "ffn": _init_mlp(gen, cfg, seg.repeats)}
-            for i, _ in enumerate(seg.pattern)}
+                        "ffn": _FFN_INIT[spec.ffn](gen, cfg, seg.repeats)}
+            for i, spec in enumerate(seg.pattern)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -136,17 +160,25 @@ def _unbind(tree: dict, repeats: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _apply_ffn(spec: LayerSpec, p: dict, x: torch.Tensor,
+               cfg: ModelConfig):
+    """Returns ``(out, aux_loss, expert_counts)``: the last two None for
+    an MLP."""
     h = rms_norm(x, p["norm"])
-    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+    if spec.ffn == MOE:
+        return moe_lib.moe_ffn(p, h, cfg)
+    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"], \
+        None, None
 
 
-def _block(lp: dict, x: torch.Tensor, pos: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """One ATTN + MLP layer with its residuals."""
+def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
+           cfg: ModelConfig):
+    """One layer with its residuals: ``(x, aux_loss, expert_counts)`` as
+    ``_apply_ffn`` gives them."""
     mx = lp["mixer"]
     x = x + attn.self_attention(mx, rms_norm(x, mx["norm"]), pos, cfg=cfg)
-    return x + _apply_ffn(lp["ffn"], x)
+    dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
+    return x + dx, aux, counts
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -155,8 +187,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return_hidden: bool = False):
     """Full-sequence forward. tokens (B, S) integer ids. Returns ``(logits
     (B, S, padded_vocab), metrics)`` — or ``(hidden (B, S, D), metrics)``
-    with ``return_hidden`` — where ``metrics`` is ``{"moe_aux": 0.0}`` as
-    a float32 tensor (a dense stack has no MoE loss).
+    with ``return_hidden``. ``metrics["moe_aux"]`` is the float32 sum of
+    the MoE layers' aux losses (0 for a dense stack); a config with
+    experts adds ``expert_counts`` (E,) int32, summed over the layers,
+    and ``expert_counts_per_layer``: one ``{"pos{i}": (repeats, E)
+    int32}`` dict a segment, as the reference's scan stacks them.
 
     Only the default positions ``arange(S)`` are supported: the flash
     kernel masks by index, so ``positions`` must be None; ``enc_context``
@@ -172,19 +207,30 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
     pos = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_layer = []                  # one {pos: [counts a repeat]} a segment
     for seg, seg_params in zip(cfg.segments, params["segments"]):
         layers = [_unbind(seg_params[f"pos{i}"], seg.repeats)
                   for i, _ in enumerate(seg.pattern)]
+        seg_counts: dict = {}
         for r in range(seg.repeats):
-            for per_pos in layers:
+            for i, (spec, per_pos) in enumerate(zip(seg.pattern, layers)):
                 if remat:
-                    x = checkpoint(_block, per_pos[r], x, pos, cfg,
-                                   use_reentrant=False)
+                    x, aux, counts = checkpoint(_block, spec, per_pos[r], x,
+                                                pos, cfg, use_reentrant=False)
                 else:
-                    x = _block(per_pos[r], x, pos, cfg)
+                    x, aux, counts = _block(spec, per_pos[r], x, pos, cfg)
+                if counts is not None:
+                    aux_total = aux_total + aux
+                    seg_counts.setdefault(f"pos{i}", []).append(counts)
+        per_layer.append({k: torch.stack(v) for k, v in seg_counts.items()})
     x = rms_norm(x, params["final_norm"])
-    metrics = {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                      device=x.device)}
+    metrics = {"moe_aux": aux_total}
+    if cfg.num_experts:
+        metrics["expert_counts"] = sum(
+            c.sum(0, dtype=torch.int32) for seg in per_layer
+            for c in seg.values())
+        metrics["expert_counts_per_layer"] = per_layer
     if return_hidden:
         return x, metrics
     return head_logits(lm_head_weights(params, cfg), cfg, x), metrics
@@ -232,6 +278,10 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One decode step. tokens (B, 1) integer ids; pos (B,) positions of
     the new token, each in ``[0, seq_len)``. Returns ``(logits (B,
     padded_vocab), cache)``: the cache is updated IN PLACE and returned.
+    A MoE layer runs ``moe_ffn`` over the B new tokens with
+    ``moe_capacity(B)`` slots an expert (at least 8, as in the
+    reference), so a batch of up to 8 drops nothing; its aux loss and
+    counts are not returned.
 
     A position past the cache raises (the reference drops the write): on
     the CPU at once, on the card as a device-side assert of the cache
@@ -242,14 +292,14 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
                                           cache["segments"]):
         for r in range(seg.repeats):
-            for i, _ in enumerate(seg.pattern):
+            for i, spec in enumerate(seg.pattern):
                 lp = _layer(seg_params[f"pos{i}"], r)
                 mx = lp["mixer"]
                 dx, _ = attn.decode_self_attention(
                     mx, rms_norm(x, mx["norm"]), pos,
                     _layer(seg_cache[f"pos{i}"], r), cfg=cfg)
                 x = x + dx
-                x = x + _apply_ffn(lp["ffn"], x)
+                x = x + _apply_ffn(spec, lp["ffn"], x, cfg)[0]
     x = rms_norm(x, params["final_norm"])
     logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
     return logits, cache

@@ -1,0 +1,161 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch — the counterpart of
+the reference's ``models/moe.py``.
+
+Routing (``route``) is the reference's: float32 logits, a softmax, the
+top k (``torch.topk``, sorted descending as ``jax.lax.top_k``), gates
+normalised by ``max(sum, 1e-9)`` and the Switch load-balance aux loss.
+Slot ranks (``_slot_positions``) come from a stable sort by expert:
+first come, first served in ``(token, k)`` order, so a full expert drops
+the same assignments as the reference's, and an assignment is kept when
+its rank is under the capacity (``moe_capacity``).
+
+Row movement goes through the port's row kernels (``common.gather_rows``:
+``embedding_lookup`` forward, ``embedding_scatter_add`` backward):
+
+  * the dispatch is a gather through the inverse of the slot map: each
+    row of the (E, C, D) buffer takes its token's row, or a zero row
+    appended to the tokens for an empty slot. Kept (expert, slot) pairs
+    are unique and the reference's buffer starts at zero, so this equals
+    its ``.at[flat_e, slot_c].add``;
+  * the combine gathers each assignment's row of the experts' output,
+    scales it by its gate (0 for a dropped assignment) and sums a token's
+    k rows in the reference's order: adds onto zeros, j = 0 … k-1.
+
+The slot map, the inverse map and the counts are index arithmetic on the
+sort (no scatter-add, no atomics): two calls agree to the bit, and a
+remat recompute takes the same routes. Nothing reads back to the host.
+The expert products stay ``torch.bmm``, as the reference's are XLA
+einsums outside any Pallas kernel.
+
+``cfg.moe_dispatch_groups = G > 1`` (with T divisible by G) is the
+reference's group-local dispatch: capacity and slot ranks per group of
+T/G consecutive tokens. Here the groups' buffers sit side by side in one
+(E, G*C, D) buffer, ranked by a stable sort on the key ``g * E +
+expert``, so one gather, one batched product a weight and one combine
+serve all groups. The reference's ``_maybe_wsc`` sharding hints have no
+counterpart: one card has no mesh.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import gather_rows
+
+
+def moe_capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    cap = cfg.moe_capacity_factor * num_tokens * cfg.experts_per_token
+    cap = int(math.ceil(cap / cfg.num_experts))
+    return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """x (T, D) -> (expert_idx (T, k) int64, combine gates (T, k) float32,
+    aux_loss scalar float32)."""
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)  # (T, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style load-balance aux loss
+    me = probs.mean(dim=0)                                       # (E,)
+    ce = F.one_hot(idx[:, 0], cfg.num_experts).float().mean(dim=0)
+    aux = cfg.num_experts * torch.sum(me * ce)
+    return idx, gate, aux
+
+
+def _expert_order(flat_e: torch.Tensor, num_experts: int):
+    """The stable sort of the assignments by expert: ``(order, sorted_e,
+    starts)`` with ``starts[e]`` the first sorted position of expert
+    ``e`` (the end of the sort for an expert nobody chose)."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(
+        num_experts, dtype=sorted_e.dtype, device=flat_e.device))
+    return order, sorted_e, starts
+
+
+def _ranks(order, sorted_e, starts) -> torch.Tensor:
+    tk = order.shape[0]
+    ranks_sorted = torch.arange(tk, dtype=torch.int32,
+                                device=order.device) \
+        - starts[sorted_e].to(torch.int32)
+    out = torch.empty(tk, dtype=torch.int32, device=order.device)
+    out[order] = ranks_sorted                 # a permutation: no duplicates
+    return out
+
+
+def _slot_positions(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Rank of each (token, k) assignment within its expert, first come,
+    first served in the original order (int32)."""
+    return _ranks(*_expert_order(flat_e, num_experts))
+
+
+def _dispatch(xt: torch.Tensor, idx: torch.Tensor, cap: int,
+              cfg: ModelConfig, groups: int = 1):
+    """xt (T, D); idx (T, k); ``groups`` groups of T / groups consecutive
+    tokens, each with ``cap`` slots an expert -> ``(buf (E, groups * cap,
+    D), rows (T*k,) the buffer row of each assignment (slot 0 of its
+    expert when dropped), keep (T*k,) bool, counts (E,) int32 kept
+    assignments)``. Buffer row ``e * groups * cap + g * cap + c`` is
+    group g's slot c of expert e."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tk, dev = t * k, xt.device
+    flat_e = idx.reshape(-1)
+    grp = torch.arange(tk, device=dev) // (tk // groups)
+    key = grp * e + flat_e                      # (group, expert)
+    order, sorted_key, starts = _expert_order(key, groups * e)
+    slot = _ranks(order, sorted_key, starts)
+    keep = slot < cap
+    rows = flat_e * (groups * cap) + grp * cap + torch.where(keep, slot, 0)
+    # the inverse map: slot c of (g, e) holds sorted assignment
+    # starts[g, e] + c when (g, e) has more than c assignments
+    n_key = torch.cat([starts[1:], starts.new_full((1,), tk)]) - starts
+    first = starts.view(groups, e).T[:, :, None]             # (E, G, 1)
+    c = torch.arange(cap, device=dev)
+    src = torch.where(c < n_key.view(groups, e).T[:, :, None],
+                      order[(first + c).clamp_max(tk - 1)] // k, t)
+    xt0 = torch.cat([xt, xt.new_zeros((1, d))])             # row t: zeros
+    buf = gather_rows(xt0, src.reshape(-1)).view(e, groups * cap, d)
+    counts = n_key.clamp_max(cap).view(groups, e).sum(0).to(torch.int32)
+    return buf, rows, keep, counts
+
+
+def _combine(out_buf: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
+             gate: torch.Tensor, t: int) -> torch.Tensor:
+    """out_buf (E, C', D) -> (T, D): each assignment's row times its gate
+    (0 when dropped), a token's k rows added onto zeros in order j = 0 …
+    k-1, as the reference's scatter-add runs them."""
+    d = out_buf.shape[-1]
+    picked = gather_rows(out_buf.reshape(-1, d), rows)         # (T*k, D)
+    picked = picked * (gate.reshape(-1, 1)
+                       * keep[:, None]).to(picked.dtype)
+    picked = picked.view(t, -1, d)
+    out = torch.zeros((t, d), dtype=picked.dtype, device=picked.device)
+    for j in range(picked.shape[1]):
+        out = out + picked[:, j]
+    return out
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, D) -> (out (B, S, D), aux_loss float32 scalar,
+    expert_counts (E,) int32 kept assignments).
+
+    ``p``: ``router`` (D, E), ``w_gate`` and ``w_up`` (E, D, F),
+    ``w_down`` (E, F, D). ``expert_counts`` feeds the WeiPS sync engine
+    (touched-expert ids)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    idx, gate, aux = route(p["router"], xt, cfg)
+    g = max(1, cfg.moe_dispatch_groups)
+    groups = g if g > 1 and t % g == 0 else 1
+    cap = moe_capacity(t // groups, cfg)
+    buf, rows, keep, counts = _dispatch(xt, idx, cap, cfg, groups)
+    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    out_buf = torch.bmm(h, p["w_down"])
+    out = _combine(out_buf, rows, keep, gate, t)
+    return out.reshape(b, s, d), aux, counts

@@ -104,8 +104,13 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
         nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
         ce = nll.mean()
     loss = ce + aux_weight * metrics["moe_aux"]
-    return loss, {"loss": loss, "ce": ce, "ppl_log": ce,
-                  "moe_aux": metrics["moe_aux"]}
+    out_metrics = {"loss": loss, "ce": ce, "ppl_log": ce,
+                   "moe_aux": metrics["moe_aux"]}
+    if "expert_counts" in metrics:
+        out_metrics["expert_counts"] = metrics["expert_counts"]
+        out_metrics["expert_counts_per_layer"] = \
+            metrics["expert_counts_per_layer"]
+    return loss, out_metrics
 
 
 def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict,
@@ -117,7 +122,7 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict,
     with torch.enable_grad():
         loss, metrics = loss_fn(params, cfg, batch, aux_weight)
         grads = torch.autograd.grad(loss, leaves)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = tree.map_like(torch.Tensor.detach, metrics)
     return loss.detach(), metrics, tree.unflatten_like(params, list(grads))
 
 
@@ -125,7 +130,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                     aux_weight: float = 0.01):
     """``train_step(state, batch) -> (state, metrics)``: loss and grads,
     then the optimizer's in-place update of params and slots; the metrics
-    (``loss``, ``ce``, ``ppl_log``, ``moe_aux``) are pre-update."""
+    (``loss``, ``ce``, ``ppl_log``, ``moe_aux``, and for a MoE config
+    ``expert_counts`` and ``expert_counts_per_layer`` as ``forward``
+    gives them, on the device) are pre-update."""
     opt = optimizer or get_optimizer(cfg.optimizer)
 
     def train_step(state: TrainState, batch: dict):

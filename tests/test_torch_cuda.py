@@ -629,6 +629,7 @@ def _tol(dtype):
     (1, 2, 1, 1, 1, 128),             # one query, one key
     (1, 4, 2, 17, 300, 64),           # S far below T (a ragged TMA box)
     (1, 4, 2, 1000, 1000, 256),       # the wide head at a ragged S
+    (2, 24, 8, 1000, 1000, 64),       # granite-moe's heads: 3 a group
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -661,6 +662,7 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, t, d,
     (3, 4, 2, 300, 64),               # reduced configs' head dim
     (2, 28, 4, 257, 128),             # qwen2-7b: 7 heads per group
     (2, 28, 4, 4096, 128),            # qwen2-7b at the long cache
+    (4, 24, 8, 4096, 64),             # granite-moe at the long cache
 ])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -970,6 +972,100 @@ def test_lm_gradients_on_card_match_plain_versions(cuda, monkeypatch, what,
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             scale = float(w.float().abs().max())
             assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+# ---------------------------------------------------------------------------
+# the MoE on the card: its row gathers and moe_ffn against the plain path
+# ---------------------------------------------------------------------------
+def _moe_inputs(cuda, dtype, t: int, groups: int = 1):
+    """granite-moe-3b-a800m's full width (d_model 1536, 40 experts of
+    d_ff 512, top-8) for one layer, ``t`` tokens, from a seed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              moe_dispatch_groups=groups)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn((d, e), generator=gen, device=cuda) * d ** -.5,
+         "w_gate": torch.randn((e, d, f), generator=gen, device=cuda)
+         * d ** -.5,
+         "w_up": torch.randn((e, d, f), generator=gen, device=cuda) * d ** -.5,
+         "w_down": torch.randn((e, f, d), generator=gen, device=cuda)
+         * f ** -.5}
+    p = {k: (v if k == "router" else v.to(dtype)) for k, v in p.items()}
+    x = torch.randn((2, t // 2, d), generator=gen, device=cuda).to(dtype)
+    return cfg, p, x
+
+
+def _moe_run(cfg, p, x):
+    from repro_torch.models import moe
+    tp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    tx = x.clone().requires_grad_(True)
+    out, aux, counts = moe.moe_ffn(tp, tx, cfg)
+    w = torch.linspace(-1, 1, out.numel(), device=out.device).view(out.shape)
+    ((out.float() * w).sum() + aux).backward()
+    return [out.detach(), aux.detach(), counts, tx.grad] + [
+        tp[k].grad for k in sorted(tp)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("t", [4, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_equals_plain_path(cuda, monkeypatch, dtype, t,
+                                           groups):
+    """``moe_ffn`` forward and backward on the card: its two row gathers
+    launch ``embedding_lookup`` (2 forward) and their gradients
+    ``embedding_scatter_add`` (2 backward); against the same call with
+    both routed to their plain versions, output, aux, counts and every
+    gradient are bit-equal (the gathers copy bytes and the scatter-add is
+    bit-equal to its plain version; the expert products are the same
+    ``torch.bmm`` calls), and two calls are equal."""
+    cfg, p, x = _moe_inputs(cuda, dtype, t, groups)
+    before = port_ops.launch_counts()
+    got = _moe_run(cfg, p, x)
+    torch.cuda.synchronize()
+    counts = port_ops.launch_counts()
+    assert counts["embedding_lookup"] == before["embedding_lookup"] + 2
+    assert counts["embedding_scatter_add"] == \
+        before["embedding_scatter_add"] + 2
+    again = _moe_run(cfg, p, x)
+    for name in ("embedding_lookup", "embedding_scatter_add"):
+        monkeypatch.setattr(port_ops, name, getattr(port_ref, name))
+    want = _moe_run(cfg, p, x)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[2].sum()) <= t * cfg.experts_per_token
+    assert bool(torch.isfinite(got[0].float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_row_gathers_on_card_match_plain(cuda, dtype):
+    """The dispatch's gather through the inverse slot map (empty slots
+    read the appended zero row, thousands of times) and its gradient, and
+    the combine's gather, bit-equal to their plain versions."""
+    from repro_torch.models import common, moe
+    cfg, p, x = _moe_inputs(cuda, dtype, 4096)
+    xt = x.reshape(-1, cfg.d_model)
+    idx, gate, _ = moe.route(p["router"], xt, cfg)
+    cap = moe.moe_capacity(xt.shape[0], cfg)
+    buf, rows, keep, _ = moe._dispatch(xt, idx, cap, cfg)
+    xt0 = torch.cat([xt, xt.new_zeros((1, cfg.d_model))])
+    src = torch.full((cfg.num_experts * cap,), xt.shape[0], device=cuda)
+    src[rows[keep]] = torch.arange(idx.numel(), device=cuda)[keep] \
+        // cfg.experts_per_token
+    assert torch.equal(buf.reshape(-1, cfg.d_model), port_ref.embedding_lookup(
+        xt0, src))
+    g = torch.randn(buf.reshape(-1, cfg.d_model).shape, device=cuda).to(dtype)
+    tab = xt0.clone().requires_grad_(True)
+    common.gather_rows(tab, src).backward(g)
+    want = port_ref.embedding_scatter_add(torch.zeros_like(xt0), src, g)
+    assert torch.equal(tab.grad, want)
+    flat = buf.reshape(-1, cfg.d_model)
+    assert torch.equal(common.gather_rows(flat, rows),
+                       port_ref.embedding_lookup(flat, rows))
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,9 @@ SLICE_MODULES = {
     "repro_torch.launch.transport", "repro_torch.launch.chaos",
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
     "repro_torch.launch.worker", "repro_torch.launch.runtime",
-    "repro_torch.launch.slo",
+    "repro_torch.launch.slo", "repro_torch.models.moe",
+    "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.configs.dbrx_132b",
 }
 
 

@@ -1,6 +1,8 @@
 """The port's LM serving path against the JAX package's, on the CPU, at
 ``reduced(get_config(arch), layers_per_segment=2)`` for qwen2-1.5b (tied
-head) and qwen2-7b (untied ``lm_head``).
+head), qwen2-7b (untied ``lm_head``) and the MoE configs
+granite-moe-3b-a800m and dbrx-132b (4 experts, top-2; their aux loss and
+``expert_counts_per_layer`` equal to the reference's).
 
 The reference's ``init_params`` tree is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take
@@ -34,7 +36,8 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.serving.predictor import ServeDriver, make_serve_step
 
-ARCHS = ["qwen2-1.5b", "qwen2-7b"]
+ARCHS = ["qwen2-1.5b", "qwen2-7b",
+         "granite-moe-3b-a800m", "dbrx-132b"]
 RTOL = ATOL = 1e-4
 
 
@@ -88,14 +91,28 @@ def test_forward_logits_match_reference(arch):
     tree = _params(jcfg, 1)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                size=(2, 24)).astype(np.int32)
-    want, _ = jax_forward(jax.tree.map(jnp.asarray, tree), jcfg,
-                          jnp.asarray(tokens))
+    want, jm = jax_forward(jax.tree.map(jnp.asarray, tree), jcfg,
+                           jnp.asarray(tokens))
     before = port_ops.launch_counts()
     got, metrics = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
                            torch.from_numpy(tokens))
     assert port_ops.launch_counts() == before         # plain versions
     assert got.shape == (2, 24, cfg.padded_vocab)
-    assert float(metrics["moe_aux"]) == 0.0
+    assert metrics["moe_aux"].dtype == torch.float32
+    np.testing.assert_allclose(float(metrics["moe_aux"]),
+                               float(jm["moe_aux"]), rtol=1e-5)
+    assert ("expert_counts" in metrics) == bool(cfg.num_experts)
+    if cfg.num_experts:
+        np.testing.assert_array_equal(metrics["expert_counts"].numpy(),
+                                      np.asarray(jm["expert_counts"]))
+        (per_seg,), (jper_seg,) = (metrics["expert_counts_per_layer"],
+                                   jm["expert_counts_per_layer"])
+        assert sorted(per_seg) == sorted(jper_seg) == ["pos0"]
+        assert per_seg["pos0"].dtype == torch.int32
+        np.testing.assert_array_equal(per_seg["pos0"].numpy(),
+                                      np.asarray(jper_seg["pos0"]))
+    else:
+        assert float(metrics["moe_aux"]) == 0.0
     _close(got, want)
     hidden, _ = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
                         torch.from_numpy(tokens), return_hidden=True)
@@ -201,8 +218,9 @@ def test_serve_launcher_runs_reduced_on_cpu(capsys):
 
 
 def test_unported_configs_and_modes_raise():
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("gemma3-4b")
+    for arch in ("gemma3-4b", "mamba2-1.3b"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            get_config(arch)
     cfg = reduced(get_config("qwen2-1.5b"))
     params = init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int64)

@@ -1,5 +1,8 @@
 """The port's ``ModelSyncEngine`` against the JAX package's, on the CPU:
-the port of ``tests/test_sync_engine.py`` for the dense configs.
+the port of ``tests/test_sync_engine.py`` for the dense configs and the
+MoE config granite-moe-3b-a800m (reduced: 4 experts), whose expert leaves
+stream by (repeat, expert) id from the routed expert counts each step
+reports.
 
 Both engines are fed the same parameter trees (numpy, perturbed every
 step) and the same tokens on the same clock, so their records — path,
@@ -69,8 +72,14 @@ def _same_record(a, b) -> None:
     ("qwen2-1.5b", None),          # tied embed: one dense tensor
     ("qwen2-7b", None),            # untied: embed rows, Adam -> cumulative
     ("qwen2-7b", "sgd"),           # untied, SGD -> window rows
+    ("granite-moe-3b-a800m", None),   # experts, Adam -> cumulative
+    ("granite-moe-3b-a800m", "sgd"),  # experts, SGD -> window
 ])
 def test_records_and_replica_equal_reference(arch, optimizer, codec):
+    """Five steps and the final flush on both engines; a MoE config's
+    steps also report ``expert_counts_per_layer`` (random (R, E) counts,
+    some experts unrouted: numpy to the reference, tensors to the
+    port)."""
     jcfg, cfg = _cfgs(arch, optimizer)
     rng = np.random.default_rng(11)
     params = jax.tree.map(
@@ -90,16 +99,26 @@ def test_records_and_replica_equal_reference(arch, optimizer, codec):
                                                      dtype=np.float32),
             params)
         tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-        ref.collect_step(tokens)
-        port.collect_step(torch.from_numpy(tokens))
+        counts = [{"pos0": rng.integers(0, 3, (seg.repeats, cfg.num_experts))
+                   .astype(np.int32)} for seg in cfg.segments]
+        metrics = {"expert_counts_per_layer": counts} if cfg.num_experts \
+            else None
+        ref.collect_step(tokens, metrics)
+        port.collect_step(torch.from_numpy(tokens), metrics and {
+            "expert_counts_per_layer": [
+                {k: torch.from_numpy(v) for k, v in seg.items()}
+                for seg in counts]})
         assert port.tick(_to_torch(params), now=t * 0.5) == \
             ref.tick(params, now=t * 0.5)
     assert port.tick(_to_torch(params), now=1e9) == ref.tick(params, now=1e9)
+    kinds = set()
     for want, got in zip(_queue_records(ref.queue),
                          _queue_records(port.queue)):
         assert len(got) == len(want)
         for a, b in zip(got, want):
             _same_record(a, b)
+            kinds.add(a.meta["kind"])
+    assert ("experts" in kinds) == bool(cfg.num_experts)
     assert port.metrics() == ref.metrics()
     rep, jrep = port.replicas[0], ref.replicas[0]
     assert rep.applied == jrep.applied and rep.versions == jrep.versions
@@ -187,11 +206,19 @@ def test_delta_threshold_skips_unchanged():
 
 
 def test_unported_and_bad_configs_raise():
+    """A reduced granite engine classifies its three expert leaves
+    ``"experts"`` and its router ``"dense"``; a queue of another partition
+    count and the default device without a card raise."""
+    moe_cfg = reduced(get_config("granite-moe-3b-a800m"))
+    moe_engine = ModelSyncEngine(moe_cfg, init_train_state(
+        moe_cfg, torch.Generator().manual_seed(0)).params, _sync())
+    ffn = "segments/0/pos0/ffn/"
+    assert {p: k for p, k in moe_engine.kinds.items() if ffn in p} == {
+        ffn + "norm": "dense", ffn + "router": "dense",
+        ffn + "w_down": "experts", ffn + "w_gate": "experts",
+        ffn + "w_up": "experts"}
     cfg = reduced(get_config("qwen2-1.5b"))
     params = init_train_state(cfg, torch.Generator().manual_seed(0)).params
-    with pytest.raises(NotImplementedError, match="expert"):
-        ModelSyncEngine(dataclasses.replace(cfg, num_experts=4), params,
-                        _sync())
     from repro_torch.core.queue import PartitionedQueue
     with pytest.raises(ValueError, match="partition"):
         ModelSyncEngine(cfg, params, _sync(), queue=PartitionedQueue(3))
