@@ -9,12 +9,12 @@ the port's host path; then drives the whole ``WeiPSCluster`` (click
 stream, joiner, pipeline, checkpoints, faults, domino downgrade) beside
 a host twin; then the multi-process ``ClusterRuntime`` (a process per
 shard, SIGKILLs at its crash windows) beside a host twin and a
-fault-free run; then serves qwen2-1.5b and the MoE granite-moe-3b-a800m
-at full width (prefill and greedy decode with hot weight swaps) and
-checks each against the same model on the plain attention; then trains
-both at full width with Adam, streams them to a serving replica (the
-MoE's experts by (repeat, expert) id) and hot-swaps the replica's
-params into a decoding driver.
+fault-free run; then serves qwen2-1.5b, the MoE granite-moe-3b-a800m
+and the attention-free mamba2-1.3b at full width (prefill and greedy
+decode with hot weight swaps) and checks each against the same model on
+the plain path; then trains all three at full width with Adam, streams
+them to a serving replica (the MoE's experts by (repeat, expert) id) and
+hot-swaps the replica's params into a decoding driver.
 
     python3 chip_smoke.py
 
@@ -208,6 +208,27 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 forward with stream stamps around ``moe_ffn`` and its parts
    prints the MoE's share of the stream time (routing, the dispatch,
    the combine, the expert products) and layer 0's expert counts.
+6c. SSM serving, mamba2-1.3b at full width (48 Mamba-2 layers, d_model
+   2048, 64 heads of 64, state 128, chunk 256, no attention, no FFN;
+   random weights from seed 0). The token gather at its shape (8,192
+   ids x 2,048 bf16 from the 50,432-row table) bit-equal to its plain
+   version, timed beside its bound and ``index_select``;
+   ``ssd_chunked`` against ``ssd_decode_step`` in a loop at its heads
+   (1 x 2048 tokens, float32, dt ≈ 1), forward and the gradients of x,
+   dt, B and C finite and within ``SSD_REC_BOUND`` (2e-4) of the largest
+   magnitude. Then, with the counters reset before and read after:
+   ``make_prefill_step`` on 4 x 2048 tokens in float32 and bf16 against
+   the plain path (bf16 timed, one forward with stream stamps around the
+   Mamba parts); ``launch.serve``'s own run (batch 4, 32 steps, float32
+   cache with bf16 params, a hot swap every 8) replayed on the plain
+   path, logits finite; decode against forward over 64 tokens from a
+   fresh cache in float32 and in bf16 (params and cache), each path also
+   against a float64 forward: float32 within ``F32_LOGIT_ATOL``, the
+   bf16 decode within ``BF16_DECODE_RATIO`` times the bf16 forward's own
+   deviation (greedy agreement printed). Launches held exactly:
+   ``embedding_lookup`` once a forward and a step, the attention kernels
+   never. Prefill p50 and tokens/s, decode p50 / p99, the params' and
+   the SSM cache's bytes and the peak memory are printed.
 7. LM training, qwen2-1.5b at full width (bf16, Adam, remat). First
    ``embedding_scatter_add`` against its plain version, bit-equal (and
    two calls equal), in float32 and bf16, on a (151936, 1536) table with
@@ -260,6 +281,19 @@ Phases (any failure exits non-zero and prints no result line):
    active-parameter FLOPs, peak memory, each flush's time, records and
    bytes and the share of experts dirty are printed. Then phase 7's int8
    flush (every (repeat, expert) id a codec row) and hot-swap decode.
+7c. SSM training, mamba2-1.3b at full width (bf16, Adam, remat). The
+   scatter-add timed at its shape (one batch's 4 x 1024 ids x 2,048
+   bf16); one float32 train step against the plain path at all 48
+   layers with remat (no cut: one float32 gradient set fits beside the
+   params): loss within ``F32_LOSS_RTOL``, the embed, layer-0 ``wx`` and
+   ``dt_bias`` and last-layer ``out_proj`` gradients within
+   ``F32_GRAD_BOUND``, every gradient leaf finite. Then
+   ``launch.train``'s own run (``SSM_TRAIN_ARGV``: 4 steps of 4 x 1024,
+   cast16, a sync period of 3 on the step clock): launches a step
+   ``embedding_lookup`` 1, ``embedding_scatter_add`` 1,
+   ``flash_attention`` 0; staleness under 2e-3; ``mfu`` on model FLOPs
+   that count the SSD's four products. Then phase 7's int8 flush and
+   hot-swap decode (the replica's bf16 params against a float32 cache).
 8. The launches of both probes, the gather, the scatter-set,
    ``ftrl_row_update`` and the codec on every path above (serving
    predicts, bootstrap flush, train -> sync -> serve, the cluster, the
@@ -2791,31 +2825,28 @@ def _span_ms(a, b) -> float:
     return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
 
 
-def moe_share(cfg, params, tokens, device) -> dict:
+def stamped_forward(module, names, cfg, params, tokens, device):
     """One forward of ``tokens`` with a stream stamp before and after the
-    whole forward and around every call of ``moe_ffn``, ``route``,
-    ``_dispatch`` (the slot map and the dispatch gather) and ``_combine``
-    (the combine gather, the gates and the sum over k), each wrapped on
-    ``models.moe`` where the model looks it up. Each part's stream time
-    summed over the layers; the expert products (three ``bmm`` and the
-    SiLU) are the rest of ``moe_ffn``. Also layer 0's expert counts."""
+    whole forward and around every call of each function ``names`` of
+    ``module`` (wrapped there, where the model looks them up at each
+    call). Returns the forward's stream time, each function's stream
+    time summed over its calls, and the forward's metrics."""
     import torch
 
-    from repro_torch.models import forward, moe
-    names = ("moe_ffn", "route", "_dispatch", "_combine")
-    saved = {n: getattr(moe, n) for n in names}
+    from repro_torch.models import forward
+    saved = {n: getattr(module, n) for n in names}
     spans: dict = {n: [] for n in names}
 
     def timed(name):
-        def call(*args):
+        def call(*args, **kw):
             a = _stamp(device)
-            out = saved[name](*args)
+            out = saved[name](*args, **kw)
             spans[name].append((a, _stamp(device)))
             return out
         return call
 
     for n in names:
-        setattr(moe, n, timed(n))
+        setattr(module, n, timed(n))
     try:
         with torch.no_grad():
             t0 = _stamp(device)
@@ -2823,14 +2854,42 @@ def moe_share(cfg, params, tokens, device) -> dict:
             t1 = _stamp(device)
     finally:
         for n, fn in saved.items():
-            setattr(moe, n, fn)
+            setattr(module, n, fn)
     _sync(device)
     ms = {n: sum(_span_ms(a, b) for a, b in v) for n, v in spans.items()}
+    return _span_ms(t0, t1), ms, metrics
+
+
+def moe_share(cfg, params, tokens, device) -> dict:
+    """One forward of ``tokens`` with stream stamps (``stamped_forward``)
+    around every call of ``moe_ffn``, ``route``, ``_dispatch`` (the slot
+    map and the dispatch gather) and ``_combine`` (the combine gather,
+    the gates and the sum over k): each part's stream time summed over
+    the layers; the expert products (three ``bmm`` and the SiLU) are the
+    rest of ``moe_ffn``. Also layer 0's expert counts."""
+    from repro_torch.models import moe
+    total, ms, metrics = stamped_forward(
+        moe, ("moe_ffn", "route", "_dispatch", "_combine"), cfg, params,
+        tokens, device)
     ms["expert products"] = ms["moe_ffn"] - ms["route"] - ms["_dispatch"] \
         - ms["_combine"]
-    return {"forward_ms": _span_ms(t0, t1), "ms": ms,
+    return {"forward_ms": total, "ms": ms,
             "layer0_counts": metrics["expert_counts_per_layer"][0]["pos0"][
                 0].tolist()}
+
+
+def ssm_share(cfg, params, tokens, device) -> dict:
+    """One forward of ``tokens`` with stream stamps (``stamped_forward``)
+    around every call of ``mamba_block`` and its parts: ``_projections``
+    (the five in-projections), ``_causal_conv``, ``ssd_chunked`` and
+    ``_gate_out`` (the gated norm and out_proj); the rest of
+    ``mamba_block`` (the SiLU, softplus, the D skip) is ``other``."""
+    from repro_torch.models import ssm
+    parts = ("_projections", "_causal_conv", "ssd_chunked", "_gate_out")
+    total, ms, _ = stamped_forward(ssm, ("mamba_block", *parts), cfg,
+                                   params, tokens, device)
+    ms["other"] = ms["mamba_block"] - sum(ms[n] for n in parts)
+    return {"forward_ms": total, "ms": ms}
 
 
 def _tree_map(fn, tree):
@@ -2964,15 +3023,18 @@ def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
         raise AssertionError("prefill logits not finite of shape (B, S, V)")
     del kernel, plain, kr, pr
     prof = profile_call(lambda: step(params, batch), device)
-    moe = None
+    moe = ssm_parts = None
     if cfg.num_experts:
         moe = moe_share(cfg, params, tokens, device)
+        forwards += 1
+    if cfg.ssm_state:
+        ssm_parts = ssm_share(cfg, params, tokens, device)
         forwards += 1
     return {"per_forward": per_forward, "forwards": forwards,
             "f32_dev": f32_dev, "f32_agree": f32_agree, "bf16_dev": bf16_dev,
             "bf16_agree": bf16_agree, "ms": ms[1:], "profile": prof,
             "f32_routes": f32_routes, "bf16_routes": bf16_routes,
-            "bf16_all": bf16_all, "moe": moe}
+            "bf16_all": bf16_all, "moe": moe, "ssm": ssm_parts}
 
 
 def _recording(step_fn, records: list):
@@ -2989,7 +3051,10 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     """``launch.serve.run`` on ``driver`` (hot swaps and all), then the
     plain path teacher-forced: each recorded step replayed with the same
     params, tokens and positions on a copy of the cache as it stood before
-    the run, its logits compared with the kernel path's."""
+    the run, its logits compared with the kernel path's (and whether the
+    kernel path's are finite)."""
+    import torch
+
     from repro_torch.launch import serve
     from repro_torch.models import decode_step
     records: list = []
@@ -3002,6 +3067,8 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     wall = time.perf_counter() - t0
     layers = len(kr) // max(1, len(records))       # MoE layers a step
     devs, agree, routes, every = [], [], [], []
+    finite = all(bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+                 for *_, lg in records)
     with plain_attention():
         for i, (p, tok, pos, logits) in enumerate(records):
             pr: list = []
@@ -3023,6 +3090,7 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     return {"lat_ms": [x * 1e3 for x in lat], "wall_s": wall,
             "max_dev": max(devs), "agree": float(np.mean(agree)),
             "steps": len(records), "routes": merge_routes(routes),
+            "finite": finite,
             "all_dev": max(d for d, _ in every),
             "all_agree": float(np.mean([a for _, a in every]))}
 
@@ -3209,6 +3277,11 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
                      flops=4.0 * n * length * h * d, peak=F32_PEAK_FLOPS,
                      agreement="within 2e-2 of its plain version"))
     return rows
+
+
+def _attn_layers(cfg) -> int:
+    from repro_torch.configs.base import ATTN
+    return sum(spec.mixer == ATTN for spec in cfg.layer_specs())
 
 
 def _moe_layers(cfg) -> int:
@@ -3399,13 +3472,15 @@ def check_scatter_add(cfg, device) -> list[str]:
     return lines
 
 
-def scatter_add_row(cfg, device) -> dict:
+def scatter_add_row(cfg, device, split: bool = True) -> dict:
     """``embedding_scatter_add`` timed as the embedding gradient runs it:
     one batch's ids into a zeros (vocab, d_model) bf16 table with bf16
     updates. Bound: the updates and ids read once, each distinct row read
-    and written once. Then the call's split: the sort (``sort_ids``) and
-    the kernel each timed alone, and one call profiled, which must list
-    the sort and the kernel and no gather of the updates."""
+    and written once. Then, with ``split``, the call's split: the sort
+    (``sort_ids``) and the kernel each timed alone, and one call
+    profiled, which must list the sort and the kernel and no gather of
+    the updates (``split=False`` where an earlier profiler session in the
+    process may hide kernels from a later one)."""
     import torch
 
     from repro_torch.kernels import embedding_lookup as el
@@ -3433,6 +3508,8 @@ def scatter_add_row(cfg, device) -> dict:
                n * d * 2 + 2 * distinct * d * 2 + n * 4,
                f"{n} ids ({distinct} distinct) x {d} bf16 into "
                f"({cfg.padded_vocab}, {d})")
+    if not split:
+        return row
     sorted_ids, order = el.sort_ids(ids32)
     sort_ms = _device_ms(lambda: el.sort_ids(ids32))
     kernel_ms = _device_ms(lambda: el.scatter_add_sorted(table, sorted_ids,
@@ -3461,7 +3538,7 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
     seed, on the kernel path and on the plain path (``plain_attention``),
     each freed before the next: the loss within ``F32_LOSS_RTOL``, the
     ``leaves``' gradients within ``F32_GRAD_BOUND`` of their largest
-    magnitude. ``layers`` cuts each segment to that many repeats, without
+    magnitude, every gradient leaf finite on both paths. ``layers`` cuts each segment to that many repeats, without
     remat (for a MoE, whose routes are recorded once a layer: they must
     agree on both paths, near ties apart)."""
     import torch
@@ -3477,7 +3554,7 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
     params = init_params(cfg32, torch.Generator(device=device).manual_seed(
         SEED))
     batch = {"tokens": _batch_ids(cfg, device)}
-    out, routes = {}, {}
+    out, routes, finite = {}, {}, {}
     for path in ("kernel", "plain"):
         routes[path] = []
         with (plain_attention() if path == "plain"
@@ -3485,6 +3562,8 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
                 record_routes(routes[path], gaps=path == "plain"):
             loss, _, grads = loss_and_grads(params, cfg32, batch)
         flat = dict(tree.flatten_with_paths(grads))
+        finite[path] = all(bool(torch.isfinite(g).all())
+                           for g in flat.values())
         out[path] = (float(loss), {
             label: (flat[leaf] if layer is None else flat[leaf][layer]).clone()
             for label, leaf, layer in leaves})
@@ -3495,6 +3574,8 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
             for k in gk}
     route_cmp = compare_routes(routes["kernel"], routes["plain"])
     check_near_ties("float32 train step", route_cmp)
+    if not all(finite.values()):
+        raise AssertionError(f"float32 grads not finite: {finite}")
     if abs(lk - lp) > F32_LOSS_RTOL * abs(lp):
         raise AssertionError(f"float32 loss {lk} vs plain {lp}")
     if max(devs.values()) > F32_GRAD_BOUND:
@@ -3506,20 +3587,37 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
 def model_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step (forward + backward, remat's
     recompute not counted): 6 per token per matmul parameter a token
-    uses (the head included; the embedding gather does none; a MoE layer
+    uses (the head included; the embedding gather does none; an
+    attention layer counts its q, k, v and o projections, a Mamba layer
+    its in-projections to z, x, B, C and dt and its out_proj; a MoE layer
     counts its router and its k active experts, not the capacity's
-    padding) and causal attention's two products, 2 * B * H * S^2 * hd a
-    layer forward, 3x in training."""
+    padding), plus 3x the forward's products that have no parameters:
+    causal attention's two, 2 * B * H * S^2 * hd a layer, and the SSD's
+    four a chunk of l = ``ssm_chunk`` positions (nc = ceil(S / l) chunks,
+    H heads of P, state N), counted over the whole (l, l) square the
+    port computes: CB 2 * l^2 * N, y_diag 2 * H * l^2 * P, states and
+    y_off 2 * H * l * P * N each, a Mamba layer B * nc * (2 l^2 N + 2 H
+    l^2 P + 4 H l P N)."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE
     d, f = cfg.d_model, cfg.d_ff
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    moe = _moe_layers(cfg)
-    proj = 2 * d * h * hd + 2 * d * g * hd
-    matmul = (cfg.num_layers * proj + (cfg.num_layers - moe) * 3 * d * f
-              + moe * (d * cfg.num_experts
-                       + cfg.experts_per_token * 3 * d * f)
-              + cfg.padded_vocab * d)
-    attn = cfg.num_layers * 6.0 * batch * h * seq * seq * hd
-    return 6.0 * batch * seq * matmul + attn
+    di, n, nh, hp, l = (cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads,
+                        cfg.ssm_head_dim, cfg.ssm_chunk)
+    matmul, other = cfg.padded_vocab * d, 0.0
+    for spec in cfg.layer_specs():
+        if spec.mixer == ATTN:
+            matmul += 2 * d * h * hd + 2 * d * g * hd
+            other += 2.0 * batch * h * seq * seq * hd
+        elif spec.mixer == MAMBA:
+            matmul += d * (2 * di + 2 * n + nh) + di * d
+            other += batch * -(-seq // l) * (2.0 * l * l * n
+                                             + 2.0 * nh * l * l * hp
+                                             + 4.0 * nh * l * hp * n)
+        if spec.ffn == MLP:
+            matmul += 3 * d * f
+        elif spec.ffn == MOE:
+            matmul += d * cfg.num_experts + cfg.experts_per_token * 3 * d * f
+    return 6.0 * batch * seq * matmul + 3.0 * other
 
 
 INT8_STALENESS_BOUND = 2e-2         # the reference's int8 bound
@@ -3837,15 +3935,16 @@ def report_lm_train(lm: dict, f32: dict) -> None:
     print(_profile_line("train step", rec["profile"]))
     print(f"  launches in the training run: {rec['launches']}")
     moe, passes = _moe_layers(cfg), 2 if cfg.remat else 1
+    attn = _attn_layers(cfg)
     # the token gather and its gradient, and a MoE's two row gathers a
     # pass (remat's recompute runs them again) and their two gradients
     want = {"embedding_scatter_add": steps * (1 + 2 * moe),
             "embedding_lookup": steps * (1 + 2 * passes * moe),
-            "flash_attention": passes * n * steps}
+            "flash_attention": passes * attn * steps}
     if {k: rec["launches"][k] for k in want} != want:
         raise AssertionError(f"training launches {rec['launches']}, want "
                              f"{want}")
-    want_dec = {"decode_attention": n * dec["steps"],
+    want_dec = {"decode_attention": attn * dec["steps"],
                 "embedding_lookup": dec["steps"] * (1 + 2 * moe)}
     if {k: dec["launches"][k] for k in want_dec} != want_dec:
         raise AssertionError(f"decode launches {dec['launches']}, want "
@@ -3865,6 +3964,340 @@ def report_lm_train(lm: dict, f32: dict) -> None:
         raise AssertionError("non-finite losses or decode logits")
     if "experts" in rec and not rec["experts"]["ok"]:
         raise AssertionError(f"expert records: {rec['experts']}")
+
+
+
+# ---------------------------------------------------------------------------
+# The SSM family: mamba2-1.3b served and trained at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+SSM_SERVE_ARGV = ("--arch", SSM_ARCH, *SERVE_ARGV[2:])
+# 4 steps and a sync period of 3 on the step clock, as MOE_TRAIN_ARGV
+SSM_TRAIN_ARGV = ("--arch", SSM_ARCH, *MOE_TRAIN_ARGV[2:])
+SSM_GRAD_LEAVES = (("embed", "embed", None),
+                   ("layer 0 wx", "segments/0/pos0/mixer/wx", 0),
+                   ("layer 0 dt_bias", "segments/0/pos0/mixer/dt_bias", 0),
+                   ("last layer out_proj", "segments/0/pos0/mixer/out_proj",
+                    -1))
+CONSISTENCY_LEN = 64                # decode against forward, tokens
+# Decode against forward at full depth: 48 layers of random weights
+# amplify rounding ~10^4-fold, so in float32 and bf16 the two paths differ
+# by as much as each differs from exact arithmetic (on the H100 float32
+# decode vs forward 1.04e-3, each vs a float64 forward 1.33e-3 and
+# 4.5e-4; bf16 1.49, 2.41 and 2.44; the reference's own bf16 decode
+# deviates from its forward by 1.55, greedy 0.80, at d_model 512 and 48
+# layers on the CPU: scripts/ssm_decode_drift.py). Decode and forward
+# are held to each other in float64, where that amplification leaves
+# ~1e-12; the float32 and bf16 runs are printed beside the float64
+# forward.
+F64_DECODE_ATOL = 1e-9
+# the SSD against the step-by-step recurrence at mamba2's heads, float32
+SSD_SHAPE = dict(batch=1, seq=2048, heads=64, head_dim=64, state=128,
+                 chunk=256)
+SSD_REC_BOUND = 2e-4                # of the largest magnitude
+
+
+def _rel_dev(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def ssd_recurrence_check(device, *, batch: int, seq: int, heads: int,
+                         head_dim: int, state: int, chunk: int,
+                         seed: int = SEED + 29) -> dict:
+    """``ssd_chunked`` against the step-by-step recurrence
+    (``ssd_decode_step`` in a loop) in float32 on ``device``, forward and
+    gradient: x, B, C from N(0, 1), dt through softplus from ``dt_bias``'s
+    init log(e - 1) plus N(0, 0.5) (dt ≈ 1, where the reference's
+    gradient overflows at a chunk of 256), A = -exp(0.3 N(0, 1)). The
+    gradients are of ``sum(wy * y) + sum(wf * final_state)`` with
+    respect to x, dt, B and C. Deviations are the largest |difference|
+    over the recurrence's largest magnitude; also the chunked forward's
+    time (the host clock around calls that end in a synchronize)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import ssm
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, B, C = (randn(batch, seq, heads, head_dim), randn(batch, seq, state),
+               randn(batch, seq, state))
+    dt = torch.logaddexp(math.log(math.e - 1) + 0.5 * randn(batch, seq,
+                                                            heads),
+                         torch.zeros((), device=device))
+    A = -torch.exp(0.3 * randn(heads))
+    wy, wf = randn(batch, seq, heads, head_dim), randn(batch, heads,
+                                                       head_dim, state)
+
+    def recurrence(x, dt, A, B, C):
+        st = x.new_zeros((batch, heads, head_dim, state))
+        ys = []
+        for t in range(seq):
+            y, st = ssm.ssd_decode_step(st, x[:, t], dt[:, t], A, B[:, t],
+                                        C[:, t])
+            ys.append(y)
+        return torch.stack(ys, 1), st
+
+    out = {}
+    for name, fn in (("chunked", lambda *a: ssm.ssd_chunked(*a, chunk)),
+                     ("recurrence", recurrence)):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, B, C)]
+        y, fin = fn(ins[0], ins[1], A, ins[2], ins[3])
+        ((y * wy).sum() + (fin * wf).sum()).backward()
+        out[name] = (y.detach(), fin.detach(), [t.grad for t in ins])
+        del y, fin, ins
+    (yc, fc, gc_), (yr, fr, gr) = out["chunked"], out["recurrence"]
+    grad_devs = {k: _rel_dev(a, b) for k, a, b in zip(("x", "dt", "B", "C"),
+                                                      gc_, gr)}
+    with torch.no_grad():
+        ms = []
+        for _ in range(4):                      # the first warms up
+            t0 = time.perf_counter()
+            ssm.ssd_chunked(x, dt, A, B, C, chunk)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"y_dev": _rel_dev(yc, yr), "state_dev": _rel_dev(fc, fr),
+            "grad_devs": grad_devs, "grad_dev": max(grad_devs.values()),
+            "finite": all(bool(torch.isfinite(g).all()) for g in gc_),
+            "bound": SSD_REC_BOUND, "chunked_ms": float(np.median(ms[1:])),
+            "shape": (batch, seq, heads, head_dim, state, chunk)}
+
+
+def ssm_gather_row(cfg, device) -> dict:
+    """The token gather at the bf16 prefill's shape: 4 x 2048 ids from
+    the (padded_vocab, d_model) bf16 table, bit-equal to its plain
+    version and timed beside its bound and ``index_select``; returned as
+    an extra entry of the gather's row."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    n = PREFILL_BATCH * PREFILL_LEN
+    table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                        device=device).bfloat16()
+    ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                        device=device, dtype=torch.int32)
+    row = gather_row(table, ids, f"{cfg.padded_vocab}x{cfg.d_model} bf16, "
+                     f"{n} token ids ({cfg.name}'s token gather)")
+    return {k: row[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                "library_ms", "max_abs_err")}
+
+
+@contextlib.contextmanager
+def float64_math():
+    """Inside, ``Tensor.float()`` widens to float64, the model takes
+    ``dtype="float64"`` and its kernels run their plain versions
+    (``plain_attention``): a forward or decode of float64 params then
+    runs every float32 step of the model in float64, the exact
+    arithmetic the float32 and bf16 paths are held against."""
+    import torch
+
+    from repro_torch.models import model
+    plain = torch.Tensor.float
+    torch.Tensor.float = lambda t: t.double() if t.is_floating_point() \
+        else plain(t)
+    model._DTYPES["float64"] = torch.float64
+    try:
+        with plain_attention():
+            yield
+    finally:
+        torch.Tensor.float = plain
+        del model._DTYPES["float64"]
+
+
+def _decode_logits(cfg, params, tokens, cache_dtype, device):
+    """Logits (B, T, V) of decoding ``tokens`` (B, T) one at a time from
+    a fresh cache of ``cache_dtype`` (float64: the SSM state too, which is
+    float32 otherwise)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+    b, t = tokens.shape
+    cache = init_cache(cfg, b, t, dtype=cache_dtype, device=device)
+    if cache_dtype == torch.float64:
+        cache = _tree_map(lambda x: x.double(), cache)
+    steps = []
+    for i in range(t):
+        logits, cache = decode_step(
+            params, cfg, cache, tokens[:, i:i + 1],
+            torch.full((b,), i, dtype=torch.int32, device=device))
+        steps.append(logits)
+    return torch.stack(steps, 1)
+
+
+def decode_vs_forward(cfg, params, tokens, device) -> dict:
+    """Decode ``tokens`` (B, T) one at a time from a fresh cache and hold
+    each step's logits against a forward over the same T tokens: in
+    float64 (``float64_math``: params, cache and every float32 step
+    widened, the plain path), where the two must agree to
+    ``F64_DECODE_ATOL``; then on the kernel path in float32 (params and
+    cache) and in bf16 (params and a bf16 cache), each path also against
+    the float64 forward. Returns for each dtype the largest |deviation|
+    and greedy agreement of decode vs forward (``dev``) over the real
+    vocabulary, for float32 and bf16 the largest |deviation| of the
+    decode (``dec``) and of the forward (``fwd``) from float64, and the
+    forwards and steps run on the kernel path."""
+    import torch
+
+    from repro_torch.models import forward
+    out = {"forwards": 0, "steps": 0}
+    runs = [("float64", torch.float64), ("float32", torch.float32),
+            ("bf16", torch.bfloat16)]
+    with torch.no_grad():
+        for label, dt in runs:
+            c = dataclasses.replace(cfg, dtype=str(dt)[6:],
+                                    param_dtype=str(dt)[6:])
+            p = params if c.param_dtype == cfg.param_dtype \
+                else _tree_map(lambda x: x.to(dt), params)
+            with (float64_math() if dt == torch.float64
+                  else contextlib.nullcontext()):
+                full, _ = forward(p, c, tokens)
+                dec = _decode_logits(c, p, tokens, dt, device)
+            out[label] = {"dev": _logit_dev(dec, full, cfg.vocab_size)}
+            if dt == torch.float64:        # the deviation in float64 too
+                out[label]["dev"] = (float((dec - full)[
+                    ..., :cfg.vocab_size].abs().max()),
+                    out[label]["dev"][1])
+                exact = full
+            else:
+                out[label]["dec"] = _logit_dev(dec, exact,
+                                               cfg.vocab_size)[0]
+                out[label]["fwd"] = _logit_dev(full, exact,
+                                               cfg.vocab_size)[0]
+                out["forwards"] += 1
+                out["steps"] += tokens.shape[1]
+            del p, full, dec
+    return out
+
+
+def drive_ssm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
+              prefill_reps: int, seed: int = SEED) -> dict:
+    """An attention-free model's serving path through its entry points:
+    ``launch.serve`` builds the model and its ``ServeDriver`` (float32
+    cache) from ``serve_argv``; ``make_prefill_step`` runs ``prefill_len``
+    tokens float32 and bf16 against the plain path; the launcher's own
+    decode run (hot swaps and all) is replayed on the plain path; then
+    decode against forward over the prefill's first ``CONSISTENCY_LEN``
+    tokens. The launch counters are reset before and read after the
+    whole path."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parse_args([*serve_argv, "--device", device.type])
+    cfg, params, driver, gen = serve.build(args)
+    data = torch.Generator(device=device).manual_seed(seed + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (prefill_batch, prefill_len),
+                           generator=data, device=device)
+    cache = driver.cache["segments"]
+    sizes = {"param_bytes": _tree_bytes(params),
+             "conv_bytes": sum(_tree_bytes(pos["conv"]) for seg in cache
+                               for pos in seg.values()),
+             "state_bytes": sum(_tree_bytes(pos["state"]) for seg in cache
+                                for pos in seg.values())}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prefill = prefill_phase(cfg, params, tokens, prefill_reps, device)
+    serve_run = decode_run(cfg, driver, params, args, gen, device)
+    driver.hot_swap(params)             # frees its last swapped-in copy
+    consistency = decode_vs_forward(cfg, params,
+                                    tokens[:, :CONSISTENCY_LEN], device)
+    launches = ops.launch_counts()
+    if device.type == "cuda":
+        sizes["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return {"cfg": cfg, "prefill": prefill, "serve": serve_run,
+            "consistency": consistency, "launches": launches,
+            "sizes": sizes}
+
+
+def report_ssm(lm: dict, ssd: dict) -> None:
+    """Print the SSM serving phase's numbers and hold them to their
+    limits."""
+    cfg, pre, run, cons = lm["cfg"], lm["prefill"], lm["serve"], \
+        lm["consistency"]
+    launches, sizes = lm["launches"], lm["sizes"]
+    p50 = float(np.percentile(pre["ms"], 50))
+    lat = run["lat_ms"]
+    steps = run["steps"] + cons["steps"]
+    forwards = pre["forwards"] + cons["forwards"]
+    print(f"SSM serving: {cfg.name} at full width ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.ssm_num_heads} heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}),"
+          f" random weights from seed {SEED}; params "
+          f"{sizes['param_bytes']} bytes, SSM cache (batch "
+          f"{PREFILL_BATCH}, float32) conv {sizes['conv_bytes']} + state "
+          f"{sizes['state_bytes']} bytes, peak device memory "
+          f"{sizes.get('peak_bytes')} bytes", flush=True)
+    print(f"  ssd_chunked vs the step-by-step recurrence at (batch, seq, "
+          f"heads, head_dim, state, chunk) {ssd['shape']}, float32: y "
+          f"{ssd['y_dev']:.3g}, final state {ssd['state_dev']:.3g}, grads "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ssd["grad_devs"].items())
+          + f" of the largest magnitude (limit {ssd['bound']}); grads "
+          f"finite {ssd['finite']}; the chunked forward "
+          f"{ssd['chunked_ms']:.3f} ms")
+    print(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN} bf16: p50 {p50:.3f} ms "
+          f"over {len(pre['ms'])} "
+          f"({PREFILL_BATCH * PREFILL_LEN / p50 * 1e3:.0f} tokens/s); "
+          f"logits vs the plain path: float32 max deviation "
+          f"{pre['f32_dev']:.3g} (limit {F32_LOGIT_ATOL}), bf16 "
+          f"{pre['bf16_dev']:.3g} (limit {BF16_LOGIT_BOUND}); greedy tokens "
+          f"agree {pre['f32_agree']:.4f} (f32), {pre['bf16_agree']:.4f} "
+          f"(bf16)")
+    print(f"  decode, launcher's run (float32 cache, bf16 params): "
+          f"{run['steps']} steps, p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms per step (4 tokens/step: "
+          f"{4 / np.percentile(lat, 50) * 1e3:.1f} tokens/s), "
+          f"{run['wall_s']:.2f} s with hot swaps; embedding_lookup once a "
+          f"step, no attention kernel; logits finite "
+          f"{run['finite']}; teacher-forced logits vs the plain path: max "
+          f"deviation {run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), "
+          f"greedy tokens agree {run['agree']:.4f}", flush=True)
+    c = cons["float64"]
+    print(f"  decode against forward over {CONSISTENCY_LEN} tokens, float64 "
+          f"(params, cache and every float32 step; plain path): max "
+          f"deviation {c['dev'][0]:.3g} (limit {F64_DECODE_ATOL}), greedy "
+          f"tokens agree {c['dev'][1]:.4f}")
+    for label in ("float32", "bf16"):
+        c = cons[label]
+        print(f"  decode against forward over {CONSISTENCY_LEN} tokens, "
+              f"{label} (params and cache): max deviation {c['dev'][0]:.3g},"
+              f" greedy tokens agree {c['dev'][1]:.4f}; from the float64 "
+              f"forward: decode {c['dec']:.3g}, forward {c['fwd']:.3g}")
+    print(_profile_line(f"bf16 prefill ({PREFILL_BATCH} x {PREFILL_LEN})",
+                        pre["profile"]))
+    share = pre["ssm"]
+    print(f"  Mamba share of one bf16 prefill's stream time "
+          f"({share['forward_ms']:.3f} ms, stamps around each part): "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / share['forward_ms']:.1f}"
+                      f"%)" for k, v in share["ms"].items()))
+    print(f"  launches in the SSM path: {launches} ({forwards} forwards "
+          f"and {steps} decode steps on the kernel path)", flush=True)
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "embedding_lookup": forwards + steps}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"SSM launches {launches}, want {want}")
+    if not (ssd["finite"] and max(ssd["y_dev"], ssd["state_dev"],
+                                  ssd["grad_dev"]) <= ssd["bound"]):
+        raise AssertionError(f"ssd_chunked vs the recurrence: {ssd}")
+    if pre["f32_dev"] > F32_LOGIT_ATOL:
+        raise AssertionError(f"float32 prefill logits deviate from the "
+                             f"plain path by {pre['f32_dev']:.3g}")
+    worst = max(pre["bf16_dev"], run["max_dev"])
+    if worst > BF16_LOGIT_BOUND or not run["finite"]:
+        raise AssertionError(f"bf16 logits deviate from the plain path by "
+                             f"{worst:.3g} or the launcher's are not finite")
+    if not cons["float64"]["dev"][0] <= F64_DECODE_ATOL:
+        raise AssertionError(f"float64 decode deviates from the forward by "
+                             f"{cons['float64']['dev'][0]:.3g}")
+    if not all(np.isfinite(cons[k][m]) for k in ("float32", "bf16")
+               for m in ("dec", "fwd")):
+        raise AssertionError(f"decode or forward logits not finite: {cons}")
 
 
 def main() -> int:
@@ -4069,6 +4502,21 @@ def main() -> int:
     del moe_lm
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    ssm_cfg = get_config(SSM_ARCH)
+    print(f"SSM serving: host memory available {host_available()} bytes; "
+          f"the token gather at {SSM_ARCH}'s shape:", flush=True)
+    by_name["embedding_lookup"][SSM_ARCH] = ssm_gather_row(ssm_cfg, dev)
+    ssd = ssd_recurrence_check(dev, **SSD_SHAPE)
+    torch.cuda.empty_cache()
+    ssm_lm = drive_ssm(dev, SSM_SERVE_ARGV, prefill_batch=PREFILL_BATCH,
+                       prefill_len=PREFILL_LEN, prefill_reps=PREFILL_REPS)
+    report_ssm(ssm_lm, ssd)
+    paths[f"{SSM_ARCH} serving"] = ssm_lm["launches"]
+    del ssm_lm
+    print(f"SSM serving phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     print(f"LM training kernel against its plain version at {LM_ARCH}'s "
           f"shapes:", flush=True)
     for line in check_scatter_add(lm_cfg, dev):
@@ -4103,6 +4551,26 @@ def main() -> int:
         moe_train["run"]["decode"]["launches"]
     del moe_train
     print(f"MoE training phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    print(f"SSM training: host memory available {host_available()} bytes; "
+          f"the embedding gradient at {SSM_ARCH}'s shape:", flush=True)
+    sa = scatter_add_row(ssm_cfg, dev, split=False)
+    by_name = {row["name"]: row for row in kernels}
+    by_name["embedding_scatter_add"][SSM_ARCH] = {k: sa[k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")}
+    f32 = check_train_f32(ssm_cfg, dev, SSM_GRAD_LEAVES)
+    torch.cuda.empty_cache()
+    ssm_train = drive_lm_train(dev, SSM_TRAIN_ARGV,
+                               decode_steps=SWAP_DECODE_STEPS)
+    report_lm_train(ssm_train, f32)
+    paths[f"{SSM_ARCH} training run"] = ssm_train["run"]["launches"]
+    paths[f"{SSM_ARCH} hot-swap decode"] = \
+        ssm_train["run"]["decode"]["launches"]
+    del ssm_train
+    print(f"SSM training phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}

@@ -1,11 +1,12 @@
 """LM composition: parameter init, full-sequence forward (prefill and
 training) and single-token decode — the counterpart of the reference's
-``models/model.py`` for stacks of global attention with an ``MLP`` or a
-``MOE`` FFN (``models.moe``).
+``models/model.py`` for stacks of global attention and Mamba-2 mixers
+(``models.ssm``) with an ``MLP``, a ``MOE`` (``models.moe``) or no FFN.
 
 Parameters are a plain dict with the reference's nesting (``embed``,
 ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"]``, ``lm_head``
-when the head is untied), each layer leaf stacked on a leading
+when the head is untied; a position whose FFN is ``NONE`` has no
+``"ffn"``), each layer leaf stacked on a leading
 ``repeats`` axis. The reference scans that axis with ``jax.lax.scan``;
 the port loops over it in Python. ``forward`` unbinds every stacked leaf
 once (under autograd one ``UnbindBackward`` stacks the layers'
@@ -18,24 +19,27 @@ kernel forward, ``embedding_scatter_add`` backward.
 
 A MoE layer returns its aux loss and expert counts beside its output (out
 of the checkpointed block too, as tensors); ``forward`` returns them as
-the reference's metrics. Mamba layers, sliding-window, encoder and cross
-attention, and encoder-decoder or frontend-context models raise
+the reference's metrics. A Mamba layer's decode cache is its conv state
+and its float32 SSM state, updated in place. Sliding-window, encoder and
+cross attention, and encoder-decoder or frontend-context models raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, MLP, MOE, LayerSpec, ModelConfig,
-                                      Segment)
+from repro_torch.configs.base import (ATTN, MAMBA, MLP, MOE, NONE, LayerSpec,
+                                      ModelConfig, Segment)
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models.common import dense_init, embed_tokens, rms_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,11 +56,12 @@ def _check_ported(cfg: ModelConfig) -> None:
     not run yet."""
     for seg in cfg.segments:
         for spec in seg.pattern:
-            if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
+            if spec.mixer not in (ATTN, MAMBA) or \
+                    spec.ffn not in (MLP, MOE, NONE):
                 raise NotImplementedError(
                     f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is not "
-                    f"ported yet; the port runs ({ATTN}, {MLP}) and "
-                    f"({ATTN}, {MOE}) layers")
+                    f"ported yet; the port runs {ATTN} and {MAMBA} mixers "
+                    f"with {MLP}, {MOE} or {NONE} FFNs")
     if cfg.encoder_segments or cfg.has_encoder_context:
         raise NotImplementedError(f"{cfg.name}: encoder / frontend context "
                                   f"is not ported yet")
@@ -109,20 +114,51 @@ def _init_moe(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
     }
 
 
+def _init_mamba(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
+    """``A_log`` (A = -1), ``D`` and ``dt_bias`` in float32 whatever
+    ``param_dtype``, as the reference draws them."""
+    d, di, ns, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    cw = cfg.ssm_conv_width
+    pd, dev, f32 = _dtype(cfg.param_dtype), gen.device, torch.float32
+    ch = di + 2 * ns
+    return {
+        "norm": torch.zeros((r, d), dtype=pd, device=dev),
+        "wz": dense_init(gen, (r, d, di), d, pd),
+        "wx": dense_init(gen, (r, d, di), d, pd),
+        "wB": dense_init(gen, (r, d, ns), d, pd),
+        "wC": dense_init(gen, (r, d, ns), d, pd),
+        "wdt": dense_init(gen, (r, d, nh), d, pd),
+        "conv_w": dense_init(gen, (r, cw, ch), cw, pd),
+        "conv_b": torch.zeros((r, ch), dtype=pd, device=dev),
+        "A_log": torch.zeros((r, nh), dtype=f32, device=dev),
+        "D": torch.ones((r, nh), dtype=f32, device=dev),
+        "dt_bias": torch.full((r, nh), math.log(math.e - 1), dtype=f32,
+                              device=dev),
+        "gnorm": torch.zeros((r, di), dtype=pd, device=dev),
+        "out_proj": dense_init(gen, (r, di, d), di, pd),
+    }
+
+
+_MIXER_INIT = {ATTN: _init_attn, MAMBA: _init_mamba}
 _FFN_INIT = {MLP: _init_mlp, MOE: _init_moe}
 
 
 def _init_segment(gen: torch.Generator, seg: Segment,
                   cfg: ModelConfig) -> dict:
-    return {f"pos{i}": {"mixer": _init_attn(gen, cfg, seg.repeats),
-                        "ffn": _FFN_INIT[spec.ffn](gen, cfg, seg.repeats)}
-            for i, spec in enumerate(seg.pattern)}
+    out = {}
+    for i, spec in enumerate(seg.pattern):
+        p = {"mixer": _MIXER_INIT[spec.mixer](gen, cfg, seg.repeats)}
+        if spec.ffn != NONE:
+            p["ffn"] = _FFN_INIT[spec.ffn](gen, cfg, seg.repeats)
+        out[f"pos{i}"] = p
+    return out
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen``, on ``gen``'s device, in
-    ``cfg.param_dtype``. Norms and QKV biases start at zero, as in the
-    reference; the same seed gives other numbers than ``jax.random``
+    ``cfg.param_dtype`` (a Mamba layer's ``A_log``, ``D`` and ``dt_bias``
+    and a MoE router in float32). Norms and biases start at zero, as in
+    the reference; the same seed gives other numbers than ``jax.random``
     (tests carry the reference's parameters across with
     ``convert.load_lm_params``)."""
     _check_ported(cfg)
@@ -163,7 +199,7 @@ def _unbind(tree: dict, repeats: int) -> list[dict]:
 def _apply_ffn(spec: LayerSpec, p: dict, x: torch.Tensor,
                cfg: ModelConfig):
     """Returns ``(out, aux_loss, expert_counts)``: the last two None for
-    an MLP."""
+    an MLP. Not called for a ``NONE`` FFN (the reference adds zeros)."""
     h = rms_norm(x, p["norm"])
     if spec.ffn == MOE:
         return moe_lib.moe_ffn(p, h, cfg)
@@ -174,9 +210,15 @@ def _apply_ffn(spec: LayerSpec, p: dict, x: torch.Tensor,
 def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
            cfg: ModelConfig):
     """One layer with its residuals: ``(x, aux_loss, expert_counts)`` as
-    ``_apply_ffn`` gives them."""
+    ``_apply_ffn`` gives them (None, None without an FFN)."""
     mx = lp["mixer"]
-    x = x + attn.self_attention(mx, rms_norm(x, mx["norm"]), pos, cfg=cfg)
+    h = rms_norm(x, mx["norm"])
+    if spec.mixer == MAMBA:
+        x = x + ssm.mamba_block(mx, h, cfg)
+    else:
+        x = x + attn.self_attention(mx, h, pos, cfg=cfg)
+    if spec.ffn == NONE:
+        return x, None, None
     dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
     return x + dx, aux, counts
 
@@ -257,19 +299,32 @@ def head_logits(head: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype: torch.dtype = torch.bfloat16, *, device="cuda",
                kv_quant: bool = False) -> dict:
-    """Zeroed KV cache mirroring the segment structure: ``{"segments":
-    [{"pos{i}": {"k", "v": (repeats, batch, seq_len, Kv, hd)}}]}``."""
+    """Zeroed cache mirroring the segment structure: ``{"segments":
+    [{"pos{i}": entry}]}``, an attention position's entry ``{"k", "v":
+    (repeats, batch, seq_len, Kv, hd)}`` in ``dtype``, a Mamba position's
+    ``{"conv": (repeats, batch, K - 1, d_inner + 2 N)}`` in ``dtype`` and
+    ``{"state": (repeats, batch, H, P, N)}`` in float32."""
     _check_ported(cfg)
     if kv_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet")
     dev = resolve_device(device)
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def entry(spec: LayerSpec, r: int) -> dict:
+        if spec.mixer == MAMBA:
+            return {"conv": zeros(r, batch, cfg.ssm_conv_width - 1,
+                                  cfg.d_inner + 2 * cfg.ssm_state),
+                    "state": zeros(r, batch, cfg.ssm_num_heads,
+                                   cfg.ssm_head_dim, cfg.ssm_state,
+                                   dt=torch.float32)}
+        shape = (r, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
     return {"segments": [
-        {f"pos{i}": {"k": torch.zeros((seg.repeats, *shape), dtype=dtype,
-                                      device=dev),
-                     "v": torch.zeros((seg.repeats, *shape), dtype=dtype,
-                                      device=dev)}
-         for i, _ in enumerate(seg.pattern)}
+        {f"pos{i}": entry(spec, seg.repeats)
+         for i, spec in enumerate(seg.pattern)}
         for seg in cfg.segments]}
 
 
@@ -283,6 +338,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     reference), so a batch of up to 8 drops nothing; its aux loss and
     counts are not returned.
 
+    A Mamba layer ignores ``pos``: its conv and SSM states are overwritten
+    with the step's new ones.
+
     A position past the cache raises (the reference drops the write): on
     the CPU at once, on the card as a device-side assert of the cache
     write or the decode kernel, raised at the next synchronisation — the
@@ -294,12 +352,19 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         for r in range(seg.repeats):
             for i, spec in enumerate(seg.pattern):
                 lp = _layer(seg_params[f"pos{i}"], r)
-                mx = lp["mixer"]
-                dx, _ = attn.decode_self_attention(
-                    mx, rms_norm(x, mx["norm"]), pos,
-                    _layer(seg_cache[f"pos{i}"], r), cfg=cfg)
+                mx, lc = lp["mixer"], _layer(seg_cache[f"pos{i}"], r)
+                h = rms_norm(x, mx["norm"])
+                if spec.mixer == MAMBA:
+                    dx, conv, state = ssm.mamba_decode_step(
+                        mx, h, lc["conv"], lc["state"], cfg)
+                    lc["conv"].copy_(conv)
+                    lc["state"].copy_(state)
+                else:
+                    dx, _ = attn.decode_self_attention(mx, h, pos, lc,
+                                                       cfg=cfg)
                 x = x + dx
-                x = x + _apply_ffn(spec, lp["ffn"], x, cfg)[0]
+                if spec.ffn != NONE:
+                    x = x + _apply_ffn(spec, lp["ffn"], x, cfg)[0]
     x = rms_norm(x, params["final_norm"])
     logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
     return logits, cache

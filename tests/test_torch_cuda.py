@@ -1068,6 +1068,51 @@ def test_moe_row_gathers_on_card_match_plain(cuda, dtype):
                        port_ref.embedding_lookup(flat, rows))
 
 
+
+# ---------------------------------------------------------------------------
+# the SSM family on the card: mamba2-1.3b's shapes
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_ssd_chunked_matches_recurrence_on_card(cuda):
+    """``ssd_chunked`` against ``ssd_decode_step`` in a loop at mamba2's
+    heads (1 x 2048 tokens, 64 heads of 64, N = 128, chunk 256, float32,
+    dt ≈ 1), forward and gradient: finite, within ``SSD_REC_BOUND`` of
+    the largest magnitude (the smoke's phase 6c check)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = smoke.ssd_recurrence_check(cuda, **smoke.SSD_SHAPE)
+    assert out["finite"]
+    assert max(out["y_dev"], out["state_dev"], out["grad_dev"]) \
+        <= smoke.SSD_REC_BOUND, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_gather_at_mamba2_shape_on_card(cuda, dtype):
+    """The token gather at mamba2's shape (8,192 ids x 2,048 from its
+    50,432-row table) and its gradient, one launch each, bit-equal to
+    their plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                        device=cuda).to(dtype)
+    ids = torch.randint(0, cfg.vocab_size, (8192,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    before = port_ops.launch_counts()
+    tab = table.clone().requires_grad_(True)
+    got = common.gather_rows(tab, ids)
+    g = torch.randn(got.shape, generator=gen, device=cuda).to(dtype)
+    got.backward(g)
+    after = port_ops.launch_counts()
+    assert after["embedding_lookup"] == before["embedding_lookup"] + 1
+    assert after["embedding_scatter_add"] == \
+        before["embedding_scatter_add"] + 1
+    assert torch.equal(got, port_ref.embedding_lookup(table, ids))
+    assert torch.equal(tab.grad, port_ref.embedding_scatter_add(
+        torch.zeros_like(table), ids, g))
+
+
 # ---------------------------------------------------------------------------
 # the checkpoint plane and the cluster on the card
 # ---------------------------------------------------------------------------

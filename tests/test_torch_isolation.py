@@ -45,6 +45,7 @@ SLICE_MODULES = {
     "repro_torch.launch.slo", "repro_torch.models.moe",
     "repro_torch.configs.granite_moe_3b_a800m",
     "repro_torch.configs.dbrx_132b",
+    "repro_torch.models.ssm", "repro_torch.configs.mamba2_1_3b",
 }
 
 

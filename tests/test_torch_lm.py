@@ -1,8 +1,10 @@
 """The port's LM serving path against the JAX package's, on the CPU, at
 ``reduced(get_config(arch), layers_per_segment=2)`` for qwen2-1.5b (tied
-head), qwen2-7b (untied ``lm_head``) and the MoE configs
+head), qwen2-7b (untied ``lm_head``), the MoE configs
 granite-moe-3b-a800m and dbrx-132b (4 experts, top-2; their aux loss and
-``expert_counts_per_layer`` equal to the reference's).
+``expert_counts_per_layer`` equal to the reference's) and the
+attention-free mamba2-1.3b (Mamba-2 mixers, no FFN; its conv and SSM
+states in the decode cache).
 
 The reference's ``init_params`` tree is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take
@@ -37,7 +39,7 @@ from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.serving.predictor import ServeDriver, make_serve_step
 
 ARCHS = ["qwen2-1.5b", "qwen2-7b",
-         "granite-moe-3b-a800m", "dbrx-132b"]
+         "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b"]
 RTOL = ATOL = 1e-4
 
 
@@ -122,7 +124,8 @@ def test_forward_logits_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_logits_match_reference(arch):
     """Eight decode steps of the same tokens from an empty cache; the
-    cache the port updates in place equals the reference's new cache."""
+    cache the port updates in place equals the reference's new cache
+    (K/V rows, or a Mamba layer's conv and SSM states)."""
     jcfg, cfg = _cfgs(arch)
     tree = _params(jcfg, 3)
     jparams = jax.tree.map(jnp.asarray, tree)
@@ -141,10 +144,14 @@ def test_decode_step_logits_match_reference(arch):
         assert cache2 is cache
         _close(got, want)
     for seg, jseg in zip(cache["segments"], jcache["segments"]):
-        for k in ("k", "v"):
-            np.testing.assert_allclose(seg["pos0"][k].numpy(),
+        assert sorted(seg["pos0"]) == sorted(jseg["pos0"])
+        for k, v in seg["pos0"].items():
+            # the SSM state sums eight steps' products: the logits' 1e-4
+            tol = RTOL if k == "state" else 1e-5
+            assert v.dtype == torch.float32
+            np.testing.assert_allclose(v.numpy(),
                                        np.asarray(jseg["pos0"][k]),
-                                       rtol=1e-5, atol=1e-5)
+                                       rtol=tol, atol=tol)
 
 
 def _recording(step_fn, log: list):
@@ -217,8 +224,37 @@ def test_serve_launcher_runs_reduced_on_cpu(capsys):
     assert "generated shape=(4, 9)" in out
 
 
+# the reference's ``test_decode_matches_forward`` configs that the port has
+CONSISTENCY_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "dbrx-132b"]
+
+
+@pytest.mark.parametrize("arch", CONSISTENCY_ARCHS)
+def test_decode_matches_forward(arch):
+    """The port alone, as the reference's ``tests/test_models.py`` holds
+    its own: 24 decode steps from an empty float32 cache against one
+    forward over the same tokens, within the reference's 5e-4 (a MoE's
+    capacity factor raised to 8 so neither path drops a token)."""
+    cfg = reduced(get_config(arch))
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator().manual_seed(1))
+    b, s = 2, 24
+    tokens = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(2))
+    full, _ = forward(params, cfg, tokens)
+    cache = init_cache(cfg, b, s, dtype=torch.float32, device="cpu")
+    worst = 0.0
+    for t in range(s):
+        logits, cache = decode_step(params, cfg, cache, tokens[:, t:t + 1],
+                                    torch.full((b,), t, dtype=torch.int32))
+        worst = max(worst, float((logits - full[:, t])[
+            :, :cfg.vocab_size].abs().max()))
+    print(f"{arch}: decode/forward divergence {worst:.3g}")
+    assert worst < 5e-4
+
+
 def test_unported_configs_and_modes_raise():
-    for arch in ("gemma3-4b", "mamba2-1.3b"):
+    for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(arch)
     cfg = reduced(get_config("qwen2-1.5b"))

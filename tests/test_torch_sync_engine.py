@@ -1,8 +1,9 @@
 """The port's ``ModelSyncEngine`` against the JAX package's, on the CPU:
-the port of ``tests/test_sync_engine.py`` for the dense configs and the
+the port of ``tests/test_sync_engine.py`` for the dense configs, the
 MoE config granite-moe-3b-a800m (reduced: 4 experts), whose expert leaves
 stream by (repeat, expert) id from the routed expert counts each step
-reports.
+reports, and the SSM config mamba2-1.3b, whose Mamba leaves stream as
+dense leaves.
 
 Both engines are fed the same parameter trees (numpy, perturbed every
 step) and the same tokens on the same clock, so their records — path,
@@ -74,6 +75,7 @@ def _same_record(a, b) -> None:
     ("qwen2-7b", "sgd"),           # untied, SGD -> window rows
     ("granite-moe-3b-a800m", None),   # experts, Adam -> cumulative
     ("granite-moe-3b-a800m", "sgd"),  # experts, SGD -> window
+    ("mamba2-1.3b", None),         # Mamba leaves (float32 A_log, D, dt_bias)
 ])
 def test_records_and_replica_equal_reference(arch, optimizer, codec):
     """Five steps and the final flush on both engines; a MoE config's
@@ -177,6 +179,31 @@ def test_serve_params_usable_for_decode():
     assert bf["embed"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="dtype"):
         engine.replicas[0].device_params(dtype="float16", device="cpu")
+
+
+def test_mamba_leaves_stream_dense_and_serve_in_bf16():
+    """A reduced mamba2-1.3b trained and synced (cast16): every leaf is
+    ``"dense"``, the replica within the cast16 bound, and its bf16
+    ``device_params`` (``A_log``, ``D`` and ``dt_bias`` cast too, as the
+    reference casts every leaf) decode against a float32 cache to finite
+    logits."""
+    cfg, state, engine = _train_and_sync(_sync(codec="cast16"),
+                                         arch="mamba2-1.3b")
+    assert set(engine.kinds.values()) == {"dense"}
+    assert "segments/0/pos0/mixer/A_log" in engine.paths
+    assert engine.replicas[0].staleness(state.params) < 2e-3
+    sp = engine.replicas[0].device_params(device="cpu")
+    assert sp["segments"][0]["pos0"]["mixer"]["A_log"].dtype == \
+        torch.bfloat16
+    bf = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    cache = init_cache(bf, 2, 8, dtype=torch.float32, device="cpu")
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    for t in range(3):
+        logits, cache = decode_step(sp, bf, cache, tok,
+                                    torch.full((2,), t, dtype=torch.int32))
+        assert logits.dtype == torch.bfloat16
+        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+        tok = logits.argmax(-1, keepdim=True).int()
 
 
 def test_period_mode_dedups_dense_pushes():
