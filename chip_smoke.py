@@ -9,12 +9,13 @@ the port's host path; then drives the whole ``WeiPSCluster`` (click
 stream, joiner, pipeline, checkpoints, faults, domino downgrade) beside
 a host twin; then the multi-process ``ClusterRuntime`` (a process per
 shard, SIGKILLs at its crash windows) beside a host twin and a
-fault-free run; then serves qwen2-1.5b, the MoE granite-moe-3b-a800m
-and the attention-free mamba2-1.3b at full width (prefill and greedy
-decode with hot weight swaps) and checks each against the same model on
-the plain path; then trains all three at full width with Adam, streams
-them to a serving replica (the MoE's experts by (repeat, expert) id) and
-hot-swaps the replica's params into a decoding driver.
+fault-free run; then serves qwen2-1.5b, the MoE granite-moe-3b-a800m,
+the attention-free mamba2-1.3b and the sliding-window gemma3-4b at full
+width (prefill and greedy decode with hot weight swaps) and checks each
+against the same model on the plain path; then trains all four at full
+width with Adam, streams them to a serving replica (the MoE's experts by
+(repeat, expert) id) and hot-swaps the replica's params into a decoding
+driver.
 
     python3 chip_smoke.py
 
@@ -294,6 +295,50 @@ Phases (any failure exits non-zero and prints no result line):
    ``flash_attention`` 0; staleness under 2e-3; ``mfu`` on model FLOPs
    that count the SSD's four products. Then phase 7's int8 flush and
    hot-swap decode (the replica's bf16 params against a float32 cache).
+6d. Sliding-window serving, gemma3-4b at full width (34 layers: five
+   6-layer periods of five sliding-window layers (W 1,024) and a global
+   one, then 4 windowed layers; d_model 2,560, 8 / 4 heads of 256, d_ff
+   10,240, a tied 262,144-row table; random weights from the seed),
+   after printing the host's available memory. First the attentions at
+   its shapes as in phase 6 (flash q (4, 8, 2048, 256) causal in bf16
+   and f32, a ragged S = 1000, a full case; decode against a (4, 4096,
+   4, 256) cache at mixed lengths), then ``decode_attention`` on a
+   (4, 1024, 4, 256) ring at lengths ``min(pos + 1, 1024)`` for
+   positions before, across and two wraps past the first wrap
+   (``RING_POSITIONS``), within 2e-5 (f32) and 2e-2 (bf16); the token
+   gather (8,192 ids x 2,560 bf16) bit-equal and timed; one windowed
+   layer's ``self_attention`` on 1 x 2048 tokens in float32 (the
+   block-local branch) against a float64 masked-softmax oracle within
+   ``WINDOW_ORACLE_BOUND`` (1e-5) of the largest magnitude. Then phase
+   6's path through ``launch.serve --arch gemma3-4b``: prefill 4 x 2048
+   (the 29 windowed layers block-local in tensor ops, the 5 global ones
+   through flash), the launcher's own run and a decode against a cache
+   seeded to 4000 of 4096 (the rings wholly; decode writes slots
+   928-959), each against the plain path; then decode against forward
+   over 64 tokens with the window cut to ``GEMMA_CHECK_WINDOW`` (16: the
+   forward block-local, each ring written four times over): float64
+   within ``F64_DECODE_ATOL``, float32 and bf16 printed beside the
+   float64 forward. Launches held exactly: ``flash_attention`` 5 a
+   2048-token forward (and 5 a 64-token one), ``decode_attention`` 34 a
+   step, ``embedding_lookup`` 1 a forward and a step. Prefill p50 and
+   tokens/s, decode p50 / p99, the params' bytes, the global caches'
+   and the rings' bytes and the peak memory (the float64 check's apart)
+   are printed; flash, both decodes (the global cache at 4,001 and a
+   ring at 1,024) are timed beside their bounds, plain versions and
+   SDPA (entries of their JSON rows).
+7d. Sliding-window training, gemma3-4b at full width (bf16, Adam,
+   remat). The scatter-add at its shape (4,096 ids x 2,560 bf16)
+   bit-equal and timed; one float32 train step against the plain path
+   at all 34 layers with remat (its peak printed), the embed, layer-0
+   ``wq`` and last-layer ``w_down`` gradients within ``F32_GRAD_BOUND``;
+   ``launch.train``'s own run (``GEMMA_TRAIN_ARGV``: 4 steps of 4 x
+   1024, cast16, a sync period of 3 on the step clock; at S = 1024 = W
+   every windowed layer's window is void, so all 34 go through flash):
+   launches a step ``embedding_lookup`` 1, ``embedding_scatter_add`` 1,
+   ``flash_attention`` 68 (34 and 34 in remat's recompute); staleness
+   under 2e-3. Then phase 7's int8 flush (the tied table one codec row
+   of 671,088,640 floats) and hot-swap decode, 34 ``decode_attention``
+   launches a step.
 8. The launches of both probes, the gather, the scatter-set,
    ``ftrl_row_update`` and the codec on every path above (serving
    predicts, bootstrap flush, train -> sync -> serve, the cluster, the
@@ -3058,7 +3103,8 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import decode_step
     records: list = []
-    driver.step_fn = _recording(driver.step_fn, records)
+    inner = driver.step_fn
+    driver.step_fn = _recording(inner, records)
     plain_cache = _tree_map(lambda t: t.clone(), driver.cache)
     kr: list = []
     t0 = time.perf_counter()
@@ -3082,6 +3128,9 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
             devs.append(d)
             agree.append(a)
             every.append(_logit_dev(logits, plain, cfg.vocab_size))
+    # the records hold every hot-swapped copy of the params: unwrap the
+    # step so that they go with this call
+    driver.step_fn = inner
     if tokens.shape != (args.batch, args.steps) or not (
             (0 <= tokens) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"decode tokens of shape {tokens.shape} or out "
@@ -3097,16 +3146,22 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
 
 def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
              prefill_reps: int, long_len: int, long_pos: int,
-             long_steps: int, seed: int = SEED) -> dict:
+             long_steps: int, seed: int = SEED,
+             consistency_window: int = 0) -> dict:
     """The LM serving path through its entry points: ``launch.serve``
     builds the model and its ``ServeDriver`` from ``serve_argv``;
     ``make_prefill_step`` runs a prefill of ``prefill_batch`` x
     ``prefill_len`` tokens (float32 and bf16); the launcher's own decode
     run follows, then a decode against a long cache seeded up to
-    ``long_pos`` of ``long_len``. Each is held against the plain path.
-    The launch counters are reset before and read after the whole path."""
+    ``long_pos`` of ``long_len`` (a sliding-window layer's ring wholly).
+    Each is held against the plain path. With ``consistency_window``,
+    ``decode_vs_forward`` follows over the prefill's first
+    ``CONSISTENCY_LEN`` tokens, the config's window cut to that many
+    rows (its launches and peak memory counted apart). The launch
+    counters are reset before and read after the whole path."""
     import torch
 
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving.predictor import ServeDriver
@@ -3133,6 +3188,15 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
     sizes = {"param_bytes": _tree_bytes(params),
              "cache_bytes": _tree_bytes(driver.cache)
              + _tree_bytes(long_driver.cache)}
+    by_mixer: dict = {}             # each mixer kind's first cache entry
+    for si, seg in enumerate(cfg.segments):
+        for i, spec in enumerate(seg.pattern):
+            entries = [c["segments"][si][f"pos{i}"]
+                       for c in (long_driver.cache, driver.cache)]
+            by_mixer.setdefault(spec.mixer, entries[0])
+            if spec.mixer == LOCAL_ATTN:
+                sizes["ring_bytes"] = sizes.get("ring_bytes", 0) + sum(
+                    map(_tree_bytes, entries))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
@@ -3150,18 +3214,34 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
         - after_serve["decode_attention"]
     if device.type == "cuda":
         sizes["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    consistency = None
+    if consistency_window:
+        consistency = decode_vs_forward(
+            dataclasses.replace(cfg, window_size=consistency_window),
+            params, tokens[:, :CONSISTENCY_LEN], device)
+        consistency["window"] = consistency_window
+        after = ops.launch_counts()
+        consistency["launches"] = {k: after[k] - launches[k]
+                                   for k in after}
+        launches = after
+        if device.type == "cuda":
+            consistency["peak_bytes"] = torch.cuda.max_memory_allocated()
     # one more step of the long run, profiled (after the comparisons)
     tok = torch.zeros((long_args.batch, 1), dtype=torch.int32, device=device)
     long_run["profile"] = profile_call(lambda: long_driver.step(tok), device)
     # the path's own attention inputs for the kernels' timing rows: a
-    # layer's q, k, v at the prefill's shapes, and a layer's cache of the
-    # long run with its first step's lengths
-    cache0 = long_driver.cache["segments"][0]["pos0"]
+    # layer's q, k, v at the prefill's shapes, and a global layer's cache
+    # of the long run with its first step's lengths (a windowed layer's
+    # ring apart, at its lengths)
+    glob, ring = by_mixer[ATTN], by_mixer.get(LOCAL_ATTN)
     return {"cfg": cfg, "prefill": prefill, "serve": serve_run,
             "long": long_run, "launches": launches, "sizes": sizes,
-            "layers": cfg.num_layers,
-            "decode_inputs": (cache0["k"][0], cache0["v"][0],
-                              long_pos + 1)}
+            "layers": cfg.num_layers, "consistency": consistency,
+            "decode_inputs": (glob["k"][0], glob["v"][0], long_pos + 1),
+            "ring_inputs": None if ring is None else (
+                ring["k"][0], ring["v"][0],
+                min(long_pos + 1, ring["k"].shape[2]))}
 
 
 def _attn_inputs(b, h, g, s, d, dtype, gen, device):
@@ -3235,7 +3315,6 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
@@ -3255,6 +3334,21 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
                  f"causal", flops=2.0 * b * h * s * s * d,
                  peak=BF16_PEAK_FLOPS, agreement="within 2e-2 of its plain "
                  "version")]
+    rows.append(decode_row(cfg, decode_inputs, gen, device))
+    return rows
+
+
+def decode_row(cfg, decode_inputs, gen, device) -> dict:
+    """``decode_attention`` timed against ``decode_inputs`` (a layer's
+    float32 cache of the long run and the length of its first step) with
+    a bf16 query, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` over the cache's valid rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    h, g, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ck, cv, length = decode_inputs
     n = ck.shape[0]
     qd = torch.randn((n, h, d), generator=gen, device=device).to(
@@ -3265,23 +3359,36 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
                        ref.decode_attention(qd, ck, cv, lengths), 2e-2)
     q4 = qd.float()[:, :, None]
     k4, v4 = (t[:, :length].transpose(1, 2) for t in (ck, cv))
-    rows.append(_row("decode_attention", "decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:63", err,
-                     lambda: da.decode_attention(qd, ck, cv, lengths),
-                     lambda: ref.decode_attention(qd, ck, cv, lengths),
-                     lambda: F.scaled_dot_product_attention(
-                         q4, k4, v4, enable_gqa=True),
-                     2 * n * length * g * d * 4 + 2 * n * h * d * 2,
-                     f"q ({n}, {h}, {d}) bf16 vs cache ({n}, "
-                     f"{ck.shape[1]}, {g}, {d}) f32, lengths {length}",
-                     flops=4.0 * n * length * h * d, peak=F32_PEAK_FLOPS,
-                     agreement="within 2e-2 of its plain version"))
-    return rows
+    return _row("decode_attention", "decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:63", err,
+                lambda: da.decode_attention(qd, ck, cv, lengths),
+                lambda: ref.decode_attention(qd, ck, cv, lengths),
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, enable_gqa=True),
+                2 * n * length * g * d * 4 + 2 * n * h * d * 2,
+                f"q ({n}, {h}, {d}) bf16 vs cache ({n}, "
+                f"{ck.shape[1]}, {g}, {d}) f32, lengths {length}",
+                flops=4.0 * n * length * h * d, peak=F32_PEAK_FLOPS,
+                agreement="within 2e-2 of its plain version")
 
 
 def _attn_layers(cfg) -> int:
-    from repro_torch.configs.base import ATTN
-    return sum(spec.mixer == ATTN for spec in cfg.layer_specs())
+    """Self-attention layers, global and sliding-window: each launches
+    ``decode_attention`` once a decode step."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN
+    return sum(spec.mixer in (ATTN, LOCAL_ATTN)
+               for spec in cfg.layer_specs())
+
+
+def _flash_layers(cfg, seq: int) -> int:
+    """The layers a forward over ``seq`` tokens runs through the flash
+    kernel: every global one, and a sliding-window one whose window masks
+    nothing at ``seq`` (seq <= window); past its window a windowed layer
+    takes a tensor-op branch."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN
+    return sum(spec.mixer == ATTN or (spec.mixer == LOCAL_ATTN
+                                      and seq <= cfg.window_size)
+               for spec in cfg.layer_specs())
 
 
 def _moe_layers(cfg) -> int:
@@ -3305,14 +3412,21 @@ def check_near_ties(label: str, routes) -> None:
 def report_lm(lm: dict) -> None:
     """Print the LM phase's numbers and hold them to their limits."""
     cfg, pre, n = lm["cfg"], lm["prefill"], lm["layers"]
-    launches = lm["launches"]
+    launches, sizes, cons = lm["launches"], lm["sizes"], lm["consistency"]
+    flash, dec = _flash_layers(cfg, PREFILL_LEN), _attn_layers(cfg)
     p50 = float(np.percentile(pre["ms"], 50))
+    rings = "" if "ring_bytes" not in sizes else (
+        f" (global {sizes['cache_bytes'] - sizes['ring_bytes']}, "
+        f"sliding-window rings of min({cfg.window_size}, max_len) rows "
+        f"{sizes['ring_bytes']})")
     print(f"LM serving: {cfg.name} at full width ({n} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
-          f"vocab {cfg.vocab_size}), random weights from seed {SEED}; "
-          f"params {lm['sizes']['param_bytes']} bytes, KV caches "
-          f"{lm['sizes']['cache_bytes']} bytes, peak device memory "
-          f"{lm['sizes'].get('peak_bytes')} bytes", flush=True)
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"of {cfg.head_dim}, vocab {cfg.vocab_size}"
+          + (f", window {cfg.window_size}" if cfg.window_size else "")
+          + f"), random weights from seed {SEED}; params "
+          f"{sizes['param_bytes']} bytes, KV caches {sizes['cache_bytes']}"
+          f" bytes{rings}, peak device memory {sizes.get('peak_bytes')} "
+          f"bytes", flush=True)
     print(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN} bf16: p50 {p50:.3f} ms "
           f"over {len(pre['ms'])} ({PREFILL_BATCH * PREFILL_LEN / p50 * 1e3:.0f}"
           f" tokens/s); flash_attention launches per forward "
@@ -3360,15 +3474,29 @@ def report_lm(lm: dict) -> None:
               + ", ".join(f"{k} {v:.3f} ms ({100 * v / moe['forward_ms']:.1f}"
                           f"%)" for k, v in moe["ms"].items())
               + f"; layer 0's expert counts {moe['layer0_counts']}")
+    if cons is not None:
+        report_consistency(cons)
     print(f"  launches in the LM path: {launches}")
     steps = lm["serve"]["steps"] + lm["long"]["steps"]
     gathers = 1 + 2 * _moe_layers(cfg)      # the token gather, 2 a MoE
-    want = {"flash_attention": n * pre["forwards"],
-            "decode_attention": n * steps,
+    want = {"flash_attention": flash * pre["forwards"],
+            "decode_attention": dec * steps,
             "embedding_lookup": gathers * (pre["forwards"] + steps)}
-    if pre["per_forward"] != n or {k: launches[k] for k in want} != want:
+    if cons is not None:
+        own = {"flash_attention": cons["forwards"] * _flash_layers(
+                   dataclasses.replace(cfg, window_size=cons["window"]),
+                   CONSISTENCY_LEN),
+               "decode_attention": dec * cons["steps"],
+               "embedding_lookup": gathers * (cons["forwards"]
+                                              + cons["steps"])}
+        if {k: cons["launches"][k] for k in own} != own:
+            raise AssertionError(f"decode vs forward launches "
+                                 f"{cons['launches']}, want {own}")
+        want = {k: want[k] + own[k] for k in want}
+    if pre["per_forward"] != flash or \
+            {k: launches[k] for k in want} != want:
         raise AssertionError(f"LM launches {launches}, want {want} and "
-                             f"{n} per forward")
+                             f"{flash} per forward")
     if pre["f32_dev"] > F32_LOGIT_ATOL:
         raise AssertionError(f"float32 prefill logits deviate by "
                              f"{pre['f32_dev']:.3g}")
@@ -3377,6 +3505,37 @@ def report_lm(lm: dict) -> None:
                 lm["long"]["max_dev"])
     if worst > BF16_LOGIT_BOUND:
         raise AssertionError(f"bf16 logits deviate by {worst:.3g}")
+
+
+def report_consistency(cons: dict) -> None:
+    """Print ``decode_vs_forward``'s figures (with a windowed model's cut,
+    ``cons["window"]``: the forward block-local and every ring wrapping)
+    and hold the float64 run to ``F64_DECODE_ATOL`` and the float32 and
+    bf16 runs to finite logits."""
+    w = cons.get("window")
+    cut = "" if w is None else (
+        f" with the window cut to {w} (the forward block-local, each ring "
+        f"of {w} rows wrapping {CONSISTENCY_LEN // w - 1} times)")
+    peak = "" if "peak_bytes" not in cons else (
+        f"; peak device memory {cons['peak_bytes']} bytes")
+    c = cons["float64"]
+    print(f"  decode against forward over {CONSISTENCY_LEN} tokens{cut}, "
+          f"float64 (params, cache and every float32 step; plain path): "
+          f"max deviation {c['dev'][0]:.3g} (limit {F64_DECODE_ATOL}), "
+          f"greedy tokens agree {c['dev'][1]:.4f}{peak}")
+    for label in ("float32", "bf16"):
+        c = cons[label]
+        print(f"  decode against forward over {CONSISTENCY_LEN} tokens, "
+              f"{label} (params and cache): max deviation {c['dev'][0]:.3g},"
+              f" greedy tokens agree {c['dev'][1]:.4f}; from the float64 "
+              f"forward: decode {c['dec']:.3g}, forward {c['fwd']:.3g}",
+              flush=True)
+    if not cons["float64"]["dev"][0] <= F64_DECODE_ATOL:
+        raise AssertionError(f"float64 decode deviates from the forward by "
+                             f"{cons['float64']['dev'][0]:.3g}")
+    if not all(np.isfinite(cons[k][m]) for k in ("float32", "bf16")
+               for m in ("dec", "fwd")):
+        raise AssertionError(f"decode or forward logits not finite: {cons}")
 
 
 # ---------------------------------------------------------------------------
@@ -3551,6 +3710,8 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
     if layers:
         cfg32 = dataclasses.replace(cfg32, remat=False, segments=tuple(
             Segment(seg.pattern, layers) for seg in cfg.segments))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg32, torch.Generator(device=device).manual_seed(
         SEED))
     batch = {"tokens": _batch_ids(cfg, device)}
@@ -3581,7 +3742,9 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
     if max(devs.values()) > F32_GRAD_BOUND:
         raise AssertionError(f"float32 grads deviate: {devs}")
     return {"loss": lk, "plain_loss": lp, "grad_devs": devs,
-            "layers": cfg32.num_layers, "routes": route_cmp}
+            "layers": cfg32.num_layers, "routes": route_cmp,
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if device.type == "cuda" else None}
 
 
 def model_flops(cfg, batch: int, seq: int) -> float:
@@ -3592,22 +3755,25 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     its in-projections to z, x, B, C and dt and its out_proj; a MoE layer
     counts its router and its k active experts, not the capacity's
     padding), plus 3x the forward's products that have no parameters:
-    causal attention's two, 2 * B * H * S^2 * hd a layer, and the SSD's
+    causal attention's two, 2 * B * H * S^2 * hd a layer (a
+    sliding-window layer 2 * B * H * S * min(S, W) * hd), and the SSD's
     four a chunk of l = ``ssm_chunk`` positions (nc = ceil(S / l) chunks,
     H heads of P, state N), counted over the whole (l, l) square the
     port computes: CB 2 * l^2 * N, y_diag 2 * H * l^2 * P, states and
     y_off 2 * H * l * P * N each, a Mamba layer B * nc * (2 l^2 N + 2 H
     l^2 P + 4 H l P N)."""
-    from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA, MLP, MOE
     d, f = cfg.d_model, cfg.d_ff
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     di, n, nh, hp, l = (cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads,
                         cfg.ssm_head_dim, cfg.ssm_chunk)
     matmul, other = cfg.padded_vocab * d, 0.0
     for spec in cfg.layer_specs():
-        if spec.mixer == ATTN:
+        if spec.mixer in (ATTN, LOCAL_ATTN):
+            keys = min(seq, cfg.window_size) if spec.mixer == LOCAL_ATTN \
+                else seq
             matmul += 2 * d * h * hd + 2 * d * g * hd
-            other += 2.0 * batch * h * seq * seq * hd
+            other += 2.0 * batch * h * seq * keys * hd
         elif spec.mixer == MAMBA:
             matmul += d * (2 * di + 2 * n + nh) + di * d
             other += batch * -(-seq // l) * (2.0 * l * l * n
@@ -3745,9 +3911,11 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     rec["metrics"] = engine.metrics()
     if cfg.num_experts:
         rec["experts"] = expert_flushes(cfg, engine, routed)
-    del engine, collect, logging_collect    # its replica's host arrays
+    # its replica's host arrays; the driver's swapped-in params
+    del engine, collect, logging_collect, driver, logits, swapped
     gc.collect()
     rec["int8"] = int8_flush(cfg, initial, state.params, device)
+    del initial
     # one more train step, profiled (after every count and comparison)
     batch = {"tokens": torch.from_numpy(next(batches)).to(device)}
     rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
@@ -3891,7 +4059,8 @@ def report_lm_train(lm: dict, f32: dict) -> None:
           f"{f32['plain_loss']:.6f} (limit rtol {F32_LOSS_RTOL}); grads max "
           f"|deviation| / max |grad|: "
           + ", ".join(f"{k} {v:.3g}" for k, v in f32["grad_devs"].items())
-          + f" (limit {F32_GRAD_BOUND})")
+          + f" (limit {F32_GRAD_BOUND}); peak device memory "
+          f"{f32['peak_bytes']} bytes")
     if f32["routes"] is not None:
         print(_routes_line("float32 train step", f32["routes"]))
     print(f"  {steps} steps of {args.batch} x {args.seq}: step p50 "
@@ -3940,7 +4109,8 @@ def report_lm_train(lm: dict, f32: dict) -> None:
     # pass (remat's recompute runs them again) and their two gradients
     want = {"embedding_scatter_add": steps * (1 + 2 * moe),
             "embedding_lookup": steps * (1 + 2 * passes * moe),
-            "flash_attention": passes * attn * steps}
+            "flash_attention": passes * _flash_layers(cfg, args.seq)
+            * steps}
     if {k: rec["launches"][k] for k in want} != want:
         raise AssertionError(f"training launches {rec['launches']}, want "
                              f"{want}")
@@ -4069,7 +4239,7 @@ def ssd_recurrence_check(device, *, batch: int, seq: int, heads: int,
             "shape": (batch, seq, heads, head_dim, state, chunk)}
 
 
-def ssm_gather_row(cfg, device) -> dict:
+def token_gather_row(cfg, device) -> dict:
     """The token gather at the bf16 prefill's shape: 4 x 2048 ids from
     the (padded_vocab, d_model) bf16 table, bit-equal to its plain
     version and timed beside its bound and ``index_select``; returned as
@@ -4258,17 +4428,7 @@ def report_ssm(lm: dict, ssd: dict) -> None:
           f"{run['finite']}; teacher-forced logits vs the plain path: max "
           f"deviation {run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), "
           f"greedy tokens agree {run['agree']:.4f}", flush=True)
-    c = cons["float64"]
-    print(f"  decode against forward over {CONSISTENCY_LEN} tokens, float64 "
-          f"(params, cache and every float32 step; plain path): max "
-          f"deviation {c['dev'][0]:.3g} (limit {F64_DECODE_ATOL}), greedy "
-          f"tokens agree {c['dev'][1]:.4f}")
-    for label in ("float32", "bf16"):
-        c = cons[label]
-        print(f"  decode against forward over {CONSISTENCY_LEN} tokens, "
-              f"{label} (params and cache): max deviation {c['dev'][0]:.3g},"
-              f" greedy tokens agree {c['dev'][1]:.4f}; from the float64 "
-              f"forward: decode {c['dec']:.3g}, forward {c['fwd']:.3g}")
+    report_consistency(cons)
     print(_profile_line(f"bf16 prefill ({PREFILL_BATCH} x {PREFILL_LEN})",
                         pre["profile"]))
     share = pre["ssm"]
@@ -4292,12 +4452,184 @@ def report_ssm(lm: dict, ssd: dict) -> None:
     if worst > BF16_LOGIT_BOUND or not run["finite"]:
         raise AssertionError(f"bf16 logits deviate from the plain path by "
                              f"{worst:.3g} or the launcher's are not finite")
-    if not cons["float64"]["dev"][0] <= F64_DECODE_ATOL:
-        raise AssertionError(f"float64 decode deviates from the forward by "
-                             f"{cons['float64']['dev'][0]:.3g}")
-    if not all(np.isfinite(cons[k][m]) for k in ("float32", "bf16")
-               for m in ("dec", "fwd")):
-        raise AssertionError(f"decode or forward logits not finite: {cons}")
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window attention: gemma3-4b served and trained at full width
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma3-4b"
+GEMMA_SERVE_ARGV = ("--arch", GEMMA_ARCH, *SERVE_ARGV[2:])
+# 4 steps and a sync period of 3 on the step clock, as MOE_TRAIN_ARGV
+GEMMA_TRAIN_ARGV = ("--arch", GEMMA_ARCH, *MOE_TRAIN_ARGV[2:])
+GEMMA_GRAD_LEAVES = (("embed", "embed", None),
+                     ("layer 0 wq", "segments/0/pos0/mixer/wq", 0),
+                     ("last layer w_down", "segments/1/pos0/ffn/w_down",
+                      -1))
+# decode against forward over CONSISTENCY_LEN tokens with the window cut to
+# 16 rows: the forward takes the block-local branch (64 % 16 == 0) and
+# every ring wraps three times; at the published 1024 neither happens
+GEMMA_CHECK_WINDOW = 16
+# one sliding-window layer at full width against a float64 oracle: S
+# spans two windows, so the block-local branch runs, float32
+WINDOW_ORACLE_LEN = 2048
+WINDOW_ORACLE_BOUND = 1e-5          # of the largest magnitude
+# decode positions of a batch of 4 against the 1,024-row ring: before the
+# first wrap, across it, and two wraps on
+RING_POSITIONS = ((0, 511, 1022, 1023), (1024, 1500, 2047, 2048),
+                  (2600, 3071, 3072, 4000))
+
+
+def check_ring_decode(cfg, device) -> list[str]:
+    """``decode_attention`` against its plain version on a sliding-window
+    layer's ring of ``window_size`` rows at lengths ``min(pos + 1, W)``
+    for ``RING_POSITIONS``, within 2e-5 (float32) and 2e-2 (bf16)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 37)
+    h, g, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.window_size
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    lines = []
+    for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                              (torch.bfloat16, torch.float32),
+                              (torch.bfloat16, torch.bfloat16)):
+        k, v = (torch.randn((4, w, g, d), generator=gen, device=device)
+                .to(kv_dtype) for _ in range(2))
+        worst = 0.0
+        for pos in RING_POSITIONS:
+            lengths = torch.clamp(torch.tensor(pos, device=device,
+                                               dtype=torch.int32) + 1, max=w)
+            q = torch.randn((4, h, d), generator=gen, device=device).to(
+                q_dtype)
+            worst = max(worst, _check_close(
+                "decode_attention on the ring",
+                da.decode_attention(q, k, v, lengths),
+                ref.decode_attention(q, k, v, lengths), tol[q_dtype]))
+        lines.append(f"decode_attention q (4, {h}, {d}) {str(q_dtype)[6:]} "
+                     f"vs a ring (4, {w}, {g}, {d}) {str(kv_dtype)[6:]} at "
+                     f"lengths min(pos + 1, {w}), positions "
+                     f"{RING_POSITIONS}: max deviation {worst:.3g}")
+    _sync(device)
+    return lines
+
+
+def window_oracle_check(cfg, device, seq: int) -> dict:
+    """One sliding-window layer's ``self_attention`` at full width on 1 x
+    ``seq`` tokens in float32 (seq > window, a multiple of it: the
+    block-local branch) against a float64 oracle written from the
+    definition: a causal softmax over the keys ``i - W < j <= i``,
+    computed over the whole (seq, seq) square. Projections, scores,
+    softmax and output run in float64; the rotation is the model's own
+    (float32 angles, as the reference's). Weights at the model's init
+    scale from the seed. Returns the largest deviation over the oracle's
+    largest magnitude and the layer's time (host clock around calls that
+    end in a synchronize)."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import dense_init, rope
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    d, h, g, e, w = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim, cfg.window_size)
+    f32 = torch.float32
+    p = {"wq": dense_init(gen, (d, h, e), d, f32),
+         "wk": dense_init(gen, (d, g, e), d, f32),
+         "wv": dense_init(gen, (d, g, e), d, f32),
+         "wo": dense_init(gen, (h, e, d), h * e, f32)}
+    x = torch.randn((1, seq, d), generator=gen, device=device)
+    pos = torch.arange(seq, device=device)[None]
+    with torch.no_grad():
+        got = attn.self_attention(p, x, pos, cfg=cfg, window=w)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            attn.self_attention(p, x, pos, cfg=cfg, window=w)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        p64, x64 = {k: v.double() for k, v in p.items()}, x.double()
+        q = rope(torch.einsum("bsd,dhe->bshe", x64, p64["wq"]), pos,
+                 cfg.rope_theta)
+        k = rope(torch.einsum("bsd,dge->bsge", x64, p64["wk"]), pos,
+                 cfg.rope_theta).repeat_interleave(h // g, dim=2)
+        v = torch.einsum("bsd,dge->bsge", x64, p64["wv"]).repeat_interleave(
+            h // g, dim=2)
+        scores = torch.einsum("bshe,bthe->bhst", q, k) * e ** -0.5
+        i, j = pos[0][:, None], pos[0][None, :]
+        scores.masked_fill_(~((j <= i) & (j > i - w)), float("-inf"))
+        out = torch.einsum("bhst,bthe->bshe", torch.softmax(scores, -1), v)
+        want = torch.einsum("bshe,hed->bsd", out, p64["wo"])
+    return {"dev": _rel_dev(got, want), "bound": WINDOW_ORACLE_BOUND,
+            "finite": bool(torch.isfinite(got).all()),
+            "ms": float(np.median(ms)), "shape": (1, seq, d), "window": w}
+
+
+def window_serving_phase(dev, by_name: dict) -> dict:
+    """Phase 6d: gemma3-4b served at full width. The kernels at its
+    shapes against their plain versions (flash and the global decode as
+    ``check_lm_kernels``, the decode on a ring, the token gather timed),
+    one block-local layer against the float64 oracle, then ``drive_lm``
+    with ``GEMMA_SERVE_ARGV`` and decode against forward at a window of
+    ``GEMMA_CHECK_WINDOW``. The kernels' timing rows at its shapes ride
+    on ``by_name``'s entries; returns the path's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA_ARCH)
+    print(f"Sliding-window serving: host memory available "
+          f"{host_available()} bytes; LM kernels against their plain "
+          f"versions at {GEMMA_ARCH}'s shapes:", flush=True)
+    for line in check_lm_kernels(cfg, dev) + check_ring_decode(cfg, dev):
+        print(f"  {line}")
+    by_name["embedding_lookup"][GEMMA_ARCH] = token_gather_row(cfg, dev)
+    oracle = window_oracle_check(cfg, dev, seq=WINDOW_ORACLE_LEN)
+    print(f"  one sliding-window layer's self_attention at {oracle['shape']},"
+          f" window {oracle['window']}, float32 (the block-local branch) vs "
+          f"a float64 masked-softmax oracle: {oracle['dev']:.3g} of the "
+          f"largest magnitude (limit {oracle['bound']}), finite "
+          f"{oracle['finite']}; {oracle['ms']:.3f} ms a call", flush=True)
+    if not (oracle["finite"] and oracle["dev"] <= oracle["bound"]):
+        raise AssertionError(f"block-local attention vs the oracle: {oracle}")
+    lm = drive_lm(dev, GEMMA_SERVE_ARGV, prefill_batch=PREFILL_BATCH,
+                  prefill_len=PREFILL_LEN, prefill_reps=PREFILL_REPS,
+                  long_len=LONG_LEN, long_pos=LONG_POS, long_steps=LONG_STEPS,
+                  consistency_window=GEMMA_CHECK_WINDOW)
+    report_lm(lm)
+    timed = lm_kernel_rows(cfg, lm.pop("decode_inputs"), dev)
+    timed.append(decode_row(cfg, lm.pop("ring_inputs"), torch.Generator(
+        device=dev).manual_seed(SEED + 43), dev))
+    for row, key in zip(timed, (GEMMA_ARCH, GEMMA_ARCH,
+                                f"{GEMMA_ARCH} ring")):
+        by_name[row["name"]][key] = {k: row[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}
+    return lm["launches"]
+
+
+def window_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
+    """Phase 7d: gemma3-4b trained at full width (bf16, Adam, remat): the
+    scatter-add at its shape (its timing row rides on ``by_name``'s
+    entry), one float32 step against the plain path at all 34 layers,
+    ``drive_lm_train`` with ``GEMMA_TRAIN_ARGV``. Returns the launches of
+    the training run and of its hot-swap decode."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA_ARCH)
+    print(f"Sliding-window training: host memory available "
+          f"{host_available()} bytes; the embedding gradient at "
+          f"{GEMMA_ARCH}'s shape:", flush=True)
+    sa = scatter_add_row(cfg, dev, split=False)
+    by_name["embedding_scatter_add"][GEMMA_ARCH] = {k: sa[k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")}
+    f32 = check_train_f32(cfg, dev, GEMMA_GRAD_LEAVES)
+    torch.cuda.empty_cache()
+    lm = drive_lm_train(dev, GEMMA_TRAIN_ARGV, decode_steps=SWAP_DECODE_STEPS)
+    report_lm_train(lm, f32)
+    return lm["run"]["launches"], lm["run"]["decode"]["launches"]
 
 
 def main() -> int:
@@ -4505,7 +4837,7 @@ def main() -> int:
     ssm_cfg = get_config(SSM_ARCH)
     print(f"SSM serving: host memory available {host_available()} bytes; "
           f"the token gather at {SSM_ARCH}'s shape:", flush=True)
-    by_name["embedding_lookup"][SSM_ARCH] = ssm_gather_row(ssm_cfg, dev)
+    by_name["embedding_lookup"][SSM_ARCH] = token_gather_row(ssm_cfg, dev)
     ssd = ssd_recurrence_check(dev, **SSD_SHAPE)
     torch.cuda.empty_cache()
     ssm_lm = drive_ssm(dev, SSM_SERVE_ARGV, prefill_batch=PREFILL_BATCH,
@@ -4572,6 +4904,19 @@ def main() -> int:
     del ssm_train
     print(f"SSM training phase in {time.perf_counter() - t:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths[f"{GEMMA_ARCH} serving"] = window_serving_phase(dev, by_name)
+    print(f"sliding-window serving phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    by_name = {row["name"]: row for row in kernels}
+    paths[f"{GEMMA_ARCH} training run"], \
+        paths[f"{GEMMA_ARCH} hot-swap decode"] = window_training_phase(
+            dev, by_name)
+    print(f"sliding-window training phase in {time.perf_counter() - t:.1f} "
+          f"s", flush=True)
     for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}
         print(f"launches of {name} by path: "

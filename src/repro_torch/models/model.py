@@ -1,7 +1,8 @@
 """LM composition: parameter init, full-sequence forward (prefill and
 training) and single-token decode — the counterpart of the reference's
-``models/model.py`` for stacks of global attention and Mamba-2 mixers
-(``models.ssm``) with an ``MLP``, a ``MOE`` (``models.moe``) or no FFN.
+``models/model.py`` for stacks of global and sliding-window attention
+and Mamba-2 mixers (``models.ssm``) with an ``MLP``, a ``MOE``
+(``models.moe``) or no FFN.
 
 Parameters are a plain dict with the reference's nesting (``embed``,
 ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"]``, ``lm_head``
@@ -20,8 +21,9 @@ kernel forward, ``embedding_scatter_add`` backward.
 A MoE layer returns its aux loss and expert counts beside its output (out
 of the checkpointed block too, as tensors); ``forward`` returns them as
 the reference's metrics. A Mamba layer's decode cache is its conv state
-and its float32 SSM state, updated in place. Sliding-window, encoder and
-cross attention, and encoder-decoder or frontend-context models raise
+and its float32 SSM state, updated in place; a sliding-window layer's a
+ring of ``min(window_size, seq_len)`` K/V rows. Encoder and cross
+attention, and encoder-decoder or frontend-context models raise
 ``NotImplementedError``.
 """
 
@@ -34,8 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, MAMBA, MLP, MOE, NONE, LayerSpec,
-                                      ModelConfig, Segment)
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, MLP, MOE, NONE,
+                                      LayerSpec, ModelConfig, Segment)
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -56,12 +58,12 @@ def _check_ported(cfg: ModelConfig) -> None:
     not run yet."""
     for seg in cfg.segments:
         for spec in seg.pattern:
-            if spec.mixer not in (ATTN, MAMBA) or \
+            if spec.mixer not in (ATTN, LOCAL_ATTN, MAMBA) or \
                     spec.ffn not in (MLP, MOE, NONE):
                 raise NotImplementedError(
                     f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is not "
-                    f"ported yet; the port runs {ATTN} and {MAMBA} mixers "
-                    f"with {MLP}, {MOE} or {NONE} FFNs")
+                    f"ported yet; the port runs {ATTN}, {LOCAL_ATTN} and "
+                    f"{MAMBA} mixers with {MLP}, {MOE} or {NONE} FFNs")
     if cfg.encoder_segments or cfg.has_encoder_context:
         raise NotImplementedError(f"{cfg.name}: encoder / frontend context "
                                   f"is not ported yet")
@@ -139,7 +141,8 @@ def _init_mamba(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
     }
 
 
-_MIXER_INIT = {ATTN: _init_attn, MAMBA: _init_mamba}
+_MIXER_INIT = {ATTN: _init_attn, LOCAL_ATTN: _init_attn,
+               MAMBA: _init_mamba}
 _FFN_INIT = {MLP: _init_mlp, MOE: _init_moe}
 
 
@@ -216,7 +219,8 @@ def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
     if spec.mixer == MAMBA:
         x = x + ssm.mamba_block(mx, h, cfg)
     else:
-        x = x + attn.self_attention(mx, h, pos, cfg=cfg)
+        window = cfg.window_size if spec.mixer == LOCAL_ATTN else 0
+        x = x + attn.self_attention(mx, h, pos, cfg=cfg, window=window)
     if spec.ffn == NONE:
         return x, None, None
     dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
@@ -237,7 +241,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     Only the default positions ``arange(S)`` are supported: the flash
     kernel masks by index, so ``positions`` must be None; ``enc_context``
-    too (no encoder or frontend context is ported)."""
+    too (no encoder or frontend context is ported). A sliding-window
+    layer takes ``attention.self_attention``'s branches by S and the
+    window, and raises where the reference does."""
     _check_ported(cfg)
     if enc_context is not None:
         raise NotImplementedError("enc_context: no encoder or frontend "
@@ -301,9 +307,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                kv_quant: bool = False) -> dict:
     """Zeroed cache mirroring the segment structure: ``{"segments":
     [{"pos{i}": entry}]}``, an attention position's entry ``{"k", "v":
-    (repeats, batch, seq_len, Kv, hd)}`` in ``dtype``, a Mamba position's
-    ``{"conv": (repeats, batch, K - 1, d_inner + 2 N)}`` in ``dtype`` and
-    ``{"state": (repeats, batch, H, P, N)}`` in float32."""
+    (repeats, batch, seq_len, Kv, hd)}`` in ``dtype`` (a sliding-window
+    position's a ring of ``min(window_size, seq_len)`` rows), a Mamba
+    position's ``{"conv": (repeats, batch, K - 1, d_inner + 2 N)}`` in
+    ``dtype`` and ``{"state": (repeats, batch, H, P, N)}`` in float32."""
     _check_ported(cfg)
     if kv_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet")
@@ -319,7 +326,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                     "state": zeros(r, batch, cfg.ssm_num_heads,
                                    cfg.ssm_head_dim, cfg.ssm_state,
                                    dt=torch.float32)}
-        shape = (r, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+        rows = min(cfg.window_size, seq_len) if spec.mixer == LOCAL_ATTN \
+            else seq_len
+        shape = (r, batch, rows, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
     return {"segments": [
@@ -339,12 +348,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     counts are not returned.
 
     A Mamba layer ignores ``pos``: its conv and SSM states are overwritten
-    with the step's new ones.
+    with the step's new ones. A sliding-window layer writes its ring at
+    ``pos % rows``, its window clamped to the ring's rows as the
+    reference's ``_decode_mixer`` clamps it, so a ring never runs out.
 
-    A position past the cache raises (the reference drops the write): on
-    the CPU at once, on the card as a device-side assert of the cache
-    write or the decode kernel, raised at the next synchronisation — the
-    step itself never reads back from the device."""
+    A position past a global layer's cache raises (the reference drops
+    the write): on the CPU at once, on the card as a device-side assert
+    of the cache write or the decode kernel, raised at the next
+    synchronisation — the step itself never reads back from the
+    device."""
     _check_ported(cfg)
     x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
@@ -360,8 +372,11 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                     lc["conv"].copy_(conv)
                     lc["state"].copy_(state)
                 else:
+                    window = min(cfg.window_size, lc["k"].shape[1]) \
+                        if spec.mixer == LOCAL_ATTN else 0
                     dx, _ = attn.decode_self_attention(mx, h, pos, lc,
-                                                       cfg=cfg)
+                                                       cfg=cfg,
+                                                       window=window)
                 x = x + dx
                 if spec.ffn != NONE:
                     x = x + _apply_ffn(spec, lp["ffn"], x, cfg)[0]

@@ -20,8 +20,10 @@ Design constraints, in order:
   queue-dwell span and parent the apply under it.
 
 ``summarize`` renders exported spans as per-stage span counts and
-p50/p99 durations, plus the slowest trace printed as a causal tree. The
-Perfetto JSON export and its command-line viewer are not ported yet.
+p50/p99 durations, plus the slowest trace printed as a causal tree;
+``obs.perfetto`` writes and loads the Chrome/Perfetto JSON, and ``main``
+is the viewer of such a dump: ``python -m repro_torch.obs.trace
+trace.json [--slowest N]``.
 """
 
 from __future__ import annotations
@@ -345,3 +347,28 @@ def summarize(spans: list, slowest: int = 3) -> str:
                      f"{len(group)} spans)")
         lines.append(format_tree(group))
     return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    from repro_torch.obs import perfetto
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.obs.trace",
+        description="Summarize an exported Perfetto/Chrome trace: "
+                    "per-stage p50/p99 and the slowest causal trees.")
+    ap.add_argument("path", help="trace JSON written by obs.perfetto")
+    ap.add_argument("--slowest", type=int, default=3, metavar="N",
+                    help="how many slowest traces to dump (default 3)")
+    args = ap.parse_args(argv)
+    spans = perfetto.load_spans(args.path)
+    if not spans:
+        print(f"{args.path}: no spans")
+        return 1
+    print(summarize(spans, slowest=args.slowest))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -181,8 +181,8 @@ def test_unported_attention_modes_raise(mode):
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
     with pytest.raises(NotImplementedError):
-        if mode == "window":
-            port_attn.self_attention(p, x, pos, cfg=cfg, window=2)
+        if mode == "window":        # past one chunk, S % window != 0
+            port_attn.self_attention(p, x, pos, cfg=cfg, window=3, chunk=2)
         elif mode == "encoder":
             port_attn.self_attention(p, x, pos, cfg=cfg, causal=False)
         else:

@@ -24,6 +24,8 @@ codecs are held bit-equal in ``test_torch_streaming.py`` and
 ``test_torch_checkpoint.py``."""
 
 import dataclasses
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -260,3 +262,44 @@ def test_perfetto_matches_reference(tmp_path):
     assert [s["name"] for s in got] == ["sync.push", "sync.apply", "mark"]
     assert pf.merge_spans(got, got[:1], None) == \
         ref_pf.merge_spans(got, got[:1], None) == got
+
+
+def test_trace_viewer_matches_reference(tmp_path, capsys):
+    """``python -m repro_torch.obs.trace <dump>`` prints the reference
+    viewer's report for the same dump: a tracer's spans exported through
+    the port's ``obs.perfetto`` (two traces, a nested span and an
+    annotation); a dump with no spans exits 1 in both."""
+    import subprocess
+    import sys
+
+    from repro.obs import trace as ref_trace
+    from repro_torch.obs import perfetto as pf
+    from repro_torch.obs import trace as obs_trace
+    t = [0.0]
+
+    def clock():
+        t[0] += 0.001
+        return t[0]
+
+    tracer = obs_trace.Tracer(enabled=True, process="master-0", clock=clock)
+    for _ in range(2):
+        with tracer.span("sync.push", groups=2):
+            with tracer.span("sync.encode"):
+                pass
+    tracer.instant("fault.kill", target="master-1")
+    path = tmp_path / "t.json"
+    assert pf.write_trace(str(path), tracer.export()) == 5
+    assert obs_trace.main([str(path), "--slowest", "2"]) == 0
+    got = capsys.readouterr().out
+    assert ref_trace.main([str(path), "--slowest", "2"]) == 0
+    assert got == capsys.readouterr().out
+    assert "sync.encode" in got and "fault.kill" in got
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-m", "repro_torch.obs.trace",
+                          str(path)], cwd=root, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0 and "sync.push" in out.stdout
+    empty = tmp_path / "empty.json"
+    assert pf.write_trace(str(empty), []) == 0
+    assert obs_trace.main([str(empty)]) == 1 == ref_trace.main([str(empty)])

@@ -630,6 +630,7 @@ def _tol(dtype):
     (1, 4, 2, 17, 300, 64),           # S far below T (a ragged TMA box)
     (1, 4, 2, 1000, 1000, 256),       # the wide head at a ragged S
     (2, 24, 8, 1000, 1000, 64),       # granite-moe's heads: 3 a group
+    (4, 8, 4, 2048, 2048, 256),       # gemma3-4b's prefill: 2 a group
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -689,6 +690,63 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, d,
     for i, n in enumerate(lengths.tolist()):
         k2[i, n:], v2[i, n:] = 1e6, float("nan")
     assert torch.equal(port_da.decode_attention(q, k2, v2, lengths), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_decode_attention_on_a_ring_on_card(cuda, q_dtype, kv_dtype):
+    """gemma3-4b's sliding-window decode: q (4, 8, 256) against a ring of
+    1,024 rows at lengths ``min(pos + 1, 1024)`` for positions before,
+    at and past the first wraps, within the plain version's tolerance;
+    then ``decode_self_attention(window=1024)`` on the card against the
+    same call on the plain path, its ring written at ``pos % 1024``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as port_da
+    from repro_torch.models import attention as port_attn
+    cfg = get_config("gemma3-4b")
+    w, h, g, d = cfg.window_size, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    pos = torch.tensor([0, 700, 1024, 3000], device=cuda, dtype=torch.int32)
+    lengths = torch.clamp(pos + 1, max=w)
+    q = torch.randn((4, h, d), generator=gen, device=cuda).to(q_dtype)
+    k, v = (torch.randn((4, w, g, d), generator=gen, device=cuda)
+            .to(kv_dtype) for _ in range(2))
+    before = port_da.decode_attention.launches
+    got = port_da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert port_da.decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), port_ref.decode_attention(q, k, v, lengths).float(),
+        rtol=_tol(q_dtype), atol=_tol(q_dtype))
+    p = {name: (torch.randn(shape, generator=gen, device=cuda)
+                * shape[0] ** -0.5).to(q_dtype)
+         for name, shape in (("wq", (cfg.d_model, h, d)),
+                             ("wk", (cfg.d_model, g, d)),
+                             ("wv", (cfg.d_model, g, d)),
+                             ("wo", (h, d, cfg.d_model)))}
+    x = torch.randn((4, 1, cfg.d_model), generator=gen,
+                    device=cuda).to(q_dtype)
+    out = {}
+    for path in ("kernel", "plain"):
+        cache = {"k": k.clone(), "v": v.clone()}
+        saved = port_ops.decode_attention
+        if path == "plain":
+            port_ops.decode_attention = port_ref.decode_attention
+        try:
+            out[path] = port_attn.decode_self_attention(
+                p, x, pos, cache, cfg=cfg, window=w)[0], cache
+        finally:
+            port_ops.decode_attention = saved
+    (a, ca), (b, cb) = out["kernel"], out["plain"]
+    torch.testing.assert_close(a.float(), b.float(), rtol=_tol(q_dtype),
+                               atol=_tol(q_dtype))
+    assert torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"])
+    slot = (pos % w).long()
+    assert not torch.equal(ca["k"][torch.arange(4), slot],
+                           k[torch.arange(4), slot])
 
 
 @pytest.mark.cuda
@@ -1091,9 +1149,24 @@ def test_token_gather_at_mamba2_shape_on_card(cuda, dtype):
     """The token gather at mamba2's shape (8,192 ids x 2,048 from its
     50,432-row table) and its gradient, one launch each, bit-equal to
     their plain versions."""
+    _token_gather_case(cuda, "mamba2-1.3b", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_gather_at_gemma3_shape_on_card(cuda, dtype):
+    """The token gather and its gradient (the scatter-add) at gemma3's
+    width: 8,192 ids x 2,560 from its tied 262,144-row table."""
+    _token_gather_case(cuda, "gemma3-4b", dtype)
+
+
+def _token_gather_case(cuda, arch: str, dtype) -> None:
+    """8,192 token ids through ``common.gather_rows`` on ``arch``'s
+    (padded_vocab, d_model) table and back: one launch of the gather and
+    one of the scatter-add, each bit-equal to its plain version."""
     from repro_torch.configs import get_config
     from repro_torch.models import common
-    cfg = get_config("mamba2-1.3b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=cuda).manual_seed(5)
     table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=cuda).to(dtype)

@@ -1,8 +1,11 @@
-"""The port's fault-tolerance examples run end to end on the CPU, as
-subprocesses at a small size: ``examples/fault_tolerance_demo_torch.py``
-(hot failover, partial cold recovery, the domino downgrade) and
+"""The port's examples run end to end on the CPU, as subprocesses at a
+small size: ``examples/fault_tolerance_demo_torch.py`` (hot failover,
+partial cold recovery, the domino downgrade),
 ``examples/reshard_migration_torch.py`` (a 10 → 20 shard migration,
-bit-identical across it)."""
+bit-identical across it), ``examples/serve_lm_torch.py`` (reduced
+gemma3-4b decoding across hot swaps, its rings of 16 rows wrapping) and
+``examples/train_lm_torch.py`` (reduced qwen2-1.5b trained, streamed and
+decoded from the replica)."""
 
 import os
 import subprocess
@@ -39,3 +42,19 @@ def test_reshard_migration_torch_on_cpu(steps, batch):
     assert "no rows lost" in out
     assert "values bit-identical across the 10->20 shard migration" in out
     assert "ownership verified" in out
+
+
+def test_serve_lm_torch_on_cpu():
+    out = _run("serve_lm_torch.py", "--decode-steps", "24",
+               "--train-every", "8")
+    assert "serving gemma3-4b-smoke" in out and "window=16" in out
+    assert out.count("hot-swapped serve weights") == 3
+    assert "generated (4, 24) tokens across 3 weight swaps" in out
+
+
+def test_train_lm_torch_on_cpu():
+    out = _run("train_lm_torch.py", "--steps", "6", "--batch", "4",
+               "--seq", "32")
+    assert "arch=qwen2-1.5b-smoke" in out and "device=cpu" in out
+    assert "serve staleness:" in out
+    assert "greedy decode from serve replica: shape=(4, 16)" in out

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither ``jax`` nor the JAX package
 ``repro``. Every module under ``src/repro_torch/`` and ``chip_smoke.py``
 must import in a fresh interpreter where both are made unimportable,
-and no import statement anywhere in them — those inside functions
-included — may name either."""
+and no import statement anywhere in them or in the port's examples
+(``examples/*_torch.py``) — those inside functions included — may name
+either."""
 
 import ast
 import subprocess
@@ -46,6 +47,7 @@ SLICE_MODULES = {
     "repro_torch.configs.granite_moe_3b_a800m",
     "repro_torch.configs.dbrx_132b",
     "repro_torch.models.ssm", "repro_torch.configs.mamba2_1_3b",
+    "repro_torch.configs.gemma3_4b",
 }
 
 
@@ -70,7 +72,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_no_import_statement_names_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
     bad = {str(f.relative_to(ROOT)): sorted(r & {"jax", "repro"})
            for f in files if (r := _imported_roots(f)) & {"jax", "repro"}}
     assert not bad

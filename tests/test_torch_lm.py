@@ -4,7 +4,13 @@ head), qwen2-7b (untied ``lm_head``), the MoE configs
 granite-moe-3b-a800m and dbrx-132b (4 experts, top-2; their aux loss and
 ``expert_counts_per_layer`` equal to the reference's) and the
 attention-free mamba2-1.3b (Mamba-2 mixers, no FFN; its conv and SSM
-states in the decode cache).
+states in the decode cache), and gemma3-4b (one period: five
+sliding-window layers and a global one; the reduced window of 16, so S
+= 24 takes the masked branch), its window cut to 8 (``gemma3-4b/w8``: S
+= 24 takes the block-local branch, and the decode's rings of 8 rows
+wrap) and a cut that keeps both of its segments (``gemma3-4b/segments``:
+the 6-layer period once, then the local tail twice). A variant's
+``dataclasses.replace`` is applied alike to both packages' configs.
 
 The reference's ``init_params`` tree is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take
@@ -39,13 +45,40 @@ from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.serving.predictor import ServeDriver, make_serve_step
 
 ARCHS = ["qwen2-1.5b", "qwen2-7b",
-         "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b"]
+         "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "gemma3-4b",
+         "gemma3-4b/w8", "gemma3-4b/segments"]
 RTOL = ATOL = 1e-4
 
 
-def _cfgs(arch):
-    jcfg = jax_reduced(jax_get_config(arch), layers_per_segment=2)
-    cfg = reduced(get_config(arch), layers_per_segment=2)
+def variant(cfg, full, segment_cls, name: str):
+    """``cfg`` (a reduced config of ``full``) cut as the variant ``name``
+    says: ``w8`` a window of 8, ``segments`` both of ``full``'s segments,
+    the first once and the second twice (``segment_cls`` is the package's
+    ``Segment``)."""
+    if name == "w8":
+        return dataclasses.replace(cfg, window_size=8)
+    if name == "segments":
+        first, second = full.segments
+        return dataclasses.replace(cfg, segments=(
+            segment_cls(first.pattern, 1), segment_cls(second.pattern, 2)))
+    raise ValueError(name)
+
+
+def _cfgs(arch, layers_per_segment: int = 2):
+    """The reduced config of ``arch`` (``name/variant`` for a variant) in
+    both packages, the port's equal to the reference's: two layers, or
+    one period where the segment's pattern is longer (gemma3's six)."""
+    from repro.configs.base import Segment as JaxSegment
+    from repro_torch.configs.base import Segment
+    name, _, cut = arch.partition("/")
+    jfull, full = jax_get_config(name), get_config(name)
+    if len(full.segments[0].pattern) > 1:
+        layers_per_segment = 1
+    jcfg = jax_reduced(jfull, layers_per_segment=layers_per_segment)
+    cfg = reduced(full, layers_per_segment=layers_per_segment)
+    if cut:
+        jcfg = variant(jcfg, jfull, JaxSegment, cut)
+        cfg = variant(cfg, full, Segment, cut)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)  # a copy
     return jcfg, cfg
 
@@ -123,19 +156,22 @@ def test_forward_logits_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_logits_match_reference(arch):
-    """Eight decode steps of the same tokens from an empty cache; the
-    cache the port updates in place equals the reference's new cache
-    (K/V rows, or a Mamba layer's conv and SSM states)."""
+    """Eight decode steps of the same tokens from an empty cache (twelve
+    where a window is under the 12 rows, so its rings wrap); the cache the port
+    updates in place equals the reference's new cache at every position
+    (K/V rows or ring, or a Mamba layer's conv and SSM states)."""
     jcfg, cfg = _cfgs(arch)
     tree = _params(jcfg, 3)
     jparams = jax.tree.map(jnp.asarray, tree)
     params = load_lm_params(cfg, tree, device="cpu")
     b, max_len = 3, 12
+    steps = max_len if 0 < cfg.window_size < max_len else 8
     jcache = jax_init_cache(jcfg, b, max_len, dtype=jnp.float32)
     cache = init_cache(cfg, b, max_len, dtype=torch.float32, device="cpu")
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
-                                             size=(8, b, 1)).astype(np.int32)
-    for t in range(8):
+                                             size=(steps, b, 1)).astype(
+                                                 np.int32)
+    for t in range(steps):
         pos = np.full((b,), t, np.int32)
         want, jcache = jax_decode_step(jparams, jcfg, jcache,
                                        jnp.asarray(toks[t]), jnp.asarray(pos))
@@ -143,15 +179,25 @@ def test_decode_step_logits_match_reference(arch):
                                   torch.from_numpy(pos))
         assert cache2 is cache
         _close(got, want)
-    for seg, jseg in zip(cache["segments"], jcache["segments"]):
-        assert sorted(seg["pos0"]) == sorted(jseg["pos0"])
-        for k, v in seg["pos0"].items():
-            # the SSM state sums eight steps' products: the logits' 1e-4
-            tol = RTOL if k == "state" else 1e-5
-            assert v.dtype == torch.float32
-            np.testing.assert_allclose(v.numpy(),
-                                       np.asarray(jseg["pos0"][k]),
-                                       rtol=tol, atol=tol)
+    first = 0                       # the stack's index of a segment's layer 0
+    for seg, jseg, spec in zip(cache["segments"], jcache["segments"],
+                               cfg.segments):
+        assert sorted(seg) == sorted(jseg)
+        for i, entry in seg.items():
+            assert sorted(entry) == sorted(jseg[i])
+            for k, v in entry.items():
+                assert v.dtype == torch.float32
+                assert v.shape == jseg[i][k].shape
+                for r in range(spec.repeats):
+                    layer = first + r * len(spec.pattern) + int(i[3:])
+                    # the SSM state sums eight steps' products, and a K/V
+                    # past the first two layers carries their rounding:
+                    # the logits' 1e-4
+                    tol = RTOL if k == "state" or layer > 1 else 1e-5
+                    np.testing.assert_allclose(
+                        v[r].numpy(), np.asarray(jseg[i][k][r]), rtol=tol,
+                        atol=tol)
+        first += spec.repeats * len(spec.pattern)
 
 
 def _recording(step_fn, log: list):
@@ -225,7 +271,10 @@ def test_serve_launcher_runs_reduced_on_cpu(capsys):
 
 
 # the reference's ``test_decode_matches_forward`` configs that the port has
-CONSISTENCY_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "dbrx-132b"]
+# (gemma3-4b at a window of 8: the forward takes the block-local branch,
+# the decode's rings of 8 rows wrap twice)
+CONSISTENCY_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "dbrx-132b",
+                     "gemma3-4b/w8"]
 
 
 @pytest.mark.parametrize("arch", CONSISTENCY_ARCHS)
@@ -234,7 +283,7 @@ def test_decode_matches_forward(arch):
     its own: 24 decode steps from an empty float32 cache against one
     forward over the same tokens, within the reference's 5e-4 (a MoE's
     capacity factor raised to 8 so neither path drops a token)."""
-    cfg = reduced(get_config(arch))
+    cfg = _cfgs(arch, layers_per_segment=1)[1]
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
     params = init_params(cfg, torch.Generator().manual_seed(1))
@@ -254,7 +303,7 @@ def test_decode_matches_forward(arch):
 
 
 def test_unported_configs_and_modes_raise():
-    for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
+    for arch in ("whisper-medium", "jamba-1.5-large-398b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(arch)
     cfg = reduced(get_config("qwen2-1.5b"))

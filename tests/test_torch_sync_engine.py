@@ -2,8 +2,9 @@
 the port of ``tests/test_sync_engine.py`` for the dense configs, the
 MoE config granite-moe-3b-a800m (reduced: 4 experts), whose expert leaves
 stream by (repeat, expert) id from the routed expert counts each step
-reports, and the SSM config mamba2-1.3b, whose Mamba leaves stream as
-dense leaves.
+reports, the SSM config mamba2-1.3b, whose Mamba leaves stream as
+dense leaves, and gemma3-4b, whose tied embedding streams as one dense
+tensor beside its windowed and global layers.
 
 Both engines are fed the same parameter trees (numpy, perturbed every
 step) and the same tokens on the same clock, so their records — path,
@@ -76,6 +77,7 @@ def _same_record(a, b) -> None:
     ("granite-moe-3b-a800m", None),   # experts, Adam -> cumulative
     ("granite-moe-3b-a800m", "sgd"),  # experts, SGD -> window
     ("mamba2-1.3b", None),         # Mamba leaves (float32 A_log, D, dt_bias)
+    ("gemma3-4b", None),           # windowed and global layers, tied embed
 ])
 def test_records_and_replica_equal_reference(arch, optimizer, codec):
     """Five steps and the final flush on both engines; a MoE config's
@@ -95,6 +97,8 @@ def test_records_and_replica_equal_reference(arch, optimizer, codec):
                            SyncConfig(codec_backend="torch", device="cpu",
                                       **kw))
     assert port.paths == ref.paths and port.kinds == ref.kinds
+    if cfg.tie_embeddings:                  # the tied table streams whole
+        assert port.kinds["embed"] == "dense"
     for t in range(5):
         params = jax.tree.map(
             lambda a: a + 0.01 * rng.standard_normal(a.shape,
