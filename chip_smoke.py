@@ -366,6 +366,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 
@@ -3017,18 +3018,22 @@ def _profile_line(label: str, prof: dict) -> str:
                         for k, ms in prof["attention_ms"].items()))
 
 
-def prefill_phase(cfg, params, tokens, reps: int, device) -> dict:
-    """``make_prefill_step`` on ``tokens``: once in float32 (the params
-    cast) and ``reps`` timed times in the config's bf16 on the kernel
-    path, each against the plain path on the same params and tokens,
-    then once more profiled. ``forwards`` counts the kernel path's
-    forwards (a warm-up included)."""
+def prefill_phase(cfg, params, tokens, reps: int, device,
+                  frames=None) -> dict:
+    """``make_prefill_step`` on ``tokens`` (and ``frames``, a model with
+    context's (B, T, D)): once in float32 (the params cast) and ``reps``
+    timed times in the config's bf16 on the kernel path, each against
+    the plain path on the same params and inputs, then once more
+    profiled. ``forwards`` counts the kernel path's forwards (a warm-up
+    included)."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.serving import make_prefill_step
     fa = ops.KERNELS["flash_attention"]
     batch = {"tokens": tokens}
+    if frames is not None:
+        batch["enc_context"] = frames
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     p32 = _tree_map(lambda t: t.float(), params)
     step32 = make_prefill_step(cfg32)
@@ -3139,7 +3144,7 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     return {"lat_ms": [x * 1e3 for x in lat], "wall_s": wall,
             "max_dev": max(devs), "agree": float(np.mean(agree)),
             "steps": len(records), "routes": merge_routes(routes),
-            "finite": finite,
+            "finite": finite, "max_len": driver.max_len,
             "all_dev": max(d for d, _ in every),
             "all_agree": float(np.mean([a for _, a in every]))}
 
@@ -3147,23 +3152,28 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
 def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
              prefill_reps: int, long_len: int, long_pos: int,
              long_steps: int, seed: int = SEED,
-             consistency_window: int = 0) -> dict:
+             consistency_window: Optional[int] = None) -> dict:
     """The LM serving path through its entry points: ``launch.serve``
-    builds the model and its ``ServeDriver`` from ``serve_argv``;
-    ``make_prefill_step`` runs a prefill of ``prefill_batch`` x
-    ``prefill_len`` tokens (float32 and bf16); the launcher's own decode
-    run follows, then a decode against a long cache seeded up to
-    ``long_pos`` of ``long_len`` (a sliding-window layer's ring wholly).
-    Each is held against the plain path. With ``consistency_window``,
-    ``decode_vs_forward`` follows over the prefill's first
-    ``CONSISTENCY_LEN`` tokens, the config's window cut to that many
-    rows (its launches and peak memory counted apart). The launch
+    builds the model and its ``ServeDriver`` from ``serve_argv`` (a
+    model with context: its cross cache precomputed from the launcher's
+    frames); ``make_prefill_step`` runs a prefill of ``prefill_batch`` x
+    ``prefill_len`` tokens (float32 and bf16; with context, on frames
+    drawn from the seed); the launcher's own decode run follows, then a
+    decode against a long cache whose self-attention K/V are seeded up
+    to ``long_pos`` of ``long_len`` (a sliding-window layer's ring
+    wholly; a cross cache precomputed from frames, before the counters
+    are reset). Each is held against the plain path. Unless
+    ``consistency_window`` is None, ``decode_vs_forward`` follows over
+    the prefill's first ``CONSISTENCY_LEN`` tokens (and its frames), a
+    nonzero ``consistency_window`` cutting the config's window to that
+    many rows (its launches and peak memory counted apart). The launch
     counters are reset before and read after the whole path."""
     import torch
 
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import precompute_cross_cache
     from repro_torch.serving.predictor import ServeDriver
 
     args = serve.parse_args([*serve_argv, "--device", device.type])
@@ -3171,6 +3181,10 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
     data = torch.Generator(device=device).manual_seed(seed + 7)
     tokens = torch.randint(0, cfg.vocab_size, (prefill_batch, prefill_len),
                            generator=data, device=device)
+    frames = None
+    if cfg.has_encoder_context:
+        frames = torch.randn((prefill_batch, cfg.encoder_len, cfg.d_model),
+                             generator=data, device=device)
     long_args = serve.parse_args([*serve_argv, "--device", device.type,
                                   "--steps", str(long_steps),
                                   "--max-len", str(long_len)])
@@ -3179,10 +3193,14 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
                               device=device)
     for seg in long_driver.cache["segments"]:       # K/V of a long context
         for kv in seg.values():
-            for t in kv.values():
+            for t in (kv[k] for k in ("k", "v") if k in kv):
                 t[:, :, :long_pos] = torch.randn(
                     t[:, :, :long_pos].shape, generator=data,
                     device=device)
+    if cfg.has_encoder_context:
+        precompute_cross_cache(params, cfg, long_driver.cache, torch.randn(
+            (long_args.batch, cfg.encoder_len, cfg.d_model), generator=data,
+            device=device))
     long_driver.pos = torch.full((long_args.batch,), long_pos,
                                  dtype=torch.int32, device=device)
     sizes = {"param_bytes": _tree_bytes(params),
@@ -3197,11 +3215,15 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
             if spec.mixer == LOCAL_ATTN:
                 sizes["ring_bytes"] = sizes.get("ring_bytes", 0) + sum(
                     map(_tree_bytes, entries))
+            if spec.mixer == CROSS_ATTN:
+                sizes["cross_bytes"] = sizes.get("cross_bytes", 0) + sum(
+                    map(_tree_bytes, entries))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launches()
-    prefill = prefill_phase(cfg, params, tokens, prefill_reps, device)
+    prefill = prefill_phase(cfg, params, tokens, prefill_reps, device,
+                            frames)
     after_prefill = ops.launch_counts()
     serve_run = decode_run(cfg, driver, params, args, gen, device)
     driver.hot_swap(params)             # frees its last swapped-in copy
@@ -3216,11 +3238,13 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
         sizes["peak_bytes"] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     consistency = None
-    if consistency_window:
+    if consistency_window is not None:
         consistency = decode_vs_forward(
-            dataclasses.replace(cfg, window_size=consistency_window),
-            params, tokens[:, :CONSISTENCY_LEN], device)
-        consistency["window"] = consistency_window
+            dataclasses.replace(cfg, window_size=consistency_window or
+                                cfg.window_size),
+            params, tokens[:, :CONSISTENCY_LEN], device, frames)
+        if consistency_window:
+            consistency["window"] = consistency_window
         after = ops.launch_counts()
         consistency["launches"] = {k: after[k] - launches[k]
                                    for k in after}
@@ -3238,7 +3262,11 @@ def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
     return {"cfg": cfg, "prefill": prefill, "serve": serve_run,
             "long": long_run, "launches": launches, "sizes": sizes,
             "layers": cfg.num_layers, "consistency": consistency,
+            "long_pos": long_pos, "long_len": long_len,
+            "prefill_shape": tuple(tokens.shape),
             "decode_inputs": (glob["k"][0], glob["v"][0], long_pos + 1),
+            "cross_inputs": None if CROSS_ATTN not in by_mixer else (
+                by_mixer[CROSS_ATTN]["xk"][0], by_mixer[CROSS_ATTN]["xv"][0]),
             "ring_inputs": None if ring is None else (
                 ring["k"][0], ring["v"][0],
                 min(long_pos + 1, ring["k"].shape[2]))}
@@ -3313,29 +3341,40 @@ def lm_kernel_rows(cfg, decode_inputs, device) -> list[dict]:
     never calls): flash at the prefill's bf16 shapes, decode against the
     long run's float32 cache at its first step's lengths."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     b, h, g, d, s = (PREFILL_BATCH, cfg.num_heads, cfg.num_kv_heads,
                      cfg.head_dim, PREFILL_LEN)
     q, k, v = _attn_inputs(b, h, g, s, d, torch.bfloat16, gen, device)
-    err = _check_close("flash_attention", fa.flash_attention(q, k, v),
-                       ref.flash_attention(q, k, v), 2e-2)
-    rows = [_row("flash_attention", "flash_attention_sm90.cu",
-                 "src/repro/kernels/flash_attention.py:70", err,
-                 lambda: fa.flash_attention(q, k, v),
-                 lambda: ref.flash_attention(q, k, v),
-                 lambda: F.scaled_dot_product_attention(
-                     q, k, v, is_causal=True, enable_gqa=True),
-                 2 * 2 * (b * h + b * g) * s * d,
-                 f"q ({b}, {h}, {s}, {d}), k, v ({b}, {g}, {s}, {d}) bf16, "
-                 f"causal", flops=2.0 * b * h * s * s * d,
-                 peak=BF16_PEAK_FLOPS, agreement="within 2e-2 of its plain "
-                 "version")]
-    rows.append(decode_row(cfg, decode_inputs, gen, device))
-    return rows
+    return [flash_row(q, k, v, True, "causal"),
+            decode_row(cfg, decode_inputs, gen, device)]
+
+
+def flash_row(q, k, v, causal: bool, label: str) -> dict:
+    """``flash_attention`` on bf16 q (B, H, S, D), k, v (B, G, T, D),
+    held within 2e-2 of its plain version and timed beside it, its bound
+    and ``scaled_dot_product_attention``. Bound: q, k, v read and the
+    output written once; the products' 4 * B * H * S * T * D operations
+    (half of them where ``causal`` masks, S = T)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    (b, h, s, d), (g, t) = q.shape, k.shape[1:3]
+    err = _check_close("flash_attention",
+                       fa.flash_attention(q, k, v, causal=causal),
+                       ref.flash_attention(q, k, v, causal=causal), 2e-2)
+    return _row("flash_attention", "flash_attention_sm90.cu",
+                "src/repro/kernels/flash_attention.py:70", err,
+                lambda: fa.flash_attention(q, k, v, causal=causal),
+                lambda: ref.flash_attention(q, k, v, causal=causal),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True),
+                2 * (2 * b * h * s + 2 * b * g * t) * d,
+                f"q ({b}, {h}, {s}, {d}), k, v ({b}, {g}, {t}, {d}) bf16, "
+                f"{label}",
+                flops=(2.0 if causal else 4.0) * b * h * s * t * d,
+                peak=BF16_PEAK_FLOPS,
+                agreement="within 2e-2 of its plain version")
 
 
 def decode_row(cfg, decode_inputs, gen, device) -> dict:
@@ -3373,22 +3412,33 @@ def decode_row(cfg, decode_inputs, gen, device) -> dict:
 
 
 def _attn_layers(cfg) -> int:
-    """Self-attention layers, global and sliding-window: each launches
-    ``decode_attention`` once a decode step."""
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN
-    return sum(spec.mixer in (ATTN, LOCAL_ATTN)
+    """The decoder's attention layers, global, sliding-window and cross:
+    each launches ``decode_attention`` once a decode step."""
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
+    return sum(spec.mixer in (ATTN, LOCAL_ATTN, CROSS_ATTN)
                for spec in cfg.layer_specs())
+
+
+def _encoder_layers(cfg) -> int:
+    """The encoder's bidirectional layers: each launches the flash kernel
+    once an ``encode`` (a forward of an encoder-decoder, and a
+    ``precompute_cross_cache``)."""
+    from repro_torch.configs.base import ENC_ATTN
+    return sum(spec.mixer == ENC_ATTN for seg in cfg.encoder_segments
+               for spec in seg.pattern * seg.repeats)
 
 
 def _flash_layers(cfg, seq: int) -> int:
     """The layers a forward over ``seq`` tokens runs through the flash
-    kernel: every global one, and a sliding-window one whose window masks
-    nothing at ``seq`` (seq <= window); past its window a windowed layer
-    takes a tensor-op branch."""
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN
-    return sum(spec.mixer == ATTN or (spec.mixer == LOCAL_ATTN
-                                      and seq <= cfg.window_size)
-               for spec in cfg.layer_specs())
+    kernel: every global and cross one, the encoder's, and a
+    sliding-window one whose window masks nothing at ``seq`` (seq <=
+    window); past its window a windowed layer takes a tensor-op
+    branch."""
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
+    return _encoder_layers(cfg) + sum(
+        spec.mixer in (ATTN, CROSS_ATTN) or (spec.mixer == LOCAL_ATTN
+                                            and seq <= cfg.window_size)
+        for spec in cfg.layer_specs())
 
 
 def _moe_layers(cfg) -> int:
@@ -3413,22 +3463,29 @@ def report_lm(lm: dict) -> None:
     """Print the LM phase's numbers and hold them to their limits."""
     cfg, pre, n = lm["cfg"], lm["prefill"], lm["layers"]
     launches, sizes, cons = lm["launches"], lm["sizes"], lm["consistency"]
-    flash, dec = _flash_layers(cfg, PREFILL_LEN), _attn_layers(cfg)
+    pb, pl = lm["prefill_shape"]
+    flash, dec = _flash_layers(cfg, pl), _attn_layers(cfg)
     p50 = float(np.percentile(pre["ms"], 50))
     rings = "" if "ring_bytes" not in sizes else (
         f" (global {sizes['cache_bytes'] - sizes['ring_bytes']}, "
         f"sliding-window rings of min({cfg.window_size}, max_len) rows "
         f"{sizes['ring_bytes']})")
+    if "cross_bytes" in sizes:
+        rings += (f" (cross caches of {cfg.encoder_len} frames "
+                  f"{sizes['cross_bytes']}, self-attention "
+                  f"{sizes['cache_bytes'] - sizes['cross_bytes']})")
     print(f"LM serving: {cfg.name} at full width ({n} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
           f"of {cfg.head_dim}, vocab {cfg.vocab_size}"
           + (f", window {cfg.window_size}" if cfg.window_size else "")
+          + (f", {_encoder_layers(cfg)} encoder layers over "
+             f"{cfg.encoder_len} frames" if cfg.encoder_segments else "")
           + f"), random weights from seed {SEED}; params "
           f"{sizes['param_bytes']} bytes, KV caches {sizes['cache_bytes']}"
           f" bytes{rings}, peak device memory {sizes.get('peak_bytes')} "
           f"bytes", flush=True)
-    print(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN} bf16: p50 {p50:.3f} ms "
-          f"over {len(pre['ms'])} ({PREFILL_BATCH * PREFILL_LEN / p50 * 1e3:.0f}"
+    print(f"  prefill {pb} x {pl} bf16: p50 {p50:.3f} ms "
+          f"over {len(pre['ms'])} ({pb * pl / p50 * 1e3:.0f}"
           f" tokens/s); flash_attention launches per forward "
           f"{pre['per_forward']} ({pre['forwards']} forwards on the kernel "
           f"path); logits vs the plain path: float32 max "
@@ -3436,9 +3493,10 @@ def report_lm(lm: dict) -> None:
           f"{pre['bf16_dev']:.3g} (limit {BF16_LOGIT_BOUND}); greedy tokens "
           f"agree {pre['f32_agree']:.4f} (f32), {pre['bf16_agree']:.4f} "
           f"(bf16)")
-    for label, run in (("launcher's run (max_len 64)", lm["serve"]),
-                       (f"long cache (pos {LONG_POS} of {LONG_LEN})",
-                        lm["long"])):
+    for label, run in ((f"launcher's run (max_len "
+                        f"{lm['serve']['max_len']})", lm["serve"]),
+                       (f"long cache (pos {lm['long_pos']} of "
+                        f"{lm['long_len']})", lm["long"])):
         lat = run["lat_ms"]
         print(f"  decode, {label}: {run['steps']} steps, p50 "
               f"{np.percentile(lat, 50):.3f} ms, p99 "
@@ -3449,9 +3507,10 @@ def report_lm(lm: dict) -> None:
               f" per step); teacher-forced logits vs the plain path: max "
               f"deviation {run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), "
               f"greedy tokens agree {run['agree']:.4f}", flush=True)
-    print(_profile_line(f"bf16 prefill ({PREFILL_BATCH} x {PREFILL_LEN})",
+    print(_profile_line(f"bf16 prefill ({pb} x {pl})",
                         pre["profile"]))
-    print(_profile_line(f"decode step at length {LONG_POS + LONG_STEPS + 1}",
+    print(_profile_line(f"decode step at length "
+                        f"{lm['long_pos'] + lm['long']['steps'] + 1}",
                         lm["long"]["profile"]))
     if pre["f32_routes"] is not None:
         print("  (the logit bounds above hold on the tokens whose routes "
@@ -3484,8 +3543,9 @@ def report_lm(lm: dict) -> None:
             "embedding_lookup": gathers * (pre["forwards"] + steps)}
     if cons is not None:
         own = {"flash_attention": cons["forwards"] * _flash_layers(
-                   dataclasses.replace(cfg, window_size=cons["window"]),
-                   CONSISTENCY_LEN),
+                   dataclasses.replace(cfg, window_size=cons.get(
+                       "window", cfg.window_size)), CONSISTENCY_LEN)
+               + cons["encodes"] * _encoder_layers(cfg),
                "decode_attention": dec * cons["steps"],
                "embedding_lookup": gathers * (cons["forwards"]
                                               + cons["steps"])}
@@ -3561,13 +3621,13 @@ GRAD_LEAVES = (("embed", "embed", None),
                ("last layer w_down", "segments/0/pos0/ffn/w_down", -1))
 
 
-def _batch_ids(cfg, device):
+def _batch_ids(cfg, device, seq: int = TRAIN_SEQ):
     """The token ids of one ``lm_batches`` batch as the launcher draws
     them (its bigram structure repeats tokens)."""
     import torch
 
     from repro_torch.data import lm_batches
-    tokens = next(lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+    tokens = next(lm_batches(cfg.vocab_size, TRAIN_BATCH, seq,
                              seed=SEED))
     return torch.from_numpy(tokens).to(device)
 
@@ -3631,11 +3691,13 @@ def check_scatter_add(cfg, device) -> list[str]:
     return lines
 
 
-def scatter_add_row(cfg, device, split: bool = True) -> dict:
+def scatter_add_row(cfg, device, split: bool = True,
+                    seq: int = TRAIN_SEQ) -> dict:
     """``embedding_scatter_add`` timed as the embedding gradient runs it:
-    one batch's ids into a zeros (vocab, d_model) bf16 table with bf16
-    updates. Bound: the updates and ids read once, each distinct row read
-    and written once. Then, with ``split``, the call's split: the sort
+    one batch's ids (``TRAIN_BATCH`` x ``seq``) into a zeros (vocab,
+    d_model) bf16 table with bf16 updates. Bound: the updates and ids
+    read once, each distinct row read and written once. Then, with
+    ``split``, the call's split: the sort
     (``sort_ids``) and the kernel each timed alone, and one call
     profiled, which must list the sort and the kernel and no gather of
     the updates (``split=False`` where an earlier profiler session in the
@@ -3645,7 +3707,7 @@ def scatter_add_row(cfg, device, split: bool = True) -> dict:
     from repro_torch.kernels import embedding_lookup as el
     from repro_torch.kernels import ref
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
-    ids = _batch_ids(cfg, device).reshape(-1)
+    ids = _batch_ids(cfg, device, seq).reshape(-1)
     ids32, ids64 = ids.int(), ids.long()
     n, d = ids.shape[0], cfg.d_model
     table = torch.zeros((cfg.padded_vocab, d), dtype=torch.bfloat16,
@@ -3692,14 +3754,16 @@ def scatter_add_row(cfg, device, split: bool = True) -> dict:
 
 
 def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
-                    layers=None) -> dict:
+                    layers=None, seq: int = TRAIN_SEQ) -> dict:
     """One float32 train step's loss and gradients at full width from the
-    seed, on the kernel path and on the plain path (``plain_attention``),
-    each freed before the next: the loss within ``F32_LOSS_RTOL``, the
-    ``leaves``' gradients within ``F32_GRAD_BOUND`` of their largest
-    magnitude, every gradient leaf finite on both paths. ``layers`` cuts each segment to that many repeats, without
-    remat (for a MoE, whose routes are recorded once a layer: they must
-    agree on both paths, near ties apart)."""
+    seed over ``TRAIN_BATCH`` x ``seq`` tokens (a model with context on
+    N(0, 1) frames from the seed), on the kernel path and on the plain
+    path (``plain_attention``), each freed before the next: the loss
+    within ``F32_LOSS_RTOL``, the ``leaves``' gradients within
+    ``F32_GRAD_BOUND`` of their largest magnitude, every gradient leaf
+    finite on both paths. ``layers`` cuts each segment to that many
+    repeats, without remat (for a MoE, whose routes are recorded once a
+    layer: they must agree on both paths, near ties apart)."""
     import torch
 
     from repro_torch.configs.base import Segment
@@ -3714,7 +3778,12 @@ def check_train_f32(cfg, device, leaves=GRAD_LEAVES,
         torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg32, torch.Generator(device=device).manual_seed(
         SEED))
-    batch = {"tokens": _batch_ids(cfg, device)}
+    batch = {"tokens": _batch_ids(cfg, device, seq)}
+    if cfg.has_encoder_context:
+        batch["enc_context"] = torch.randn(
+            (TRAIN_BATCH, cfg.encoder_len, cfg.d_model),
+            generator=torch.Generator(device=device).manual_seed(SEED + 47),
+            device=device)
     out, routes, finite = {}, {}, {}
     for path in ("kernel", "plain"):
         routes[path] = []
@@ -3761,15 +3830,33 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     H heads of P, state N), counted over the whole (l, l) square the
     port computes: CB 2 * l^2 * N, y_diag 2 * H * l^2 * P, states and
     y_off 2 * H * l * P * N each, a Mamba layer B * nc * (2 l^2 N + 2 H
-    l^2 P + 4 H l P N)."""
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA, MLP, MOE
+    l^2 P + 4 H l P N). A model with context of T = ``encoder_len``
+    frames: 6 per frame per matmul parameter a frame uses (the
+    encoder's layers, its q, k, v, o and FFN, over B * T frames; a cross
+    layer's k and v projections), a cross layer's q and o over the
+    tokens, and 3x the full products, 4 * B * H * T^2 * hd an encoder
+    layer and 4 * B * H * S * T * hd a cross layer."""
+    from repro_torch.configs.base import (ATTN, CROSS_ATTN, ENC_ATTN,
+                                          LOCAL_ATTN, MAMBA, MLP, MOE)
     d, f = cfg.d_model, cfg.d_ff
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     di, n, nh, hp, l = (cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads,
                         cfg.ssm_head_dim, cfg.ssm_chunk)
-    matmul, other = cfg.padded_vocab * d, 0.0
-    for spec in cfg.layer_specs():
-        if spec.mixer in (ATTN, LOCAL_ATTN):
+    t = cfg.encoder_len
+    matmul, per_frame, other = cfg.padded_vocab * d, 0, 0.0
+    for spec in cfg.layer_specs() + [spec for seg in cfg.encoder_segments
+                                     for spec in seg.pattern * seg.repeats]:
+        if spec.mixer == ENC_ATTN:
+            per_frame += 2 * d * h * hd + 2 * d * g * hd
+            other += 4.0 * batch * h * t * t * hd
+            if spec.ffn == MLP:
+                per_frame += 3 * d * f
+            continue
+        if spec.mixer == CROSS_ATTN:
+            matmul += 2 * d * h * hd
+            per_frame += 2 * d * g * hd
+            other += 4.0 * batch * h * seq * t * hd
+        elif spec.mixer in (ATTN, LOCAL_ATTN):
             keys = min(seq, cfg.window_size) if spec.mixer == LOCAL_ATTN \
                 else seq
             matmul += 2 * d * h * hd + 2 * d * g * hd
@@ -3783,7 +3870,7 @@ def model_flops(cfg, batch: int, seq: int) -> float:
             matmul += 3 * d * f
         elif spec.ffn == MOE:
             matmul += d * cfg.num_experts + cfg.experts_per_token * 3 * d * f
-    return 6.0 * batch * seq * matmul + 3.0 * other
+    return 6.0 * batch * (seq * matmul + t * per_frame) + 3.0 * other
 
 
 INT8_STALENESS_BOUND = 2e-2         # the reference's int8 bound
@@ -3834,6 +3921,8 @@ def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
                      key=lambda e: e[1].numel())
     rec = next(r for r in records if r.meta["path"] == path)
     rows = leaf.detach().reshape(1, -1)
+    if rec.meta["kind"] == "rows":          # an untied table's first chunk
+        rows = leaf.detach()[torch.from_numpy(rec.ids).to(device)]
     if rec.meta["kind"] == "experts":
         rows = leaf.detach().reshape(-1, rows.numel() // (
             leaf.shape[0] * leaf.shape[1]))[torch.from_numpy(rec.ids)
@@ -3854,15 +3943,20 @@ def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
 
 def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     """LM training through its entry points: ``launch.train`` builds the
-    state, step and ``ModelSyncEngine`` from ``train_argv`` and runs
+    state, step, ``ModelSyncEngine`` and batches (a model with context:
+    with the launcher's N(0, 1) frames) from ``train_argv`` and runs
     them (the sync clock counting steps), with the launch counters reset
     before and read after; then a ``ServeDriver`` started on the initial
-    params decodes, hot-swaps in the replica's ``device_params`` and
-    decodes ``decode_steps`` more, counted on their own."""
+    params (a model with context: its cross cache precomputed from them
+    on frames from the seed) decodes, hot-swaps in the replica's
+    ``device_params`` (the cross cache left as it was, as the
+    reference's driver leaves it) and decodes ``decode_steps`` more,
+    counted on their own."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.models import precompute_cross_cache
     from repro_torch.serving.predictor import ServeDriver
     args = train.parse_args([*train_argv, "--device", device.type])
     cfg, state, step_fn, engine, batches = train.build(args)
@@ -3880,6 +3974,11 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     driver = ServeDriver(cfg=cfg, params=initial, batch=TRAIN_BATCH,
                          max_len=64, cache_dtype=torch.float32,
                          device=device)
+    if cfg.has_encoder_context:
+        precompute_cross_cache(initial, cfg, driver.cache, torch.randn(
+            (TRAIN_BATCH, cfg.encoder_len, cfg.d_model),
+            generator=torch.Generator(device=device).manual_seed(SEED + 53),
+            device=device))
     logits: list = []
     driver.step_fn = _recording(driver.step_fn, logits)
     if device.type == "cuda":
@@ -3917,7 +4016,8 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     rec["int8"] = int8_flush(cfg, initial, state.params, device)
     del initial
     # one more train step, profiled (after every count and comparison)
-    batch = {"tokens": torch.from_numpy(next(batches)).to(device)}
+    batch = next(batches)
+    batch = {**batch, "tokens": torch.from_numpy(batch["tokens"]).to(device)}
     rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
     return {"cfg": cfg, "args": args, "run": rec, "argv": train_argv}
 
@@ -4049,11 +4149,15 @@ def report_lm_train(lm: dict, f32: dict) -> None:
     step_ms = np.array(rec["step_s"]) * 1e3
     p50 = float(np.percentile(step_ms, 50))
     tokens = args.batch * args.seq
+    frames = args.batch * cfg.encoder_len
     flops = model_flops(cfg, args.batch, args.seq)
     print(f"LM training: {cfg.name} ({n} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}), random "
           f"weights from seed {SEED}; launcher {' '.join(lm['argv'])}, "
-          f"sync clock = steps", flush=True)
+          f"sync clock = steps"
+          + (f"; {cfg.encoder_len} frames a sequence, N(0, 1) from the "
+             f"launcher's seed" if cfg.has_encoder_context else ""),
+          flush=True)
     print(f"  float32 step ({f32['layers']} layers), kernel vs plain path: "
           f"loss {f32['loss']:.6f} vs "
           f"{f32['plain_loss']:.6f} (limit rtol {F32_LOSS_RTOL}); grads max "
@@ -4065,7 +4169,9 @@ def report_lm_train(lm: dict, f32: dict) -> None:
         print(_routes_line("float32 train step", f32["routes"]))
     print(f"  {steps} steps of {args.batch} x {args.seq}: step p50 "
           f"{p50:.3f} ms, p99 {np.percentile(step_ms, 99):.3f} ms "
-          f"(first {step_ms[0]:.3f}); {tokens / p50 * 1e3:.0f} tokens/s; "
+          f"(first {step_ms[0]:.3f}); {tokens / p50 * 1e3:.0f} tokens/s"
+          + (f" ({frames / p50 * 1e3:.0f} frames/s of {cfg.encoder_len} "
+             f"a sequence)" if frames else "") + "; "
           f"model FLOPs {flops:.4g} a step, mfu {flops / (p50 / 1e3) / BF16_PEAK_FLOPS:.4f}"
           f" (of {BF16_PEAK_FLOPS:.4g}); loss {rec['losses'][0]:.4f} -> "
           f"{rec['losses'][-1]:.4f}; peak device memory "
@@ -4239,14 +4345,14 @@ def ssd_recurrence_check(device, *, batch: int, seq: int, heads: int,
             "shape": (batch, seq, heads, head_dim, state, chunk)}
 
 
-def token_gather_row(cfg, device) -> dict:
-    """The token gather at the bf16 prefill's shape: 4 x 2048 ids from
-    the (padded_vocab, d_model) bf16 table, bit-equal to its plain
+def token_gather_row(cfg, device,
+                     n: int = PREFILL_BATCH * PREFILL_LEN) -> dict:
+    """The token gather at the bf16 prefill's shape: ``n`` (4 x 2048) ids
+    from the (padded_vocab, d_model) bf16 table, bit-equal to its plain
     version and timed beside its bound and ``index_select``; returned as
     an extra entry of the gather's row."""
     import torch
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
-    n = PREFILL_BATCH * PREFILL_LEN
     table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=device).bfloat16()
     ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
@@ -4279,17 +4385,21 @@ def float64_math():
         del model._DTYPES["float64"]
 
 
-def _decode_logits(cfg, params, tokens, cache_dtype, device):
+def _decode_logits(cfg, params, tokens, cache_dtype, device, frames=None):
     """Logits (B, T, V) of decoding ``tokens`` (B, T) one at a time from
     a fresh cache of ``cache_dtype`` (float64: the SSM state too, which is
-    float32 otherwise)."""
+    float32 otherwise), its cross entries first filled from ``frames``
+    (``precompute_cross_cache``) for a model with context."""
     import torch
 
-    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models import (decode_step, init_cache,
+                                    precompute_cross_cache)
     b, t = tokens.shape
     cache = init_cache(cfg, b, t, dtype=cache_dtype, device=device)
     if cache_dtype == torch.float64:
         cache = _tree_map(lambda x: x.double(), cache)
+    if frames is not None:
+        precompute_cross_cache(params, cfg, cache, frames)
     steps = []
     for i in range(t):
         logits, cache = decode_step(
@@ -4299,8 +4409,9 @@ def _decode_logits(cfg, params, tokens, cache_dtype, device):
     return torch.stack(steps, 1)
 
 
-def decode_vs_forward(cfg, params, tokens, device) -> dict:
-    """Decode ``tokens`` (B, T) one at a time from a fresh cache and hold
+def decode_vs_forward(cfg, params, tokens, device, frames=None) -> dict:
+    """Decode ``tokens`` (B, T) one at a time from a fresh cache (a model
+    with context's cross cache precomputed from ``frames``) and hold
     each step's logits against a forward over the same T tokens: in
     float64 (``float64_math``: params, cache and every float32 step
     widened, the plain path), where the two must agree to
@@ -4310,11 +4421,12 @@ def decode_vs_forward(cfg, params, tokens, device) -> dict:
     and greedy agreement of decode vs forward (``dev``) over the real
     vocabulary, for float32 and bf16 the largest |deviation| of the
     decode (``dec``) and of the forward (``fwd``) from float64, and the
-    forwards and steps run on the kernel path."""
+    forwards, cross-cache fills (``encodes``) and steps run on the
+    kernel path."""
     import torch
 
     from repro_torch.models import forward
-    out = {"forwards": 0, "steps": 0}
+    out = {"forwards": 0, "steps": 0, "encodes": 0}
     runs = [("float64", torch.float64), ("float32", torch.float32),
             ("bf16", torch.bfloat16)]
     with torch.no_grad():
@@ -4323,10 +4435,12 @@ def decode_vs_forward(cfg, params, tokens, device) -> dict:
                                     param_dtype=str(dt)[6:])
             p = params if c.param_dtype == cfg.param_dtype \
                 else _tree_map(lambda x: x.to(dt), params)
+            enc = None if frames is None else (
+                frames.double() if dt == torch.float64 else frames)
             with (float64_math() if dt == torch.float64
                   else contextlib.nullcontext()):
-                full, _ = forward(p, c, tokens)
-                dec = _decode_logits(c, p, tokens, dt, device)
+                full, _ = forward(p, c, tokens, enc_context=enc)
+                dec = _decode_logits(c, p, tokens, dt, device, enc)
             out[label] = {"dev": _logit_dev(dec, full, cfg.vocab_size)}
             if dt == torch.float64:        # the deviation in float64 too
                 out[label]["dev"] = (float((dec - full)[
@@ -4340,6 +4454,7 @@ def decode_vs_forward(cfg, params, tokens, device) -> dict:
                                                cfg.vocab_size)[0]
                 out["forwards"] += 1
                 out["steps"] += tokens.shape[1]
+                out["encodes"] += frames is not None
             del p, full, dec
     return out
 
@@ -4613,7 +4728,8 @@ def window_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
     scatter-add at its shape (its timing row rides on ``by_name``'s
     entry), one float32 step against the plain path at all 34 layers,
     ``drive_lm_train`` with ``GEMMA_TRAIN_ARGV``. Returns the launches of
-    the training run and of its hot-swap decode."""
+    the training run and
+    of its hot-swap decode."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4628,6 +4744,185 @@ def window_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
     f32 = check_train_f32(cfg, dev, GEMMA_GRAD_LEAVES)
     torch.cuda.empty_cache()
     lm = drive_lm_train(dev, GEMMA_TRAIN_ARGV, decode_steps=SWAP_DECODE_STEPS)
+    report_lm_train(lm, f32)
+    return lm["run"]["launches"], lm["run"]["decode"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder: whisper-medium served and trained at full width
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-medium"
+# the decoder's context is bounded at 448 tokens: prefill 4 x 448 on 4 x
+# 1500 frames; the launcher's run at --max-len 448; the long run's self
+# caches seeded to 384 of the 448 rows
+ENCDEC_LEN, ENCDEC_LONG_POS, ENCDEC_STEPS = 448, 384, 32
+ENCDEC_SERVE_ARGV = ("--arch", ENCDEC_ARCH, "--batch", "4", "--steps", "32",
+                     "--max-len", str(ENCDEC_LEN), "--hot-swap-every", "8",
+                     "--seed", str(SEED))
+# 4 steps of 4 x 448 tokens on the launcher's 4 x 1500 N(0, 1) frames from
+# the seed (the reference's launcher's zero frames overflow the encoder's
+# backward to NaN: ROADMAP queue 3), a sync period of 3 on the step clock,
+# as MOE_TRAIN_ARGV
+ENCDEC_TRAIN_ARGV = ("--arch", ENCDEC_ARCH, "--steps", str(MOE_TRAIN_STEPS),
+                     "--batch", str(TRAIN_BATCH), "--seq", str(ENCDEC_LEN),
+                     "--codec", "cast16", "--sync-period", "3", "--seed",
+                     str(SEED), "--log-every", "2")
+# an encoder layer's wq (its gradient through the whole non-causal
+# backward), the first cross layer's wk and wv (through the cross
+# attention's dk and dv), the encoder's final norm (the frames' every
+# path to the loss) and the last layer's w_down
+ENCDEC_GRAD_LEAVES = (
+    ("embed", "embed", None),
+    ("encoder layer 0 wq", "encoder/segments/0/pos0/mixer/wq", 0),
+    ("cross layer 0 wk", "segments/0/pos1/mixer/wk", 0),
+    ("cross layer 0 wv", "segments/0/pos1/mixer/wv", 0),
+    ("encoder final_norm", "encoder/final_norm", None),
+    ("last layer w_down", "segments/0/pos1/ffn/w_down", -1))
+
+
+def check_encdec_kernels(cfg, device) -> list[str]:
+    """Both attention kernels against their plain versions at the
+    encoder-decoder's shapes, within 2e-5 (float32) and 2e-2 (bf16):
+    flash causal over the decoder's 448 tokens, full over the encoder's
+    T frames, and full of 448 queries against T frames (cross); decode
+    against a 448-row self cache at mixed lengths and against a T-row
+    cross cache at T."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 59)
+    h, g, d, t = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.encoder_len
+    b, s = PREFILL_BATCH, ENCDEC_LEN
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    lines = []
+    for label, sq, skv, causal in (("causal (self)", s, s, True),
+                                   ("full (encoder)", t, t, False),
+                                   ("full (cross)", s, t, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _attn_inputs(b, h, g, sq, d, dtype, gen, device)[0]
+            _, k, v = _attn_inputs(b, h, g, skv, d, dtype, gen, device)
+            dev = _check_close("flash_attention",
+                               fa.flash_attention(q, k, v, causal=causal),
+                               ref.flash_attention(q, k, v, causal=causal),
+                               tol[dtype])
+            lines.append(f"flash_attention q ({b}, {h}, {sq}, {d}), k, v "
+                         f"({b}, {g}, {skv}, {d}) {label} "
+                         f"{str(dtype)[6:]}: max deviation {dev:.3g}")
+    for label, rows, lengths in (
+            ("a self cache", s, [1, 64, ENCDEC_LONG_POS + 1, s]),
+            ("a cross cache", t, [t] * 4)):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+        for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16)):
+            q = torch.randn((4, h, d), generator=gen, device=device).to(
+                q_dtype)
+            k, v = (torch.randn((4, rows, g, d), generator=gen,
+                                device=device).to(kv_dtype)
+                    for _ in range(2))
+            dev = _check_close("decode_attention",
+                               da.decode_attention(q, k, v, lengths),
+                               ref.decode_attention(q, k, v, lengths),
+                               tol[q_dtype])
+            lines.append(f"decode_attention q (4, {h}, {d}) "
+                         f"{str(q_dtype)[6:]} vs {label} (4, {rows}, {g}, "
+                         f"{d}) {str(kv_dtype)[6:]}, lengths "
+                         f"{lengths.tolist()}: max deviation {dev:.3g}")
+    _sync(device)
+    return lines
+
+
+def encdec_kernel_rows(cfg, cross_inputs, device) -> dict:
+    """The two attention kernels timed at the encoder-decoder's own
+    modes: flash full over the encoder's (4, H, T, hd) bf16 (row 9w),
+    flash of the decoder's 448 bf16 queries against (4, Kv, T, hd) (9x),
+    and decode of a bf16 query against ``cross_inputs``, a layer's
+    float32 cross cache of the long run, at T (10x). Returns ``{row:
+    entry}``."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    b, h, g, d, t = (PREFILL_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim, cfg.encoder_len)
+    rows = {}
+    for key, sq in (("encoder", t), ("cross", ENCDEC_LEN)):
+        q = _attn_inputs(b, h, g, sq, d, torch.bfloat16, gen, device)[0]
+        _, k, v = _attn_inputs(b, h, g, t, d, torch.bfloat16, gen, device)
+        rows[key] = flash_row(q, k, v, False, f"full ({key})")
+    rows["cross decode"] = decode_row(cfg, (*cross_inputs, t), gen, device)
+    return rows
+
+
+def encdec_serving_phase(dev, by_name: dict) -> dict:
+    """Phase 6e: whisper-medium served at full width. The attention
+    kernels at its shapes against their plain versions, then
+    ``drive_lm`` with ``ENCDEC_SERVE_ARGV`` (prefill 4 x 448 on 4 x 1500
+    frames; the launcher's run, which precomputes the cross cache; a
+    long run from position 384 of 448) and decode against forward over
+    ``CONSISTENCY_LEN`` tokens after ``precompute_cross_cache``. The
+    kernels' timing rows 9w, 9x and 10x ride on ``by_name``'s entries;
+    returns the path's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    print(f"Encoder-decoder serving: host memory available "
+          f"{host_available()} bytes; LM kernels against their plain "
+          f"versions at {ENCDEC_ARCH}'s shapes:", flush=True)
+    for line in check_encdec_kernels(cfg, dev):
+        print(f"  {line}")
+    by_name["embedding_lookup"][ENCDEC_ARCH] = token_gather_row(
+        cfg, dev, PREFILL_BATCH * ENCDEC_LEN)
+    torch.cuda.empty_cache()
+    lm = drive_lm(dev, ENCDEC_SERVE_ARGV, prefill_batch=PREFILL_BATCH,
+                  prefill_len=ENCDEC_LEN, prefill_reps=PREFILL_REPS,
+                  long_len=ENCDEC_LEN, long_pos=ENCDEC_LONG_POS,
+                  long_steps=ENCDEC_STEPS, consistency_window=0)
+    report_lm(lm)
+    pre = lm["prefill"]
+    frames_s = PREFILL_BATCH * cfg.encoder_len / float(
+        np.percentile(pre["ms"], 50)) * 1e3
+    print(f"  encoder-decoder prefill: {_encoder_layers(cfg)} encoder, "
+          f"{_attn_layers(cfg) // 2} self and {_attn_layers(cfg) // 2} "
+          f"cross flash launches a forward ({pre['per_forward']} in all), "
+          f"{_encoder_layers(cfg)} a precompute_cross_cache, "
+          f"{_attn_layers(cfg)} decode launches a step; "
+          f"{frames_s:.0f} frames/s beside the tokens/s above", flush=True)
+    for key, row in encdec_kernel_rows(cfg, lm.pop("cross_inputs"),
+                                       dev).items():
+        by_name[row["name"]][f"{ENCDEC_ARCH} {key}"] = {k: row[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}
+    lm.pop("decode_inputs")
+    return lm["launches"]
+
+
+def encdec_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
+    """Phase 7e: whisper-medium trained at full width (bf16, Adam,
+    remat): the scatter-add at its shape (its timing row rides on
+    ``by_name``'s entry), one float32 step against the plain path at all
+    72 sub-layers on frames from the seed (``ENCDEC_GRAD_LEAVES``),
+    ``drive_lm_train`` with ``ENCDEC_TRAIN_ARGV`` (the launcher's
+    frames). Returns the launches of the training run and of its
+    hot-swap decode."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    print(f"Encoder-decoder training: host memory available "
+          f"{host_available()} bytes; the embedding gradient at "
+          f"{ENCDEC_ARCH}'s shape:", flush=True)
+    sa = scatter_add_row(cfg, dev, split=False, seq=ENCDEC_LEN)
+    by_name["embedding_scatter_add"][ENCDEC_ARCH] = {k: sa[k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")}
+    f32 = check_train_f32(cfg, dev, ENCDEC_GRAD_LEAVES, seq=ENCDEC_LEN)
+    torch.cuda.empty_cache()
+    lm = drive_lm_train(dev, ENCDEC_TRAIN_ARGV,
+                        decode_steps=SWAP_DECODE_STEPS)
     report_lm_train(lm, f32)
     return lm["run"]["launches"], lm["run"]["decode"]["launches"]
 
@@ -4917,6 +5212,18 @@ def main() -> int:
             dev, by_name)
     print(f"sliding-window training phase in {time.perf_counter() - t:.1f} "
           f"s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths[f"{ENCDEC_ARCH} serving"] = encdec_serving_phase(dev, by_name)
+    print(f"encoder-decoder serving phase in {time.perf_counter() - t:.1f} "
+          f"s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths[f"{ENCDEC_ARCH} training run"], \
+        paths[f"{ENCDEC_ARCH} hot-swap decode"] = encdec_training_phase(
+            dev, by_name)
+    print(f"encoder-decoder training phase in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}
         print(f"launches of {name} by path: "

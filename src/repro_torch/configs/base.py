@@ -255,7 +255,8 @@ ARCH_IDS = (
 # the architectures the port has configs for so far; the other ids of
 # ARCH_IDS are the reference's and are not ported yet
 PORTED_ARCH_IDS = ("mamba2-1.3b", "qwen1.5-4b", "dbrx-132b", "qwen2-7b",
-                   "granite-moe-3b-a800m", "qwen2-1.5b", "gemma3-4b")
+                   "granite-moe-3b-a800m", "qwen2-1.5b", "gemma3-4b",
+                   "whisper-medium", "llama-3.2-vision-90b")
 
 _MODULE_FOR_ARCH = {a: a.replace("-", "_").replace(".", "_")
                     for a in PORTED_ARCH_IDS}

@@ -141,14 +141,16 @@ def load_lm_params(cfg: ModelConfig, params: dict, device="cuda") -> dict:
       params: the reference's ``init_params(cfg, key)`` tree (or any tree
         of the same nesting), leaves as NumPy or JAX arrays: ``embed``,
         ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"][name]``
-        stacked on a leading ``repeats`` axis, and ``lm_head`` when the
-        head is untied.
+        stacked on a leading ``repeats`` axis, ``lm_head`` when the head
+        is untied, and for an encoder-decoder ``encoder = {"segments",
+        "final_norm"}``, its segments stacked as the decoder's.
       device: where the tensors go (default the card; raises without one).
     Returns the same nesting with tensors of the leaves' dtypes.
     """
     dev = resolve_device(device)
     want = {"embed", "final_norm", "segments"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"encoder"} if cfg.encoder_segments else set())
     if set(params) != want:
         raise ValueError(f"{cfg.name}: parameter keys {sorted(params)}, "
                          f"want {sorted(want)}")
@@ -156,9 +158,6 @@ def load_lm_params(cfg: ModelConfig, params: dict, device="cuda") -> dict:
     if embed_shape != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed {embed_shape}, want "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
-    if len(params["segments"]) != len(cfg.segments):
-        raise ValueError(f"{cfg.name}: {len(params['segments'])} segments, "
-                         f"want {len(cfg.segments)}")
 
     def convert(tree, repeats):
         if isinstance(tree, dict):
@@ -169,9 +168,25 @@ def load_lm_params(cfg: ModelConfig, params: dict, device="cuda") -> dict:
                              f"{repeats} repeats")
         return _lm_tensor(tree, dev)
 
-    out = {k: _lm_tensor(params[k], dev) for k in want - {"segments"}}
-    out["segments"] = [convert(sp, seg.repeats) for sp, seg in
-                       zip(params["segments"], cfg.segments)]
+    def stack(tree: dict, segments, what: str) -> dict:
+        """``tree``'s tensors, its ``segments`` checked against the
+        config's ``segments`` (an ``encoder`` subtree apart)."""
+        if len(tree["segments"]) != len(segments):
+            raise ValueError(f"{cfg.name}: {len(tree['segments'])} "
+                             f"{what}segments, want {len(segments)}")
+        out = {k: _lm_tensor(v, dev) for k, v in tree.items()
+               if k not in ("segments", "encoder")}
+        out["segments"] = [convert(sp, seg.repeats) for sp, seg in
+                           zip(tree["segments"], segments)]
+        return out
+
+    out = stack(params, cfg.segments, "")
+    if cfg.encoder_segments:
+        enc = params["encoder"]
+        if set(enc) != {"segments", "final_norm"}:
+            raise ValueError(f"{cfg.name}: encoder keys {sorted(enc)}, "
+                             f"want ['final_norm', 'segments']")
+        out["encoder"] = stack(enc, cfg.encoder_segments, "encoder ")
     return out
 
 

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.ps import resolve_device
-from repro_torch.models import init_params
+from repro_torch.models import init_params, precompute_cross_cache
 from repro_torch.serving.predictor import ServeDriver
 
 
@@ -38,7 +38,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build(args: argparse.Namespace):
     """The config, random serve params drawn from a generator seeded with
     ``args.seed`` on ``args.device``, the ``ServeDriver`` over them (float32
-    cache) and the generator, which the hot swaps go on drawing from.
+    cache) and the generator, which the hot swaps go on drawing from. A
+    model with context gets frames (batch, encoder_len, d_model) ~ N(0,
+    1) drawn next from the same generator, and its driver's cross cache
+    precomputed from them, as the reference's launcher does.
     Returns ``(cfg, params, driver, gen)``."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -49,6 +52,10 @@ def build(args: argparse.Namespace):
     driver = ServeDriver(cfg=cfg, params=params, batch=args.batch,
                          max_len=args.max_len, cache_dtype=torch.float32,
                          device=dev)
+    if cfg.has_encoder_context:
+        frames = torch.randn((args.batch, cfg.encoder_len, cfg.d_model),
+                             generator=gen, device=dev)
+        precompute_cross_cache(params, cfg, driver.cache, frames)
     return cfg, params, driver, gen
 
 

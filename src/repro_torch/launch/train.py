@@ -47,8 +47,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build(args: argparse.Namespace):
     """The config, a ``TrainState`` drawn from a generator seeded with
     ``args.seed`` on ``args.device``, the train step, the sync engine
-    (its replica bootstrapped from the initial params) and the token
-    stream. Returns ``(cfg, state, step_fn, engine, batches)``."""
+    (its replica bootstrapped from the initial params) and the batch
+    stream (``train_batches``). Returns ``(cfg, state, step_fn, engine,
+    batches)``."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -56,14 +57,30 @@ def build(args: argparse.Namespace):
                       layers_per_segment=args.layers)
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"params={cfg.param_counts()['total'] / 1e6:.1f}M device={dev}")
-    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = init_train_state(cfg, gen)
     engine = ModelSyncEngine(cfg, state.params, SyncConfig(
         gather_mode="period", period=args.sync_period, codec=args.codec,
         device=dev.type))
-    batches = lm_batches(cfg.vocab_size, args.batch, args.seq,
-                         seed=args.seed)
-    return cfg, state, make_train_step(cfg), engine, batches
+    return cfg, state, make_train_step(cfg), engine, train_batches(
+        cfg, args, gen)
+
+
+def train_batches(cfg, args: argparse.Namespace, gen: torch.Generator):
+    """Each step's batch: ``{"tokens"}``, the host's (batch, seq) int32
+    ids from ``lm_batches`` at ``args.seed``, and for a model with context
+    ``"enc_context"``, frames (batch, encoder_len, d_model) ~ N(0, 1)
+    drawn next from ``gen`` on its device. The reference's launcher
+    trains on zero frames instead, which overflow whisper-medium's
+    encoder backward to NaN at its 24 layers (ROADMAP queue 3)."""
+    for tokens in lm_batches(cfg.vocab_size, args.batch, args.seq,
+                             seed=args.seed):
+        batch = {"tokens": tokens}
+        if cfg.has_encoder_context:
+            batch["enc_context"] = torch.randn(
+                (args.batch, cfg.encoder_len, cfg.d_model), generator=gen,
+                device=gen.device)
+        yield batch
 
 
 def _sync(device: torch.device) -> None:
@@ -85,10 +102,10 @@ def _tick(engine: ModelSyncEngine, params: dict, now: float):
 
 def run(args: argparse.Namespace, cfg, state, step_fn, engine, batches,
         clock: Optional[Callable[[int], float]] = None):
-    """``args.steps`` train steps, each followed by ``collect_step`` (the
-    tokens, and a MoE's routed expert counts) and a sync ``tick`` at
-    ``clock(step)`` (default: seconds since the run
-    began, as the reference launcher ticks), then the final flush.
+    """``args.steps`` train steps on ``batches`` (``train_batches``), each
+    followed by ``collect_step`` (the tokens, and a MoE's routed expert
+    counts) and a sync ``tick`` at ``clock(step)`` (default: seconds since
+    the run began, as the reference launcher ticks), then the final flush.
     Returns ``(state, record)``: ``record`` holds the per-step times in
     seconds (each ends in a device sync) and pre-update losses, each
     flush's time, records and bytes, and the replica's staleness."""
@@ -97,10 +114,11 @@ def run(args: argparse.Namespace, cfg, state, step_fn, engine, batches,
     clock = clock or (lambda i: time.time() - t0)
     step_s, losses, flushes = [], [], []
     for i in range(args.steps):
-        tokens = next(batches)
+        batch = next(batches)
+        tokens = batch["tokens"]
         t = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": torch.from_numpy(
-            tokens).to(dev)})
+        batch = {**batch, "tokens": torch.from_numpy(tokens).to(dev)}
+        state, metrics = step_fn(state, batch)
         _sync(dev)
         step_s.append(time.perf_counter() - t)
         losses.append(float(metrics["loss"]))

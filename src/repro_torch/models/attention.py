@@ -1,6 +1,7 @@
-"""Attention layers of the LM serving path: GQA self-attention (global
-and sliding-window) for prefill and single-token decode against a KV
-cache — the counterpart of the reference's ``models/attention.py``.
+"""Attention layers of the LM path: GQA self-attention (global,
+sliding-window and bidirectional encoder) and cross attention for
+prefill and training, and single-token decode against a KV cache or a
+cross cache — the counterpart of the reference's ``models/attention.py``.
 
 Where the reference's prefill calls an XLA analogue of the Pallas flash
 kernel and its decode writes the attention inline, the port calls the
@@ -26,18 +27,28 @@ rows at ``pos % window``; the ring's valid rows are always the prefix
 ``t < min(pos + 1, window)``, so ``decode_attention`` with those lengths
 is the reference's masked softmax over the ring.
 
+A bidirectional encoder layer (``causal=False``) and cross attention
+(queries from the decoder, keys and values from the encoder's states,
+no rotation) run the flash kernel without its causal mask, S and T
+any lengths; the reference computes both in XLA einsums
+(``_full_attention`` with an all-true mask), the same function. Decode
+against the precomputed cross cache (``decode_cross_attention``) is
+``decode_attention`` at lengths T, every row valid.
+
 Training differentiates the flash path through ``_FlashAttention``: the
 forward is the kernel, the backward the standard attention gradient in
 plain tensor ops (the reference has no Pallas backward either: it trains
-through XLA's autodiff of its einsum softmax).
+through XLA's autodiff of its einsum softmax). A cross layer's k and v
+gradients flow back into the encoder's states.
 
-Bidirectional-encoder and cross attention and the int8 KV cache are not
-ported yet and raise ``NotImplementedError``. The function boundaries
-keep the reference's layouts: x (B, S, D), q (B, S, H, hd), cache (B,
-S_cache, Kv, hd).
+The int8 KV cache is not ported yet and raises ``NotImplementedError``.
+The function boundaries keep the reference's layouts: x (B, S, D), q
+(B, S, H, hd), cache (B, S_cache, Kv, hd).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -48,18 +59,32 @@ from repro_torch.models.common import rope
 _NEG_INF = -1e30
 
 
-def project_qkv(p: dict, x: torch.Tensor):
-    """Q, K, V projections of x (B, S, D): q (B, S, H, hd), k and v
-    (B, S, Kv, hd), plus the QKV biases where the layer has them."""
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) through w (D, heads, hd): (B, S, heads, hd)."""
     b, s, d = x.shape
-    q = (x @ p["wq"].reshape(d, -1)).view(b, s, *p["wq"].shape[1:])
-    k = (x @ p["wk"].reshape(d, -1)).view(b, s, *p["wk"].shape[1:])
-    v = (x @ p["wv"].reshape(d, -1)).view(b, s, *p["wv"].shape[1:])
-    if "bq" in p:
-        q = q + p["bq"]
+    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+
+
+def project_kv(p: dict, src: torch.Tensor):
+    """K and V projections of src (B, T, D): (B, T, Kv, hd) each, plus
+    their biases where the layer has them."""
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    return q, k, v
+    return k, v
+
+
+def project_qkv(p: dict, x: torch.Tensor, *,
+                enc: Optional[torch.Tensor] = None):
+    """Q from x (B, S, D): q (B, S, H, hd); K and V from ``enc`` (B, T, D)
+    when it is given (cross attention), else from x: k and v (B, T, Kv,
+    hd); plus the QKV biases where the layer has them."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    return (q, *project_kv(p, enc if enc is not None else x))
 
 
 def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -69,18 +94,21 @@ def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal GQA attention: forward ``ops.flash_attention`` (the
+    """GQA attention, causal or full: forward ``ops.flash_attention`` (the
     kernel), backward written out in float32 tensor ops — the counterpart
     of XLA's autodiff of the reference's softmax attention, computed
     outside any kernel. It recomputes the probabilities P from q and k
-    (the kernel keeps none), then ``D = rowsum(dO * O)``, ``dS = P * (dP -
-    D)``, and ``dq``, ``dk``, ``dv``, summing k's and v's over the heads
-    of their group. q (B, H, S, hd); k, v (B, G, T, hd)."""
+    (the kernel keeps none; ``causal`` keeps key index <= query index,
+    else every key), then ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``,
+    and ``dq``, ``dk``, ``dv``, summing k's and v's over the heads of
+    their group. q (B, H, S, hd); k, v (B, G, T, hd), T any length when
+    not ``causal``."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out = ops.flash_attention(q, k, v, causal=True)
+    def forward(ctx, q, k, v, causal):
+        out = ops.flash_attention(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
         return out
 
     @staticmethod
@@ -93,8 +121,11 @@ class _FlashAttention(torch.autograd.Function):
         qf = q.float().reshape(grouped) * scale
         kf, vf = k.float(), v.float()
         scores = torch.einsum("bgmsd,bgtd->bgmst", qf, kf)
-        keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
-        p = torch.softmax(scores.masked_fill_(~keep, -1e30), dim=-1)
+        if ctx.causal:
+            keep = torch.ones((s, t), dtype=torch.bool,
+                              device=q.device).tril()
+            scores.masked_fill_(~keep, -1e30)
+        p = torch.softmax(scores, dim=-1)
         del scores
         do = d_out.float().reshape(grouped)
         delta = (do * out.float().reshape(grouped)).sum(-1, keepdim=True)
@@ -104,7 +135,7 @@ class _FlashAttention(torch.autograd.Function):
         dq = torch.einsum("bgmst,bgtd->bgmsd", ds, kf).mul_(scale)
         dk = torch.einsum("bgmst,bgmsd->bgtd", ds, qf)
         return (dq.reshape(b, h, s, hd).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype))
+                dv.to(v.dtype), None)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -154,9 +185,11 @@ def _block_local_causal(q, k, v, q_positions, window: int):
 def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                    cfg: ModelConfig, causal: bool = True, window: int = 0,
                    chunk: int = 1024) -> torch.Tensor:
-    """Prefill self-attention of a causal layer, global (``window`` 0) or
-    sliding-window. x (B, S, D); positions (B, S) rotate q and k. The
-    branches are the reference's, in its order:
+    """Prefill self-attention. x (B, S, D); positions (B, S) rotate q and
+    k. A bidirectional encoder layer (``causal`` False) runs the flash
+    kernel unmasked, at any positions (they only rotate). A causal
+    layer is global (``window`` 0) or sliding-window; its branches are
+    the reference's, in its order:
 
     * ``window`` divides S and S > window: block-local attention in
       tensor ops;
@@ -166,13 +199,12 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     * S > ``chunk``: the flash kernel for a global layer; a windowed one
       raises ``NotImplementedError``, as the reference does.
 
-    The kernel masks by index (key index > query index), so on its path
-    the positions must be ``arange(S)`` on every row —
-    ``models.model.forward`` passes nothing else."""
-    if not causal:
-        raise NotImplementedError("bidirectional encoder attention is not "
-                                  "ported yet")
+    The kernel masks a causal layer by index (key index > query index),
+    so on its causal path the positions must be ``arange(S)`` on every
+    row — ``models.model.forward`` passes nothing else."""
     b, s, _ = x.shape
+    if not causal:              # the reference ignores a window there too
+        window = 0
     blocked = bool(window) and s > window and s % window == 0
     masked = not blocked and bool(window) and window < s
     if window and not blocked and s > chunk:
@@ -192,11 +224,27 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                 positions[:, None, None, None, :]
             out = _full_attention(q, k, v, (qp >= kp) & (qp - kp < window))
         return _out_proj(p, out.reshape(b, s, cfg.num_heads, hd))
+    return _flash(p, q, k, v, causal=causal)
+
+
+def _flash(p: dict, q, k, v, *, causal: bool) -> torch.Tensor:
+    """q (B, S, H, hd), k, v (B, T, Kv, hd), unscaled, through the flash
+    kernel (``_FlashAttention``) and the output projection: (B, S, D)."""
     # the kernel's (B, H, S, hd) / (B, Kv, T, hd) as transposed views: it
     # takes strides, and writes its output in q's (B, S, H, hd) layout
     out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2))
+                                v.transpose(1, 2), causal)
     return _out_proj(p, out.transpose(1, 2))
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor, *,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention: queries from x (B, S, D), keys and values from the
+    encoder's states ``enc`` (B, T, D); no rotation on the cross path, as
+    in the reference. Every query attends every frame: the flash kernel
+    unmasked at S against T."""
+    q, k, v = project_qkv(p, x, enc=enc)
+    return _flash(p, q, k, v, causal=False)
 
 
 def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
@@ -234,3 +282,19 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
     lengths = torch.clamp(pos + 1, max=window) if window else pos + 1
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
     return _out_proj(p, out[:, None].to(x.dtype)), cache
+
+
+def decode_cross_attention(p: dict, x: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor, *,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Decode-time cross attention of x (B, 1, D) against the precomputed
+    encoder K/V ``xk``, ``xv`` (B, T, Kv, hd), read-only during decode:
+    q without rotation, through ``decode_attention`` over all T rows
+    (the kernel scales q). Returns (B, 1, D)."""
+    b, t = xk.shape[:2]
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    out = ops.decode_attention(q[:, 0], xk, xv, lengths)
+    return _out_proj(p, out[:, None].to(x.dtype))

@@ -1,12 +1,14 @@
 """LM composition: parameter init, full-sequence forward (prefill and
 training) and single-token decode — the counterpart of the reference's
-``models/model.py`` for stacks of global and sliding-window attention
-and Mamba-2 mixers (``models.ssm``) with an ``MLP``, a ``MOE``
-(``models.moe``) or no FFN.
+``models/model.py`` for stacks of global, sliding-window, bidirectional
+encoder and cross attention and Mamba-2 mixers (``models.ssm``) with an
+``MLP``, a ``MOE`` (``models.moe``) or no FFN, decoder-only or with an
+encoder.
 
 Parameters are a plain dict with the reference's nesting (``embed``,
 ``final_norm``, ``segments[i]["pos{j}"]["mixer" | "ffn"]``, ``lm_head``
-when the head is untied; a position whose FFN is ``NONE`` has no
+when the head is untied, ``encoder = {"segments", "final_norm"}`` for
+an encoder-decoder; a position whose FFN is ``NONE`` has no
 ``"ffn"``), each layer leaf stacked on a leading
 ``repeats`` axis. The reference scans that axis with ``jax.lax.scan``;
 the port loops over it in Python. ``forward`` unbinds every stacked leaf
@@ -22,9 +24,16 @@ A MoE layer returns its aux loss and expert counts beside its output (out
 of the checkpointed block too, as tensors); ``forward`` returns them as
 the reference's metrics. A Mamba layer's decode cache is its conv state
 and its float32 SSM state, updated in place; a sliding-window layer's a
-ring of ``min(window_size, seq_len)`` K/V rows. Encoder and cross
-attention, and encoder-decoder or frontend-context models raise
-``NotImplementedError``.
+ring of ``min(window_size, seq_len)`` K/V rows; a cross layer's the
+encoder's K/V over ``encoder_len`` frames, filled once by
+``precompute_cross_cache`` and read-only during decode.
+
+A model with context (``cfg.has_encoder_context``) takes stub frontend
+embeddings ``enc_context`` (B, T, D): an encoder-decoder (whisper) runs
+them through its encoder stack (``encode``), a model without an encoder
+(llama-3.2-vision) attends to them as they are, cast to the activations'
+dtype — the reference's two branches. The int8 KV cache is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, MLP, MOE, NONE,
-                                      LayerSpec, ModelConfig, Segment)
+from repro_torch.configs.base import (ATTN, CROSS_ATTN, ENC_ATTN, LOCAL_ATTN,
+                                      MAMBA, MLP, MOE, NONE, LayerSpec,
+                                      ModelConfig, Segment)
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -51,22 +61,6 @@ def _dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"dtype {name!r} is not one of {sorted(_DTYPES)}")
     return _DTYPES[name]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any part of ``cfg`` the port does
-    not run yet."""
-    for seg in cfg.segments:
-        for spec in seg.pattern:
-            if spec.mixer not in (ATTN, LOCAL_ATTN, MAMBA) or \
-                    spec.ffn not in (MLP, MOE, NONE):
-                raise NotImplementedError(
-                    f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is not "
-                    f"ported yet; the port runs {ATTN}, {LOCAL_ATTN} and "
-                    f"{MAMBA} mixers with {MLP}, {MOE} or {NONE} FFNs")
-    if cfg.encoder_segments or cfg.has_encoder_context:
-        raise NotImplementedError(f"{cfg.name}: encoder / frontend context "
-                                  f"is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +135,8 @@ def _init_mamba(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
     }
 
 
-_MIXER_INIT = {ATTN: _init_attn, LOCAL_ATTN: _init_attn,
-               MAMBA: _init_mamba}
+_MIXER_INIT = {ATTN: _init_attn, LOCAL_ATTN: _init_attn, ENC_ATTN: _init_attn,
+               CROSS_ATTN: _init_attn, MAMBA: _init_mamba}
 _FFN_INIT = {MLP: _init_mlp, MOE: _init_moe}
 
 
@@ -160,11 +154,11 @@ def _init_segment(gen: torch.Generator, seg: Segment,
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen``, on ``gen``'s device, in
     ``cfg.param_dtype`` (a Mamba layer's ``A_log``, ``D`` and ``dt_bias``
-    and a MoE router in float32). Norms and biases start at zero, as in
-    the reference; the same seed gives other numbers than ``jax.random``
+    and a MoE router in float32); an encoder-decoder's ``encoder``
+    subtree drawn last. Norms and biases start at zero, as in the
+    reference; the same seed gives other numbers than ``jax.random``
     (tests carry the reference's parameters across with
     ``convert.load_lm_params``)."""
-    _check_ported(cfg)
     pd = _dtype(cfg.param_dtype)
     params = {
         "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
@@ -176,6 +170,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                                        cfg.d_model, pd)
+    if cfg.encoder_segments:
+        params["encoder"] = {
+            "segments": [_init_segment(gen, seg, cfg)
+                         for seg in cfg.encoder_segments],
+            "final_norm": torch.zeros((cfg.d_model,), dtype=pd,
+                                      device=gen.device)}
     return params
 
 
@@ -211,53 +211,38 @@ def _apply_ffn(spec: LayerSpec, p: dict, x: torch.Tensor,
 
 
 def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
-           cfg: ModelConfig):
+           enc: Optional[torch.Tensor], cfg: ModelConfig):
     """One layer with its residuals: ``(x, aux_loss, expert_counts)`` as
-    ``_apply_ffn`` gives them (None, None without an FFN)."""
+    ``_apply_ffn`` gives them (None, None without an FFN). ``enc`` (B, T,
+    D) is what a cross layer attends to."""
     mx = lp["mixer"]
     h = rms_norm(x, mx["norm"])
     if spec.mixer == MAMBA:
         x = x + ssm.mamba_block(mx, h, cfg)
+    elif spec.mixer == CROSS_ATTN:
+        x = x + attn.cross_attention(mx, h, enc, cfg=cfg)
     else:
         window = cfg.window_size if spec.mixer == LOCAL_ATTN else 0
-        x = x + attn.self_attention(mx, h, pos, cfg=cfg, window=window)
+        x = x + attn.self_attention(mx, h, pos, cfg=cfg,
+                                    causal=spec.mixer != ENC_ATTN,
+                                    window=window)
     if spec.ffn == NONE:
         return x, None, None
     dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
     return x + dx, aux, counts
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            enc_context: Optional[torch.Tensor] = None,
-            positions: Optional[torch.Tensor] = None,
-            return_hidden: bool = False):
-    """Full-sequence forward. tokens (B, S) integer ids. Returns ``(logits
-    (B, S, padded_vocab), metrics)`` — or ``(hidden (B, S, D), metrics)``
-    with ``return_hidden``. ``metrics["moe_aux"]`` is the float32 sum of
-    the MoE layers' aux losses (0 for a dense stack); a config with
-    experts adds ``expert_counts`` (E,) int32, summed over the layers,
-    and ``expert_counts_per_layer``: one ``{"pos{i}": (repeats, E)
-    int32}`` dict a segment, as the reference's scan stacks them.
-
-    Only the default positions ``arange(S)`` are supported: the flash
-    kernel masks by index, so ``positions`` must be None; ``enc_context``
-    too (no encoder or frontend context is ported). A sliding-window
-    layer takes ``attention.self_attention``'s branches by S and the
-    window, and raises where the reference does."""
-    _check_ported(cfg)
-    if enc_context is not None:
-        raise NotImplementedError("enc_context: no encoder or frontend "
-                                  "context is ported yet")
-    if positions is not None:
-        raise NotImplementedError("explicit positions: the flash kernel "
-                                  "masks by index, so only arange(S) runs")
-    b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
-    pos = torch.arange(s, device=x.device).expand(b, s)
+def _run_segments(x: torch.Tensor, segments_params: list,
+                  segments: tuple[Segment, ...], cfg: ModelConfig,
+                  pos: torch.Tensor, enc: Optional[torch.Tensor]):
+    """Every layer of ``segments`` over x, each recomputed in the backward
+    with ``cfg.remat`` and grad enabled. Returns ``(x, aux_total,
+    per_layer)``: the MoE layers' float32 aux loss summed, and one
+    ``{"pos{i}": (repeats, E) counts}`` dict a segment."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []                  # one {pos: [counts a repeat]} a segment
-    for seg, seg_params in zip(cfg.segments, params["segments"]):
+    for seg, seg_params in zip(segments, segments_params):
         layers = [_unbind(seg_params[f"pos{i}"], seg.repeats)
                   for i, _ in enumerate(seg.pattern)]
         seg_counts: dict = {}
@@ -265,13 +250,80 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             for i, (spec, per_pos) in enumerate(zip(seg.pattern, layers)):
                 if remat:
                     x, aux, counts = checkpoint(_block, spec, per_pos[r], x,
-                                                pos, cfg, use_reentrant=False)
+                                                pos, enc, cfg,
+                                                use_reentrant=False)
                 else:
-                    x, aux, counts = _block(spec, per_pos[r], x, pos, cfg)
+                    x, aux, counts = _block(spec, per_pos[r], x, pos, enc,
+                                            cfg)
                 if counts is not None:
                     aux_total = aux_total + aux
                     seg_counts.setdefault(f"pos{i}", []).append(counts)
         per_layer.append({k: torch.stack(v) for k, v in seg_counts.items()})
+    return x, aux_total, per_layer
+
+
+def encode(params: dict, cfg: ModelConfig,
+           enc_input: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over stub frontend embeddings ``enc_input`` (B,
+    T, D), cast to ``cfg.dtype``, at positions ``arange(T)``; returns the
+    final-normed states (B, T, D)."""
+    x = enc_input.to(_dtype(cfg.dtype))
+    b, t = x.shape[:2]
+    pos = torch.arange(t, device=x.device).expand(b, t)
+    x, _, _ = _run_segments(x, params["encoder"]["segments"],
+                            cfg.encoder_segments, cfg, pos, None)
+    return rms_norm(x, params["encoder"]["final_norm"])
+
+
+def _context(params: dict, cfg: ModelConfig,
+             enc_context: Optional[torch.Tensor],
+             dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """What the cross layers attend to: ``encode(enc_context)`` for an
+    encoder-decoder, ``enc_context`` in ``dtype`` for a model with
+    context and no encoder, None for a decoder-only model. A context
+    where the model takes none, or none where it takes one, raises
+    ``ValueError``."""
+    if not cfg.has_encoder_context:
+        if enc_context is not None:
+            raise ValueError(f"{cfg.name} takes no enc_context")
+        return None
+    if enc_context is None or enc_context.dim() != 3 \
+            or enc_context.shape[-1] != cfg.d_model:
+        got = None if enc_context is None else tuple(enc_context.shape)
+        raise ValueError(f"{cfg.name} needs enc_context (B, T, "
+                         f"{cfg.d_model}), got {got}")
+    if cfg.is_encdec:
+        return encode(params, cfg, enc_context)
+    return enc_context.to(dtype)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_context: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """Full-sequence forward. tokens (B, S) integer ids; ``enc_context``
+    (B, T, D) stub frontend embeddings for a model with context (none
+    otherwise). Returns ``(logits (B, S, padded_vocab), metrics)`` — or
+    ``(hidden (B, S, D), metrics)`` with ``return_hidden``.
+    ``metrics["moe_aux"]`` is the float32 sum of the MoE layers' aux
+    losses (0 for a dense stack); a config with experts adds
+    ``expert_counts`` (E,) int32, summed over the layers, and
+    ``expert_counts_per_layer``: one ``{"pos{i}": (repeats, E) int32}``
+    dict a segment, as the reference's scan stacks them.
+
+    Only the default positions ``arange(S)`` are supported: the flash
+    kernel masks by index, so ``positions`` must be None. A
+    sliding-window layer takes ``attention.self_attention``'s branches
+    by S and the window, and raises where the reference does."""
+    if positions is not None:
+        raise NotImplementedError("explicit positions: the flash kernel "
+                                  "masks by index, so only arange(S) runs")
+    b, s = tokens.shape
+    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
+    enc = _context(params, cfg, enc_context, x.dtype)
+    pos = torch.arange(s, device=x.device).expand(b, s)
+    x, aux_total, per_layer = _run_segments(x, params["segments"],
+                                            cfg.segments, cfg, pos, enc)
     x = rms_norm(x, params["final_norm"])
     metrics = {"moe_aux": aux_total}
     if cfg.num_experts:
@@ -308,10 +360,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Zeroed cache mirroring the segment structure: ``{"segments":
     [{"pos{i}": entry}]}``, an attention position's entry ``{"k", "v":
     (repeats, batch, seq_len, Kv, hd)}`` in ``dtype`` (a sliding-window
-    position's a ring of ``min(window_size, seq_len)`` rows), a Mamba
+    position's a ring of ``min(window_size, seq_len)`` rows), a cross
+    position's ``{"xk", "xv": (repeats, batch, encoder_len, Kv, hd)}``
+    in ``dtype`` (``precompute_cross_cache`` fills it), a Mamba
     position's ``{"conv": (repeats, batch, K - 1, d_inner + 2 N)}`` in
     ``dtype`` and ``{"state": (repeats, batch, H, P, N)}`` in float32."""
-    _check_ported(cfg)
     if kv_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet")
     dev = resolve_device(device)
@@ -326,15 +379,44 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                     "state": zeros(r, batch, cfg.ssm_num_heads,
                                    cfg.ssm_head_dim, cfg.ssm_state,
                                    dt=torch.float32)}
+        kv = (cfg.num_kv_heads, cfg.head_dim)
+        if spec.mixer == CROSS_ATTN:
+            shape = (r, batch, cfg.encoder_len, *kv)
+            return {"xk": zeros(*shape), "xv": zeros(*shape)}
         rows = min(cfg.window_size, seq_len) if spec.mixer == LOCAL_ATTN \
             else seq_len
-        shape = (r, batch, rows, cfg.num_kv_heads, cfg.head_dim)
+        shape = (r, batch, rows, *kv)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
     return {"segments": [
         {f"pos{i}": entry(spec, seg.repeats)
          for i, spec in enumerate(seg.pattern)}
         for seg in cfg.segments]}
+
+
+def precompute_cross_cache(params: dict, cfg: ModelConfig, cache: dict,
+                           enc_context: torch.Tensor) -> dict:
+    """Fill every cross position's ``xk``, ``xv`` of ``cache`` IN PLACE
+    from ``enc_context`` (B, encoder_len, D): the encoder's states (or,
+    without an encoder, the context in ``cfg.dtype``) through each
+    layer's K and V projections and biases, cast to the cache's dtype.
+    Returns ``cache``. Runs without autograd: the cache is a serving
+    buffer."""
+    with torch.no_grad():
+        enc = _context(params, cfg, enc_context, _dtype(cfg.dtype))
+        for seg, seg_params, seg_cache in zip(cfg.segments,
+                                              params["segments"],
+                                              cache["segments"]):
+            for i, spec in enumerate(seg.pattern):
+                if spec.mixer != CROSS_ATTN:
+                    continue
+                entry = seg_cache[f"pos{i}"]
+                for r, lp in enumerate(_unbind(seg_params[f"pos{i}"]
+                                               ["mixer"], seg.repeats)):
+                    k, v = attn.project_kv(lp, enc)
+                    entry["xk"][r].copy_(k)
+                    entry["xv"][r].copy_(v)
+    return cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -356,8 +438,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     the write): on the CPU at once, on the card as a device-side assert
     of the cache write or the decode kernel, raised at the next
     synchronisation — the step itself never reads back from the
-    device."""
-    _check_ported(cfg)
+    device. A cross layer attends its ``xk``, ``xv`` entry over every
+    frame and leaves it as it is."""
     x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
                                           cache["segments"]):
@@ -371,6 +453,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                         mx, h, lc["conv"], lc["state"], cfg)
                     lc["conv"].copy_(conv)
                     lc["state"].copy_(state)
+                elif spec.mixer == CROSS_ATTN:
+                    dx = attn.decode_cross_attention(mx, h, lc["xk"],
+                                                     lc["xv"], cfg=cfg)
                 else:
                     window = min(cfg.window_size, lc["k"].shape[1]) \
                         if spec.mixer == LOCAL_ATTN else 0

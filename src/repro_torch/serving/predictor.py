@@ -72,7 +72,11 @@ class ServeDriver:
                                device=self.device)
 
     def hot_swap(self, new_params: dict) -> None:
-        """Second-level deployment: swap weights between decode steps."""
+        """Second-level deployment: swap weights between decode steps.
+        The cache stays as it is: a model with context keeps the cross
+        cache computed from the old weights (``precompute_cross_cache``),
+        as the reference's driver does, until the caller fills it
+        again."""
         self.params = new_params
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:

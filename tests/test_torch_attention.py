@@ -173,7 +173,7 @@ def test_decode_self_attention_matches_reference():
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["window", "encoder", "int8 cache"])
+@pytest.mark.parametrize("mode", ["window", "int8 cache"])
 def test_unported_attention_modes_raise(mode):
     cfg = _cfg()
     rng = np.random.default_rng(1)
@@ -183,8 +183,6 @@ def test_unported_attention_modes_raise(mode):
     with pytest.raises(NotImplementedError):
         if mode == "window":        # past one chunk, S % window != 0
             port_attn.self_attention(p, x, pos, cfg=cfg, window=3, chunk=2)
-        elif mode == "encoder":
-            port_attn.self_attention(p, x, pos, cfg=cfg, causal=False)
         else:
             cache = {"k": torch.zeros(1, 4, 2, 64), "v": torch.zeros(1, 4, 2,
                                                                       64),

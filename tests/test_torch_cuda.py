@@ -631,6 +631,9 @@ def _tol(dtype):
     (1, 4, 2, 1000, 1000, 256),       # the wide head at a ragged S
     (2, 24, 8, 1000, 1000, 64),       # granite-moe's heads: 3 a group
     (4, 8, 4, 2048, 2048, 256),       # gemma3-4b's prefill: 2 a group
+    (4, 16, 16, 448, 1500, 64),       # whisper-medium's cross attention
+    (4, 16, 16, 1500, 1500, 64),      # whisper-medium's encoder, ragged T
+    (1, 64, 8, 256, 1024, 128),       # llama-3.2-vision's cross attention
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -747,6 +750,120 @@ def test_decode_attention_on_a_ring_on_card(cuda, q_dtype, kv_dtype):
     slot = (pos % w).long()
     assert not torch.equal(ca["k"][torch.arange(4), slot],
                            k[torch.arange(4), slot])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_decode_against_a_cross_cache_on_card(cuda, q_dtype, kv_dtype):
+    """whisper-medium's decode-time cross attention: q (4, 16, 64) against
+    a (4, 1500, 16, 64) cross cache at length 1,500, every row valid,
+    within the plain version's tolerance; then ``decode_cross_attention``
+    on the card against the same call on the plain path, the cache left
+    as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as port_da
+    from repro_torch.models import attention as port_attn
+    cfg = get_config("whisper-medium")
+    t, h, g, d = cfg.encoder_len, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    lengths = torch.full((4,), t, device=cuda, dtype=torch.int32)
+    q = torch.randn((4, h, d), generator=gen, device=cuda).to(q_dtype)
+    xk, xv = (torch.randn((4, t, g, d), generator=gen, device=cuda)
+              .to(kv_dtype) for _ in range(2))
+    before = port_da.decode_attention.launches
+    got = port_da.decode_attention(q, xk, xv, lengths)
+    torch.cuda.synchronize()
+    assert port_da.decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), port_ref.decode_attention(q, xk, xv, lengths).float(),
+        rtol=_tol(q_dtype), atol=_tol(q_dtype))
+    p = {name: (torch.randn(shape, generator=gen, device=cuda)
+                * shape[0] ** -0.5).to(q_dtype)
+         for name, shape in (("wq", (cfg.d_model, h, d)),
+                             ("wo", (h, d, cfg.d_model)))}
+    x = torch.randn((4, 1, cfg.d_model), generator=gen,
+                    device=cuda).to(q_dtype)
+    keep = xk.clone(), xv.clone()
+    out = {}
+    for path in ("kernel", "plain"):
+        saved = port_ops.decode_attention
+        if path == "plain":
+            port_ops.decode_attention = port_ref.decode_attention
+        try:
+            out[path] = port_attn.decode_cross_attention(p, x, xk, xv,
+                                                         cfg=cfg)
+        finally:
+            port_ops.decode_attention = saved
+    torch.testing.assert_close(out["kernel"].float(), out["plain"].float(),
+                               rtol=_tol(q_dtype), atol=_tol(q_dtype))
+    assert torch.equal(xk, keep[0]) and torch.equal(xv, keep[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_model_with_context_on_card_matches_cpu(cuda, arch):
+    """Reduced whisper-medium (an encoder layer; a decoder layer of
+    self-attention, cross attention and an MLP) and llama-3.2-vision-90b
+    (one 5-layer period, its cross layer first), float32, the same
+    params and frames on the card and on the CPU: forward logits, the
+    precomputed cross cache and eight decode steps within 1e-4; on the
+    card every attention runs through the kernels (flash once an
+    attention layer a forward, the encoder's included; decode once an
+    attention layer a step, the cross layers' included)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, ENC_ATTN
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, precompute_cross_cache)
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    frames = torch.randn((2, cfg.encoder_len, cfg.d_model), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    specs = cfg.layer_specs() + [s for seg in cfg.encoder_segments
+                                 for s in seg.pattern * seg.repeats]
+    flash = sum(s.mixer in (ATTN, CROSS_ATTN, ENC_ATTN) for s in specs)
+    decode = sum(s.mixer in (ATTN, CROSS_ATTN) for s in cfg.layer_specs())
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = port_ops.launch_counts()
+        logits, _ = forward(p, cfg, tokens.to(dev),
+                            enc_context=frames.to(dev))
+        cache = precompute_cross_cache(
+            p, cfg, init_cache(cfg, 2, 8, dtype=torch.float32, device=dev),
+            frames.to(dev))
+        cross = [e["xk"].clone() for seg in cache["segments"]
+                 for e in seg.values() if "xk" in e]
+        steps = []
+        for i in range(8):
+            lg, cache = decode_step(p, cfg, cache, tokens[:, i:i + 1].to(dev),
+                                    torch.full((2,), i, dtype=torch.int32,
+                                               device=dev))
+            steps.append(lg)
+        after = port_ops.launch_counts()
+        out[str(dev)] = (logits, cross, torch.stack(steps, 1),
+                         {k: after[k] - before[k] for k in after})
+    (l0, c0, s0, n0), (l1, c1, s1, n1) = out["cpu"], out[str(cuda)]
+    assert not any(n0.values())
+    # the forward and precompute_cross_cache's encoder, the decode steps
+    enc_flash = sum(s.mixer == ENC_ATTN for s in specs)
+    assert n1["flash_attention"] == flash + enc_flash
+    assert n1["decode_attention"] == 8 * decode
+    torch.testing.assert_close(l1.cpu(), l0, rtol=1e-4, atol=1e-4)
+    for a, b in zip(c1, c0):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s1.cpu(), s0, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 @pytest.mark.cuda

@@ -48,6 +48,8 @@ SLICE_MODULES = {
     "repro_torch.configs.dbrx_132b",
     "repro_torch.models.ssm", "repro_torch.configs.mamba2_1_3b",
     "repro_torch.configs.gemma3_4b",
+    "repro_torch.configs.whisper_medium",
+    "repro_torch.configs.llama_3_2_vision_90b",
 }
 
 

@@ -9,8 +9,15 @@ sliding-window layers and a global one; the reduced window of 16, so S
 = 24 takes the masked branch), its window cut to 8 (``gemma3-4b/w8``: S
 = 24 takes the block-local branch, and the decode's rings of 8 rows
 wrap) and a cut that keeps both of its segments (``gemma3-4b/segments``:
-the 6-layer period once, then the local tail twice). A variant's
-``dataclasses.replace`` is applied alike to both packages' configs.
+the 6-layer period once, then the local tail twice); and the two models
+with context: whisper-medium (one encoder layer; a decoder layer of
+self-attention, then cross attention and its MLP) and
+llama-3.2-vision-90b (one 5-layer period, its cross layer first, the
+frames reaching it without an encoder). Both packages get the same
+seeded frames (``_frames``, (B, 16, D)); the decode caches' cross
+entries are filled from them by each package's
+``precompute_cross_cache``. A variant's ``dataclasses.replace`` is
+applied alike to both packages' configs.
 
 The reference's ``init_params`` tree is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take
@@ -35,18 +42,21 @@ from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
+from repro.models import precompute_cross_cache as jax_precompute
 from repro.serving.predictor import ServeDriver as JaxServeDriver
 from repro.serving.predictor import make_serve_step as jax_make_serve_step
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import load_lm_params
 from repro_torch.kernels import ops as port_ops
 from repro_torch.launch import serve as port_serve
-from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.models import (decode_step, forward, init_cache, init_params,
+                                precompute_cross_cache)
 from repro_torch.serving.predictor import ServeDriver, make_serve_step
 
 ARCHS = ["qwen2-1.5b", "qwen2-7b",
          "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "gemma3-4b",
-         "gemma3-4b/w8", "gemma3-4b/segments"]
+         "gemma3-4b/w8", "gemma3-4b/segments", "whisper-medium",
+         "llama-3.2-vision-90b"]
 RTOL = ATOL = 1e-4
 
 
@@ -92,6 +102,22 @@ def _params(jcfg, seed: int):
             a.shape, dtype=np.float32), tree)
 
 
+def _frames(cfg, batch: int, seed: int):
+    """Seeded N(0, 1) frames (batch, encoder_len, d_model) for a model
+    with context, as numpy; None for one without."""
+    if not cfg.has_encoder_context:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.encoder_len, cfg.d_model), dtype=np.float32)
+
+
+def _context(frames):
+    """``frames`` for the reference and the port: (jax, torch), or Nones."""
+    if frames is None:
+        return None, None
+    return jnp.asarray(frames), torch.from_numpy(frames)
+
+
 def _close(got: torch.Tensor, want) -> float:
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
@@ -126,11 +152,12 @@ def test_forward_logits_match_reference(arch):
     tree = _params(jcfg, 1)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                size=(2, 24)).astype(np.int32)
+    jenc, enc = _context(_frames(cfg, 2, 12))
     want, jm = jax_forward(jax.tree.map(jnp.asarray, tree), jcfg,
-                           jnp.asarray(tokens))
+                           jnp.asarray(tokens), enc_context=jenc)
     before = port_ops.launch_counts()
     got, metrics = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
-                           torch.from_numpy(tokens))
+                           torch.from_numpy(tokens), enc_context=enc)
     assert port_ops.launch_counts() == before         # plain versions
     assert got.shape == (2, 24, cfg.padded_vocab)
     assert metrics["moe_aux"].dtype == torch.float32
@@ -150,16 +177,20 @@ def test_forward_logits_match_reference(arch):
         assert float(metrics["moe_aux"]) == 0.0
     _close(got, want)
     hidden, _ = forward(load_lm_params(cfg, tree, device="cpu"), cfg,
-                        torch.from_numpy(tokens), return_hidden=True)
+                        torch.from_numpy(tokens), enc_context=enc,
+                        return_hidden=True)
     assert hidden.shape == (2, 24, cfg.d_model)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_logits_match_reference(arch):
     """Eight decode steps of the same tokens from an empty cache (twelve
-    where a window is under the 12 rows, so its rings wrap); the cache the port
-    updates in place equals the reference's new cache at every position
-    (K/V rows or ring, or a Mamba layer's conv and SSM states)."""
+    where a window is under the 12 rows, so its rings wrap; a model with
+    context's cross entries filled first); the cache the port updates in
+    place equals the reference's new cache at every position (K/V rows
+    or ring, a Mamba layer's conv and SSM states, a cross layer's K/V,
+    which carry the encoder's rounding and are held as a later layer's
+    K/V are)."""
     jcfg, cfg = _cfgs(arch)
     tree = _params(jcfg, 3)
     jparams = jax.tree.map(jnp.asarray, tree)
@@ -168,6 +199,10 @@ def test_decode_step_logits_match_reference(arch):
     steps = max_len if 0 < cfg.window_size < max_len else 8
     jcache = jax_init_cache(jcfg, b, max_len, dtype=jnp.float32)
     cache = init_cache(cfg, b, max_len, dtype=torch.float32, device="cpu")
+    jenc, enc = _context(_frames(cfg, b, 13))
+    if enc is not None:
+        jcache = jax_precompute(jparams, jcfg, jcache, jenc)
+        precompute_cross_cache(params, cfg, cache, enc)
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
                                              size=(steps, b, 1)).astype(
                                                  np.int32)
@@ -193,7 +228,8 @@ def test_decode_step_logits_match_reference(arch):
                     # the SSM state sums eight steps' products, and a K/V
                     # past the first two layers carries their rounding:
                     # the logits' 1e-4
-                    tol = RTOL if k == "state" or layer > 1 else 1e-5
+                    tol = RTOL if k in ("state", "xk", "xv") or layer > 1 \
+                        else 1e-5
                     np.testing.assert_allclose(
                         v[r].numpy(), np.asarray(jseg[i][k][r]), rtol=tol,
                         atol=tol)
@@ -225,6 +261,10 @@ def test_serve_driver_with_hot_swap_matches_reference(arch):
                       batch=2, max_len=16, cache_dtype=torch.float32,
                       step_fn=_recording(make_serve_step(cfg), log),
                       device="cpu")
+    jenc, enc = _context(_frames(cfg, 2, 14))
+    if enc is not None:             # from the first params, kept by the swap
+        jdrv.cache = jax_precompute(jdrv.params, jcfg, jdrv.cache, jenc)
+        precompute_cross_cache(drv.params, cfg, drv.cache, enc)
     prompt = np.array([[3], [7]], np.int32)
     want = [jdrv.generate(jnp.asarray(prompt), 4)]
     got = [drv.generate(torch.from_numpy(prompt), 4)]
@@ -272,9 +312,11 @@ def test_serve_launcher_runs_reduced_on_cpu(capsys):
 
 # the reference's ``test_decode_matches_forward`` configs that the port has
 # (gemma3-4b at a window of 8: the forward takes the block-local branch,
-# the decode's rings of 8 rows wrap twice)
+# the decode's rings of 8 rows wrap twice), and the two models with
+# context, their decode against a precomputed cross cache
 CONSISTENCY_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "dbrx-132b",
-                     "gemma3-4b/w8"]
+                     "gemma3-4b/w8", "whisper-medium",
+                     "llama-3.2-vision-90b"]
 
 
 @pytest.mark.parametrize("arch", CONSISTENCY_ARCHS)
@@ -282,7 +324,8 @@ def test_decode_matches_forward(arch):
     """The port alone, as the reference's ``tests/test_models.py`` holds
     its own: 24 decode steps from an empty float32 cache against one
     forward over the same tokens, within the reference's 5e-4 (a MoE's
-    capacity factor raised to 8 so neither path drops a token)."""
+    capacity factor raised to 8 so neither path drops a token; a model
+    with context's cross cache filled from the forward's frames)."""
     cfg = _cfgs(arch, layers_per_segment=1)[1]
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
@@ -290,8 +333,11 @@ def test_decode_matches_forward(arch):
     b, s = 2, 24
     tokens = torch.randint(0, cfg.vocab_size, (b, s),
                            generator=torch.Generator().manual_seed(2))
-    full, _ = forward(params, cfg, tokens)
+    enc = _context(_frames(cfg, b, 3))[1]
+    full, _ = forward(params, cfg, tokens, enc_context=enc)
     cache = init_cache(cfg, b, s, dtype=torch.float32, device="cpu")
+    if enc is not None:
+        precompute_cross_cache(params, cfg, cache, enc)
     worst = 0.0
     for t in range(s):
         logits, cache = decode_step(params, cfg, cache, tokens[:, t:t + 1],
@@ -303,9 +349,8 @@ def test_decode_matches_forward(arch):
 
 
 def test_unported_configs_and_modes_raise():
-    for arch in ("whisper-medium", "jamba-1.5-large-398b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("jamba-1.5-large-398b")
     cfg = reduced(get_config("qwen2-1.5b"))
     params = init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int64)

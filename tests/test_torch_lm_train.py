@@ -11,7 +11,12 @@ heads of 32, chunk 32, no FFN, tied head), whose float32 ``A_log``,
 ``D`` and ``dt_bias`` carry across under a bf16 ``param_dtype``; and for
 gemma3-4b at a window of 8 (one 6-layer period of five windowed layers
 and a global one), whose seq-32 batch takes the block-local branch
-forward and backward.
+forward and backward; and for whisper-medium (one encoder layer and one
+decoder layer of self-attention, cross attention and an MLP) on seeded
+frames, the same on both sides (``_batch``), and its launcher on its
+seeded N(0, 1) frames. (llama-3.2-vision-90b trains with Adafactor,
+whose factored slots ``convert.load_lm_train_state`` does not carry yet:
+its step tests wait for that optimizer's slice.)
 
 The reference's ``init_train_state`` is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take
@@ -33,6 +38,7 @@ sign — however small d is; almost every element agrees within 1e-5.
 import dataclasses
 import sys
 from pathlib import Path
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -67,7 +73,27 @@ SSM_ARCH = "mamba2-1.3b"
 # gemma3-4b at a window of 8: the seq-32 batch takes the block-local
 # branch forward and backward
 WINDOW_ARCH = "gemma3-4b/w8"
-STEP_ARCHS = [ARCH, MOE_ARCH, SSM_ARCH, WINDOW_ARCH]
+# whisper-medium: an encoder layer and a decoder layer, its steps on
+# seeded frames (``_batch``), the gradients flowing through the cross
+# layer's K and V into the encoder
+ENCDEC_ARCH = "whisper-medium"
+STEP_ARCHS = [ARCH, MOE_ARCH, SSM_ARCH, WINDOW_ARCH, ENCDEC_ARCH]
+# whisper's three Adam steps are held to a float64 run of the port as the
+# windowed stack's are, but the share of elements beyond 1e-5 is no
+# measure there: it counts Adam's sign flips at near-zero gradients (2 lr
+# an element), a lottery in either float32 run. Over seeds 3-7 of
+# ``_states`` the shares of params beyond 1e-5 from float64 read
+# (reference / port): seed 3, the test's, 1.75e-4 / 7.31e-4; seed 4
+# 2.07e-5 / 2.13e-5; seed 5 3.66e-4 / 1.95e-5; seed 6 7.56e-5 / 7.19e-5;
+# seed 7 3.05e-5 / 1.77e-5 (slots: 7.83e-5 / 5.26e-4, 0 / 0, 3.57e-5 / 0,
+# 1.38e-4 / 1.41e-4, 0 / 0): the port's share 0.05-4.2 times the
+# reference's, while the largest param deviations stay within 1.65 times
+# each other's. Both shares are held under 1e-3, the dense configs' bound
+# for the port against the reference: 2.7 times the reference's largest
+# share over those seeds (3.66e-4) and 1.37 times the largest of either
+# (the port's at seed 3); the largest deviations within twice the
+# reference's.
+ENCDEC_SHARE = 1e-3
 ADAM_ATOL = 3e-3
 # The MoE stack's token-embedding gradient has a float32 rounding floor
 # above the dense stack's atol of 1e-6: against a float64 run of the same
@@ -124,6 +150,28 @@ def _states(seed: int = 0, arch: str = ARCH):
 def _tokens(cfg, n: int, seed: int = 1):
     batches = lm_batches(cfg.vocab_size, 4, 32, seed=seed)
     return [next(batches) for _ in range(n)]
+
+
+def _batch(cfg, tokens: np.ndarray, jax_side: bool = False,
+           dtype=torch.float32) -> dict:
+    """A batch of ``tokens`` for the port (or, with ``jax_side``, the
+    reference); a model with context gets N(0, 1) frames (B,
+    encoder_len, D) seeded by the tokens' first id, the same on both
+    sides."""
+    frames = None
+    if cfg.has_encoder_context:
+        frames = np.random.default_rng(int(tokens[0, 0])).standard_normal(
+            (tokens.shape[0], cfg.encoder_len, cfg.d_model),
+            dtype=np.float32)
+    if jax_side:
+        batch = {"tokens": jnp.asarray(tokens)}
+        if frames is not None:
+            batch["enc_context"] = jnp.asarray(frames)
+        return batch
+    batch = {"tokens": torch.from_numpy(tokens)}
+    if frames is not None:
+        batch["enc_context"] = torch.from_numpy(frames).to(dtype)
+    return batch
 
 
 @pytest.mark.parametrize("structured", [True, False])
@@ -220,7 +268,7 @@ def _float64_grads(cfg, params: dict, tokens: np.ndarray) -> dict:
             tree.map_like(lambda t: t.detach().double(), params),
             dataclasses.replace(cfg, dtype="float64",
                                 param_dtype="float64"),
-            {"tokens": torch.from_numpy(tokens)})[2]
+            _batch(cfg, tokens, dtype=torch.float64))[2]
 
 
 @pytest.mark.parametrize("arch", STEP_ARCHS)
@@ -228,10 +276,10 @@ def test_loss_and_grads_match_reference(arch):
     jcfg, cfg, st, port = _states(0, arch)
     tokens = _tokens(cfg, 1)[0]
     (jl, jm), jg = jax.value_and_grad(jax_loss_fn, has_aux=True)(
-        st.params, jcfg, {"tokens": jnp.asarray(tokens)})
+        st.params, jcfg, _batch(cfg, tokens, jax_side=True))
     before = port_ops.launch_counts()
     loss, metrics, grads = loss_and_grads(port.params, cfg,
-                                          {"tokens": torch.from_numpy(tokens)})
+                                          _batch(cfg, tokens))
     assert port_ops.launch_counts() == before          # plain versions
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     for k in ("loss", "ce", "ppl_log", "moe_aux"):
@@ -276,7 +324,7 @@ def test_loss_and_grads_match_reference(arch):
               f"{apart:.2f}")
         assert floor[1] <= 2 * floor[0]
     # loss_fn alone gives the same loss
-    l2, _ = loss_fn(port.params, cfg, {"tokens": torch.from_numpy(tokens)})
+    l2, _ = loss_fn(port.params, cfg, _batch(cfg, tokens))
     assert float(l2.detach()) == float(loss)
 
 
@@ -287,7 +335,7 @@ def test_remat_gives_the_same_loss_and_grads(arch):
     the MoE the same aux loss and expert counts out of the checkpointed
     blocks."""
     _, cfg, _, port = _states(2, arch)
-    batch = {"tokens": torch.from_numpy(_tokens(cfg, 1)[0])}
+    batch = _batch(cfg, _tokens(cfg, 1)[0])
     loss, m, grads = loss_and_grads(port.params, cfg, batch)
     loss_r, m_r, grads_r = loss_and_grads(
         port.params, dataclasses.replace(cfg, remat=True), batch)
@@ -307,9 +355,9 @@ def test_three_train_steps_match_reference(arch):
     step = make_train_step(cfg)
     losses = []
     for tokens in _tokens(cfg, 3, seed=4):
-        st, jm = jstep(st, {"tokens": jnp.asarray(tokens)})
+        st, jm = jstep(st, _batch(cfg, tokens, jax_side=True))
         params_before = port.params
-        port, m = step(port, {"tokens": torch.from_numpy(tokens)})
+        port, m = step(port, _batch(cfg, tokens))
         assert port.params is params_before             # updated in place
         losses.append((float(m["loss"]), float(jm["loss"])))
     assert port.step == 3 and int(st.step) == 3
@@ -323,8 +371,9 @@ def test_three_train_steps_match_reference(arch):
     print(f"losses {losses}; params max |dev| {devs.max():.2g}, "
           f"{(devs > 1e-5).mean():.2g} of elements beyond 1e-5")
     assert devs.max() <= ADAM_ATOL
-    if cfg.window_size:
-        _hold_steps_to_float64(arch, st, port)
+    if cfg.window_size or cfg.is_encdec:
+        _hold_steps_to_float64(arch, st, port,
+                               ENCDEC_SHARE if cfg.is_encdec else None)
         return
     for (_, a), (path, b) in zip(
             jax.tree_util.tree_flatten_with_path(st.slots)[0],
@@ -334,7 +383,8 @@ def test_three_train_steps_match_reference(arch):
     assert (devs > 1e-5).mean() < 1e-3
 
 
-def _hold_steps_to_float64(arch: str, st, port) -> None:
+def _hold_steps_to_float64(arch: str, st, port,
+                           share_bound: Optional[float] = None) -> None:
     """The three steps of ``test_three_train_steps_match_reference`` for
     a windowed config, held to the float32 floor: the port's three steps
     rerun in float64 (``float64_math``) from the same state, and the
@@ -344,7 +394,9 @@ def _hold_steps_to_float64(arch: str, st, port) -> None:
     near-zero gradients, up to 2 lr an element, move the next steps'
     gradients in either float32 run; in the six-layer windowed stack the
     reference's params sit 1.73e-3 from float64 and its slots 4.73e-5,
-    while the two-layer stacks' slot bound is rtol 1e-3, atol 1e-6.)"""
+    while the two-layer stacks' slot bound is rtol 1e-3, atol 1e-6.)
+    With ``share_bound``, the port's share beyond 1e-5 is held under it
+    instead of under twice the reference's (``ENCDEC_SHARE``)."""
     _, cfg, _, exact = _states(3, arch)
     cfg64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
     with float64_math():
@@ -354,7 +406,8 @@ def _hold_steps_to_float64(arch: str, st, port) -> None:
             slots=tree.map_like(lambda t: t.double(), exact.slots), step=0)
         step = make_train_step(cfg64)
         for tokens in _tokens(cfg, 3, seed=4):
-            exact, _ = step(exact, {"tokens": torch.from_numpy(tokens)})
+            exact, _ = step(exact, _batch(cfg, tokens,
+                                          dtype=torch.float64))
     for name in ("params", "slots"):
         ref = np.concatenate([np.asarray(a, np.float64).ravel() for _, a in
                               jax.tree_util.tree_flatten_with_path(
@@ -369,7 +422,8 @@ def _hold_steps_to_float64(arch: str, st, port) -> None:
               f"{d_ours.max():.3g}, {(d_ours > 1e-5).mean():.3g}; port vs "
               f"reference max {np.abs(ours - ref).max():.3g}")
         assert d_ours.max() <= 2 * d_ref.max()
-        assert (d_ours > 1e-5).mean() <= 2 * (d_ref > 1e-5).mean()
+        assert (d_ours > 1e-5).mean() <= (
+            share_bound or 2 * (d_ref > 1e-5).mean())
 
 
 def test_chunked_ce_equals_the_full_loss():
@@ -507,3 +561,46 @@ def test_load_lm_train_state_carries_mamba_leaves(param_dtype):
             np.testing.assert_array_equal(
                 slot.numpy(),
                 st.slots["segments"][0]["pos0"]["mixer"][name][k])
+
+
+def test_encdec_launcher_on_cpu_streams_the_encoder(capsys):
+    """``launch.train --arch whisper-medium --reduced`` on the CPU: its
+    steps run on frames (batch, encoder_len, d_model) drawn from the seed,
+    N(0, 1), a new draw each step and the same in a second build (a
+    forward without context raises; the reference launcher's zero frames
+    overflow the encoder's backward at whisper's 24 layers), the
+    encoder's leaves stream as dense leaves under the reference's paths,
+    the replica within the cast16 bound."""
+    from repro_torch.training import trainer
+    seen, forward = [], trainer.forward
+
+    def recording(params, cfg, tokens, enc_context=None, **kw):
+        seen.append(enc_context)
+        return forward(params, cfg, tokens, enc_context=enc_context, **kw)
+
+    argv = ["--arch", ENCDEC_ARCH, "--reduced", "--device", "cpu",
+            "--steps", "3", "--batch", "2", "--seq", "16",
+            "--sync-period", "0", "--log-every", "1"]
+    trainer.forward = recording
+    try:
+        state, engine, rec = port_train.main(argv)
+    finally:
+        trainer.forward = forward
+    cfg = _cfgs(ENCDEC_ARCH)[1]
+    batches = port_train.build(port_train.parse_args(argv))[-1]
+    again = [next(batches)["enc_context"] for _ in range(3)]
+    assert len(seen) == 3 and all(
+        tuple(e.shape) == (2, cfg.encoder_len, cfg.d_model)
+        and e.dtype == torch.float32 and torch.equal(e, a)
+        for e, a in zip(seen, again))
+    assert not torch.equal(seen[0], seen[1])
+    frames = torch.stack(seen)
+    assert abs(float(frames.mean())) < 0.05
+    assert abs(float(frames.std()) - 1) < 0.05
+    enc = [p for p in engine.paths if p.startswith("encoder/")]
+    assert "encoder/segments/0/pos0/mixer/wq" in enc
+    assert "encoder/final_norm" in enc
+    assert {engine.kinds[p] for p in enc} == {"dense"}
+    assert rec["staleness"] < 2e-3 and len(rec["flushes"]) >= 2
+    assert all(np.isfinite(rec["losses"]))
+    assert "serve staleness" in capsys.readouterr().out

@@ -3,8 +3,11 @@ the port of ``tests/test_sync_engine.py`` for the dense configs, the
 MoE config granite-moe-3b-a800m (reduced: 4 experts), whose expert leaves
 stream by (repeat, expert) id from the routed expert counts each step
 reports, the SSM config mamba2-1.3b, whose Mamba leaves stream as
-dense leaves, and gemma3-4b, whose tied embedding streams as one dense
-tensor beside its windowed and global layers.
+dense leaves, gemma3-4b, whose tied embedding streams as one dense
+tensor beside its windowed and global layers, whisper-medium, whose
+encoder's leaves (``encoder/segments/0/pos0/mixer/wq``, ...,
+``encoder/final_norm``) stream as dense leaves in the reference's order,
+and llama-3.2-vision-90b's cross layers.
 
 Both engines are fed the same parameter trees (numpy, perturbed every
 step) and the same tokens on the same clock, so their records — path,
@@ -78,6 +81,8 @@ def _same_record(a, b) -> None:
     ("granite-moe-3b-a800m", "sgd"),  # experts, SGD -> window
     ("mamba2-1.3b", None),         # Mamba leaves (float32 A_log, D, dt_bias)
     ("gemma3-4b", None),           # windowed and global layers, tied embed
+    ("whisper-medium", None),      # the encoder's leaves, cross layers
+    ("llama-3.2-vision-90b", None),   # cross layers; Adafactor -> window
 ])
 def test_records_and_replica_equal_reference(arch, optimizer, codec):
     """Five steps and the final flush on both engines; a MoE config's
@@ -97,6 +102,11 @@ def test_records_and_replica_equal_reference(arch, optimizer, codec):
                            SyncConfig(codec_backend="torch", device="cpu",
                                       **kw))
     assert port.paths == ref.paths and port.kinds == ref.kinds
+    if cfg.is_encdec:                       # dense, in the reference's order
+        enc = [p for p in port.paths if p.startswith("encoder/")]
+        assert "encoder/segments/0/pos0/mixer/wq" in enc
+        assert "encoder/final_norm" in enc
+        assert {port.kinds[p] for p in enc} == {"dense"}
     if cfg.tie_embeddings:                  # the tied table streams whole
         assert port.kinds["embed"] == "dense"
     for t in range(5):
