@@ -2732,13 +2732,14 @@ BF16_LOGIT_BOUND = 1.0
 
 
 LM_PLAIN = ("flash_attention", "decode_attention", "embedding_lookup",
-            "embedding_scatter_add")
+            "embedding_scatter_add", "dequantize_rows")
 
 
 @contextlib.contextmanager
 def plain_attention():
     """Route the LM's kernels — both attentions, the token gather and its
-    gradient — through their plain versions, on any device: the path the
+    gradient, the int8 KV cache's dequantize — through their plain
+    versions, on any device: the path the
     kernel path is held against. The model calls them as attributes of
     ``kernels.ops``, so swapping those is enough; the kernels' counters
     do not move."""
@@ -2781,6 +2782,39 @@ def record_routes(log: list, gaps: bool = True):
         return idx, gate, aux
 
     moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def replay_routes(kernel: list, log: list):
+    """Every ``models.moe.route`` call inside takes the kernel path's
+    experts: the n-th call routes by ``kernel[n]``'s (``record_routes``)
+    with its gates taken from this path's own router probabilities at
+    those experts, as ``route`` computes them; it appends its own choice
+    and the k + 1 largest probabilities to ``log``, as ``record_routes``
+    does. A bf16 path held against the kernel path then differs from it
+    by the kernels' rounding alone: a flipped route, and every later
+    token it reaches through attention or an SSM state, stays out."""
+    import torch
+
+    from repro_torch.models import moe
+    route, calls = moe.route, iter(kernel)
+
+    def replaying(router_w, x, cfg):
+        own, _, aux = route(router_w, x, cfg)
+        idx = next(calls)[0]
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        gate = probs.gather(-1, idx)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        top = torch.topk(probs, min(cfg.experts_per_token + 1,
+                                    cfg.num_experts), dim=-1).values
+        log.append((own.detach(), top.detach()))
+        return idx, gate, aux
+
+    moe.route = replaying
     try:
         yield log
     finally:
@@ -3019,12 +3053,17 @@ def _profile_line(label: str, prof: dict) -> str:
 
 
 def prefill_phase(cfg, params, tokens, reps: int, device,
-                  frames=None) -> dict:
+                  frames=None, f32: bool = True,
+                  replay: bool = False) -> dict:
     """``make_prefill_step`` on ``tokens`` (and ``frames``, a model with
-    context's (B, T, D)): once in float32 (the params cast) and ``reps``
-    timed times in the config's bf16 on the kernel path, each against
-    the plain path on the same params and inputs, then once more
-    profiled. ``forwards`` counts the kernel path's forwards (a warm-up
+    context's (B, T, D)): once in float32 (the params cast; not with
+    ``f32`` False, where a float32 copy would not fit beside the bf16
+    params) and ``reps`` timed times in the config's bf16 on the kernel
+    path, each against the plain path on the same params and inputs, then
+    once more profiled. The bf16 deviation is taken over the tokens whose
+    routes agree in every layer, or, with ``replay``, over every token,
+    the plain path taking the kernel path's routes (``replay_routes``).
+    ``forwards`` counts the kernel path's forwards (a warm-up
     included)."""
     import torch
 
@@ -3034,39 +3073,47 @@ def prefill_phase(cfg, params, tokens, reps: int, device,
     batch = {"tokens": tokens}
     if frames is not None:
         batch["enc_context"] = frames
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    p32 = _tree_map(lambda t: t.float(), params)
-    step32 = make_prefill_step(cfg32)
-    kr, pr = [], []
-    before = fa.launches
-    with record_routes(kr, gaps=False):
-        kernel = step32(p32, batch)
-    _sync(device)
-    per_forward = fa.launches - before
-    with plain_attention(), record_routes(pr):
-        plain = step32(p32, batch)
-    f32_routes = compare_routes(kr, pr)
-    f32_dev, f32_agree = _logit_dev(kernel, plain, cfg.vocab_size,
-                                    _agree(f32_routes, tokens.shape))
-    del p32, kernel, plain, kr, pr
+    per_forward = f32_routes = f32_dev = f32_agree = None
+    if f32:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        p32 = _tree_map(lambda t: t.float(), params)
+        step32 = make_prefill_step(cfg32)
+        kr, pr = [], []
+        before = fa.launches
+        with record_routes(kr, gaps=False):
+            kernel = step32(p32, batch)
+        _sync(device)
+        per_forward = fa.launches - before
+        with plain_attention(), record_routes(pr):
+            plain = step32(p32, batch)
+        f32_routes = compare_routes(kr, pr)
+        f32_dev, f32_agree = _logit_dev(kernel, plain, cfg.vocab_size,
+                                        _agree(f32_routes, tokens.shape))
+        del p32, kernel, plain, kr, pr
     step = make_prefill_step(cfg)
     ms = []
     for _ in range(reps + 1):                   # the first warms up
+        before = fa.launches
         t0 = time.perf_counter()
         kernel = step(params, batch)
         _sync(device)
         ms.append((time.perf_counter() - t0) * 1e3)
-    forwards = len(ms) + 2
+        if per_forward is None:
+            per_forward = fa.launches - before
+    forwards = len(ms) + (2 if f32 else 1)
     kr, pr = [], []
     if cfg.num_experts:          # the compared forward, its routes recorded
         with record_routes(kr, gaps=False):
             kernel = step(params, batch)
         forwards += 1
-    with plain_attention(), record_routes(pr):
+    with plain_attention(), (replay_routes(kr, pr) if replay
+                             else record_routes(pr)):
         plain = step(params, batch)
     bf16_routes = compare_routes(kr, pr)
-    bf16_dev, bf16_agree = _logit_dev(kernel, plain, cfg.vocab_size,
-                                      _agree(bf16_routes, tokens.shape))
+    bf16_dev, bf16_agree = _logit_dev(
+        kernel, plain, cfg.vocab_size,
+        None if replay else _agree(bf16_routes, tokens.shape))
     bf16_all = _logit_dev(kernel, plain, cfg.vocab_size)
     if not (torch.isfinite(kernel[..., :cfg.vocab_size]).all()
             and kernel.shape == (*tokens.shape, cfg.padded_vocab)):
@@ -3087,30 +3134,39 @@ def prefill_phase(cfg, params, tokens, reps: int, device,
             "bf16_all": bf16_all, "moe": moe, "ssm": ssm_parts}
 
 
-def _recording(step_fn, records: list):
+def _recording(step_fn, records: list, caches: Optional[list] = None):
     """``step_fn`` that also keeps each step's params, tokens, positions
-    and logits, so the plain path can replay the kernel path's steps."""
+    and logits, so the plain path can replay the kernel path's steps;
+    with ``caches``, a copy of the cache before each step there too."""
     def step(params, cache, tokens, pos):
+        if caches is not None:
+            caches.append(_tree_map(lambda t: t.clone(), cache))
         logits, cache = step_fn(params, cache, tokens, pos)
         records.append((params, tokens, pos, logits))
         return logits, cache
     return step
 
 
-def decode_run(cfg, driver, params, args, gen, device) -> dict:
+def decode_run(cfg, driver, params, args, gen, device,
+               local: bool = False) -> dict:
     """``launch.serve.run`` on ``driver`` (hot swaps and all), then the
     plain path teacher-forced: each recorded step replayed with the same
     params, tokens and positions on a copy of the cache as it stood before
     the run, its logits compared with the kernel path's (and whether the
-    kernel path's are finite)."""
+    kernel path's are finite) on the rows whose routes agree that step.
+    With ``local``, each step is held alone, on every row: the plain step
+    runs on a copy of the kernel path's cache before it (kept as the run
+    goes) and takes the kernel path's routes (``replay_routes``)."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models import decode_step
     records: list = []
     inner = driver.step_fn
-    driver.step_fn = _recording(inner, records)
-    plain_cache = _tree_map(lambda t: t.clone(), driver.cache)
+    befores: Optional[list] = [] if local else None
+    driver.step_fn = _recording(inner, records, befores)
+    plain_cache = None if local else _tree_map(lambda t: t.clone(),
+                                               driver.cache)
     kr: list = []
     t0 = time.perf_counter()
     with record_routes(kr, gaps=False):
@@ -3123,13 +3179,16 @@ def decode_run(cfg, driver, params, args, gen, device) -> dict:
     with plain_attention():
         for i, (p, tok, pos, logits) in enumerate(records):
             pr: list = []
-            with record_routes(pr):
+            own = kr[i * layers:(i + 1) * layers]
+            if local:
+                plain_cache = befores[i]
+                befores[i] = None
+            with (replay_routes(own, pr) if local else record_routes(pr)):
                 plain, plain_cache = decode_step(p, cfg, plain_cache, tok,
                                                  pos)
-            routes.append(compare_routes(kr[i * layers:(i + 1) * layers],
-                                         pr))
-            d, a = _logit_dev(logits, plain, cfg.vocab_size,
-                              _agree(routes[-1], tok.shape[:1]))
+            routes.append(compare_routes(own, pr))
+            d, a = _logit_dev(logits, plain, cfg.vocab_size, None if local
+                              else _agree(routes[-1], tok.shape[:1]))
             devs.append(d)
             agree.append(a)
             every.append(_logit_dev(logits, plain, cfg.vocab_size))
@@ -3889,18 +3948,21 @@ def _records(engine) -> list:
             for r in engine.queue.consume(p, 0)[0]]
 
 
-def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
+def int8_flush(cfg, initial: dict, params: dict, device,
+               zero: bool = False) -> dict:
     """The trained ``params`` streamed once through a ``ModelSyncEngine``
     with the int8 codec on ``device`` (``--codec int8``) to one replica
-    that starts from ``initial``: a ``collect_step`` marks everything
-    dirty (every leaf's version, every token row, every (repeat, expert)
+    that starts from ``initial`` (with ``zero``, its host arrays zeroed
+    after the engine's bootstrap: its staleness is then 1, and a leaf,
+    row or expert that the flush misses keeps it there): a
+    ``collect_step`` marks everything dirty (every leaf's version, every
+    token row, the padding's too with ``zero``, every (repeat, expert)
     id of a MoE), one flush pushes it all: a dense leaf ONE codec row, an
     expert leaf one row a (repeat, expert) id, embedding rows in chunks.
     Returns the flush's time, records and bytes, the codec's launches in
     it and the launches the plans of its records' row widths want, the
-    replica's staleness after it (before, it is 1: the norms start at
-    zero), and whether the largest leaf's codes and scales equal the
-    plain version's on ``device``."""
+    replica's staleness after it, and whether the largest leaf's codes
+    and scales equal the plain version's on ``device``."""
     import torch
 
     from repro_torch.core import tree
@@ -3911,7 +3973,11 @@ def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
     engine = ModelSyncEngine(cfg, initial, SyncConfig(
         gather_mode="period", period=1.0, codec="int8",
         codec_backend="torch", device=device.type))
-    engine.collect_step(np.arange(cfg.vocab_size)[None],
+    if zero:
+        for arr in engine.replicas[0].host.values():
+            arr.fill(0.0)
+    engine.collect_step(np.arange(cfg.padded_vocab if zero
+                                  else cfg.vocab_size)[None],
                         {"expert_counts_per_layer": _all_experts(cfg)})
     ops.reset_launches()
     flush = train._tick(engine, params, 1e9)
@@ -3941,17 +4007,22 @@ def int8_flush(cfg, initial: dict, params: dict, device) -> dict:
             "largest_equal": equal}
 
 
-def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
+def drive_lm_train(device, train_argv, *, decode_steps: int, cfg=None,
+                   keep_initial: bool = True, min_flushes: int = 2) -> dict:
     """LM training through its entry points: ``launch.train`` builds the
     state, step, ``ModelSyncEngine`` and batches (a model with context:
-    with the launcher's N(0, 1) frames) from ``train_argv`` and runs
-    them (the sync clock counting steps), with the launch counters reset
-    before and read after; then a ``ServeDriver`` started on the initial
-    params (a model with context: its cross cache precomputed from them
-    on frames from the seed) decodes, hot-swaps in the replica's
-    ``device_params`` (the cross cache left as it was, as the
-    reference's driver leaves it) and decodes ``decode_steps`` more,
-    counted on their own."""
+    with the launcher's N(0, 1) frames) from ``train_argv`` (and ``cfg``,
+    a cut of its config, where given) and runs them (the sync clock
+    counting steps), with the launch counters reset before and read
+    after; then a ``ServeDriver`` started on the initial params (a model
+    with context: its cross cache precomputed from them on frames from
+    the seed) decodes, hot-swaps in the replica's ``device_params`` (the
+    cross cache left as it was, as the reference's driver leaves it) and
+    decodes ``decode_steps`` more, counted on their own. Without
+    ``keep_initial`` no copy of the initial params is kept (the card
+    holds no second copy): the driver starts on the trained params and
+    the int8 flush's replica is zeroed before its flush. ``min_flushes``:
+    the cast16 flushes the run must make."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3959,7 +4030,9 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     from repro_torch.models import precompute_cross_cache
     from repro_torch.serving.predictor import ServeDriver
     args = train.parse_args([*train_argv, "--device", device.type])
-    cfg, state, step_fn, engine, batches = train.build(args)
+    t0 = time.perf_counter()
+    cfg, state, step_fn, engine, batches = train.build(args, cfg=cfg)
+    build_s = time.perf_counter() - t0
     routed: list = []       # each step's expert counts, read to the host
     collect = engine.collect_step
 
@@ -3970,7 +4043,8 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
         collect(tokens, metrics)
 
     engine.collect_step = logging_collect
-    initial = _tree_map(lambda t: t.detach().clone(), state.params)
+    initial = _tree_map(lambda t: t.detach().clone() if keep_initial
+                        else t.detach(), state.params)
     driver = ServeDriver(cfg=cfg, params=initial, batch=TRAIN_BATCH,
                          max_len=64, cache_dtype=torch.float32,
                          device=device)
@@ -3988,6 +4062,7 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
     state, rec = train.run(args, cfg, state, step_fn, engine, batches,
                            clock=lambda i: float(i + 1))
     rec["wall_s"] = time.perf_counter() - t0
+    rec["build_s"] = build_s
     rec["launches"] = ops.launch_counts()
     if device.type == "cuda":
         rec["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -4009,26 +4084,31 @@ def drive_lm_train(device, train_argv, *, decode_steps: int) -> dict:
                          swapped[..., :cfg.vocab_size]).all())}
     rec["metrics"] = engine.metrics()
     if cfg.num_experts:
-        rec["experts"] = expert_flushes(cfg, engine, routed)
+        rec["experts"] = expert_flushes(cfg, engine, routed, min_flushes)
     # its replica's host arrays; the driver's swapped-in params
     del engine, collect, logging_collect, driver, logits, swapped
     gc.collect()
-    rec["int8"] = int8_flush(cfg, initial, state.params, device)
+    rec["int8"] = int8_flush(cfg, initial, state.params, device,
+                             zero=not keep_initial)
+    rec["int8"]["from"] = "the initial params'" if keep_initial \
+        else "a zeroed"
     del initial
     # one more train step, profiled (after every count and comparison)
     batch = next(batches)
     batch = {**batch, "tokens": torch.from_numpy(batch["tokens"]).to(device)}
     rec["profile"] = profile_call(lambda: step_fn(state, batch), device)
-    return {"cfg": cfg, "args": args, "run": rec, "argv": train_argv}
+    return {"cfg": cfg, "args": args, "run": rec, "argv": train_argv,
+            "min_flushes": min_flushes}
 
 
-def expert_flushes(cfg, engine, routed: list) -> dict:
+def expert_flushes(cfg, engine, routed: list, min_flushes: int = 2) -> dict:
     """The expert leaves' classification and records against the counts
     each step reported (``routed``): each flush's expert record of a leaf
     holds the (repeat, expert) ids, ``rep * E + expert``, routed to in
     that layer since the last flush, or since the start under Adam /
     Momentum (cumulative mode). The flush at the sync clock's time ``t``
-    follows the first ``t`` steps; the final one all of them."""
+    follows the first ``t`` steps; the final one all of them. ``ok``
+    wants at least ``min_flushes`` flushes with expert records."""
     from repro_torch.configs.base import MOE
     e = cfg.num_experts
     experts = sorted(p for p, k in engine.kinds.items() if k == "experts")
@@ -4056,7 +4136,8 @@ def expert_flushes(cfg, engine, routed: list) -> dict:
                     for spec in seg.pattern)
     ok = (match and len(experts) == 3 * positions
           and all(s[1] == e for s in shapes.values())
-          and set(routers.values()) == {"dense"} and len(by_t) >= 2)
+          and set(routers.values()) == {"dense"}
+          and len(by_t) >= min_flushes)
     return {"leaves": {p: tuple(s) for p, s in shapes.items()},
             "ids": sorted({s[0] * s[1] for s in shapes.values()}),
             "routers": routers, "mode": mode, "match": match,
@@ -4158,15 +4239,16 @@ def report_lm_train(lm: dict, f32: dict) -> None:
           + (f"; {cfg.encoder_len} frames a sequence, N(0, 1) from the "
              f"launcher's seed" if cfg.has_encoder_context else ""),
           flush=True)
-    print(f"  float32 step ({f32['layers']} layers), kernel vs plain path: "
-          f"loss {f32['loss']:.6f} vs "
-          f"{f32['plain_loss']:.6f} (limit rtol {F32_LOSS_RTOL}); grads max "
-          f"|deviation| / max |grad|: "
-          + ", ".join(f"{k} {v:.3g}" for k, v in f32["grad_devs"].items())
-          + f" (limit {F32_GRAD_BOUND}); peak device memory "
-          f"{f32['peak_bytes']} bytes")
-    if f32["routes"] is not None:
-        print(_routes_line("float32 train step", f32["routes"]))
+    if f32 is not None:
+        print(f"  float32 step ({f32['layers']} layers), kernel vs plain "
+              f"path: loss {f32['loss']:.6f} vs {f32['plain_loss']:.6f} "
+              f"(limit rtol {F32_LOSS_RTOL}); grads max |deviation| / max "
+              f"|grad|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in f32["grad_devs"].items())
+              + f" (limit {F32_GRAD_BOUND}); peak device memory "
+              f"{f32['peak_bytes']} bytes")
+        if f32["routes"] is not None:
+            print(_routes_line("float32 train step", f32["routes"]))
     print(f"  {steps} steps of {args.batch} x {args.seq}: step p50 "
           f"{p50:.3f} ms, p99 {np.percentile(step_ms, 99):.3f} ms "
           f"(first {step_ms[0]:.3f}); {tokens / p50 * 1e3:.0f} tokens/s"
@@ -4175,7 +4257,8 @@ def report_lm_train(lm: dict, f32: dict) -> None:
           f"model FLOPs {flops:.4g} a step, mfu {flops / (p50 / 1e3) / BF16_PEAK_FLOPS:.4f}"
           f" (of {BF16_PEAK_FLOPS:.4g}); loss {rec['losses'][0]:.4f} -> "
           f"{rec['losses'][-1]:.4f}; peak device memory "
-          f"{rec.get('peak_bytes')} bytes; {rec['wall_s']:.1f} s in all",
+          f"{rec.get('peak_bytes')} bytes; {rec['wall_s']:.1f} s in all "
+          f"(build and replica bootstrap before it: {rec['build_s']:.1f} s)",
           flush=True)
     for i, fl in enumerate(rec["flushes"]):
         print(f"  flush {i}: {fl['s']:.3f} s, {fl['records']} records, "
@@ -4191,8 +4274,8 @@ def report_lm_train(lm: dict, f32: dict) -> None:
               f"per flush {ex['dirty']}", flush=True)
     i8 = rec["int8"]
     print(f"  int8 flush (--codec int8, a dense leaf one codec row, an "
-          f"expert leaf one a (repeat, expert) id, from the "
-          f"initial params' replica): {i8['s']:.3f} s, {i8['records']} "
+          f"expert leaf one a (repeat, expert) id, from "
+          f"{i8['from']} replica): {i8['s']:.3f} s, {i8['records']} "
           f"records, {i8['bytes']} bytes (the cast16 flushes above: "
           + ", ".join(f"{fl['s']:.3f} s" for fl in rec["flushes"])
           + f"); launches quantize_rows {i8['launches']['quantize_rows']}, "
@@ -4225,9 +4308,9 @@ def report_lm_train(lm: dict, f32: dict) -> None:
     if {k: dec["launches"][k] for k in want_dec} != want_dec:
         raise AssertionError(f"decode launches {dec['launches']}, want "
                              f"{want_dec}")
-    if len(rec["flushes"]) < 2:
-        raise AssertionError(f"{len(rec['flushes'])} flushes: want a "
-                             f"periodic one before the final one")
+    if len(rec["flushes"]) < lm["min_flushes"]:
+        raise AssertionError(f"{len(rec['flushes'])} flushes, want "
+                             f"{lm['min_flushes']}")
     if not rec["staleness"] < STALENESS_BOUND:
         raise AssertionError(f"replica staleness {rec['staleness']}")
     if {k: i8["launches"][k] for k in i8["want"]} != i8["want"]:
@@ -4385,17 +4468,20 @@ def float64_math():
         del model._DTYPES["float64"]
 
 
-def _decode_logits(cfg, params, tokens, cache_dtype, device, frames=None):
+def _decode_logits(cfg, params, tokens, cache_dtype, device, frames=None,
+                   kv_quant: bool = False, keep: Optional[list] = None):
     """Logits (B, T, V) of decoding ``tokens`` (B, T) one at a time from
     a fresh cache of ``cache_dtype`` (float64: the SSM state too, which is
-    float32 otherwise), its cross entries first filled from ``frames``
-    (``precompute_cross_cache``) for a model with context."""
+    float32 otherwise; ``kv_quant``: the int8 K/V cache), its cross
+    entries first filled from ``frames`` (``precompute_cross_cache``) for
+    a model with context; the cache at the end appended to ``keep``."""
     import torch
 
     from repro_torch.models import (decode_step, init_cache,
                                     precompute_cross_cache)
     b, t = tokens.shape
-    cache = init_cache(cfg, b, t, dtype=cache_dtype, device=device)
+    cache = init_cache(cfg, b, t, dtype=cache_dtype, device=device,
+                       kv_quant=kv_quant)
     if cache_dtype == torch.float64:
         cache = _tree_map(lambda x: x.double(), cache)
     if frames is not None:
@@ -4406,6 +4492,8 @@ def _decode_logits(cfg, params, tokens, cache_dtype, device, frames=None):
             params, cfg, cache, tokens[:, i:i + 1],
             torch.full((b,), i, dtype=torch.int32, device=device))
         steps.append(logits)
+    if keep is not None:
+        keep.append(cache)
     return torch.stack(steps, 1)
 
 
@@ -4727,8 +4815,8 @@ def window_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
     """Phase 7d: gemma3-4b trained at full width (bf16, Adam, remat): the
     scatter-add at its shape (its timing row rides on ``by_name``'s
     entry), one float32 step against the plain path at all 34 layers,
-    ``drive_lm_train`` with ``GEMMA_TRAIN_ARGV``. Returns the launches of
-    the training run and
+    ``drive_lm_train`` with ``GEMMA_TRAIN_ARGV`` on its depth cut
+    (``TRAIN_DEPTH_CUTS``). Returns the launches of the training run and
     of its hot-swap decode."""
     import torch
 
@@ -4743,7 +4831,8 @@ def window_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
         "max_abs_err")}
     f32 = check_train_f32(cfg, dev, GEMMA_GRAD_LEAVES)
     torch.cuda.empty_cache()
-    lm = drive_lm_train(dev, GEMMA_TRAIN_ARGV, decode_steps=SWAP_DECODE_STEPS)
+    lm = drive_lm_train(dev, GEMMA_TRAIN_ARGV, decode_steps=SWAP_DECODE_STEPS,
+                        cfg=train_cut(GEMMA_ARCH))
     report_lm_train(lm, f32)
     return lm["run"]["launches"], lm["run"]["decode"]["launches"]
 
@@ -4924,6 +5013,648 @@ def encdec_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
     lm = drive_lm_train(dev, ENCDEC_TRAIN_ARGV,
                         decode_steps=SWAP_DECODE_STEPS)
     report_lm_train(lm, f32)
+    return lm["run"]["launches"], lm["run"]["decode"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family: jamba-1.5-large-398b served and trained at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# Every published width (d_model 8,192, 64 heads of 128, 8 KV, d_ff 24,576,
+# vocab 65,536, SSM state 128 in 256 heads of 64, conv 4, top-2, capacity
+# 1.25); one period (8 of 72 layers) and fewer of the 16 experts: 8 to
+# serve in bf16 (25.82B params, 51.6 GB); 2 (11.32B) for the float32
+# checks (45.3 GB), for the launcher's run with hot swaps (it holds the
+# drawn params, the driver's swapped-in copy and the next one: 3 x 22.6 GB
+# of bf16) and for training (params and grads 45.3 GB on the card; on the
+# host the replica's float32 params, 45.3 GB, beside a cast16 flush's
+# records, 22.6 GB: 4 experts would need 64.6 + 32.3 GB, more than the
+# host's 96 GiB holds with the process beside them)
+HYBRID_SERVE_EXPERTS, HYBRID_SMALL_EXPERTS = 8, 2
+HYBRID_DECODE_STEPS = 16            # each long-cache decode: bf16, int8
+HYBRID_F32_BATCH = 2                # the float32 per-position check, x 2048
+# float32 kernel path vs plain path after each of the period's positions,
+# of the position's largest |x|; and float32 decode vs forward logits
+# over CONSISTENCY_LEN tokens (set in PERF.md before the first run)
+HYBRID_POSITION_BOUND = 1e-4
+HYBRID_DECODE_BOUND = 1e-3
+# bf16 at 8 experts, the prefill's inputs: each position's output on the
+# kernel path from the plain path's input to it, of its largest |x|: the
+# kernels' own bf16 tolerance
+HYBRID_BF16_POSITION_BOUND = 2e-2
+# float32 decode against forward with the int8 cache: twice the reference's
+# own divergence on reduced jamba (1.12; its one attention layer feeds
+# seven Mamba layers, whose states carry a token's int8 error onward), the
+# CPU test's rule; 0.873 at full width on the card
+HYBRID_INT8_DECODE_BOUND = 2.24
+# Adafactor's transient at a leaf, in float32 slices: one buffer, plus the
+# CUDA reduction workspace of the mean over rows (measured 1.125 and 1.17
+# slices at jamba's tables and expert leaves; PERF.md predicted one); the
+# whole-leaf update held about six float32 copies of the leaf
+ADAFACTOR_SLICES = 1.5
+HYBRID_SERVE_ARGV = ("--arch", HYBRID_ARCH, *SERVE_ARGV[2:])
+# one cast16 flush: the sync clock counts steps, and a period of 5 over 4
+# steps leaves only the final flush
+HYBRID_TRAIN_ARGV = ("--arch", HYBRID_ARCH, "--steps", str(MOE_TRAIN_STEPS),
+                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                     "--codec", "cast16", "--sync-period", "5", "--seed",
+                     str(SEED), "--log-every", "1")
+
+
+# Depth cuts of three earlier paths' training runs, so that the whole
+# smoke with the hybrid phases stays within its time (their host flushes
+# take ~5 s a GB of params): the repeats every segment keeps, every width
+# as published (granite 8 of 32 layers, mamba2 12 of 48, gemma3 one
+# period and one tail layer, 7 of 34). Their float32 checks and serving
+# paths stay at full depth; qwen2-1.5b and whisper-medium train at full
+# depth.
+TRAIN_DEPTH_CUTS = {"granite-moe-3b-a800m": 8, "mamba2-1.3b": 12,
+                    "gemma3-4b": 1}
+
+
+def train_cut(arch: str):
+    """``arch``'s config with its training run's depth cut
+    (``TRAIN_DEPTH_CUTS``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Segment
+    cfg, keep = get_config(arch), TRAIN_DEPTH_CUTS[arch]
+    cut = lambda segs: tuple(Segment(seg.pattern, min(seg.repeats, keep))
+                             for seg in segs)
+    return dataclasses.replace(cfg, segments=cut(cfg.segments),
+                               encoder_segments=cut(cfg.encoder_segments))
+
+
+def hybrid_config(experts: int, dtype: str = "bfloat16"):
+    """jamba cut to one period and ``experts`` experts, every width the
+    published one; ``dtype`` its activations' and params' dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Segment
+    full = get_config(HYBRID_ARCH)
+    return dataclasses.replace(
+        full, segments=(Segment(full.segments[0].pattern, 1),),
+        num_experts=experts, dtype=dtype, param_dtype=dtype)
+
+
+def hybrid_reduced(cfg) -> str:
+    """The cut of ``cfg`` against the published config, as printed."""
+    from repro_torch.configs import get_config
+    full = get_config(HYBRID_ARCH)
+    return (f"reduced: depth {cfg.num_layers} of {full.num_layers} layers "
+            f"(one period), experts {cfg.num_experts} of "
+            f"{full.num_experts}; {cfg.param_counts()['total']} params")
+
+
+@contextlib.contextmanager
+def record_blocks(log: list):
+    """Every layer's call inside appended to ``log``, in order: the
+    arguments of ``models.model._block`` and its output x.
+    ``_run_segments`` looks ``_block`` up on the module at each call, so
+    wrapping it there is enough."""
+    from repro_torch.models import model
+    block = model._block
+
+    def recording(*args):
+        out = block(*args)
+        log.append((args, out[0].detach()))
+        return out
+
+    model._block = recording
+    try:
+        yield log
+    finally:
+        model._block = block
+
+
+def hybrid_positions_check(cfg, tokens, device) -> dict:
+    """Float32 at full width (``cfg`` at 2 experts: every token takes both,
+    so no route can flip): one forward of ``tokens`` on the kernel path
+    and one on the plain path, their logits held within
+    ``F32_LOGIT_ATOL``; each position of the period run again on the
+    kernel path from the plain path's input to it, its output within
+    ``HYBRID_POSITION_BOUND`` of the largest |x| of the plain path's
+    (position-local: the paths differ only in a kernel, so a position
+    without one must agree exactly), and the two forwards' outputs
+    after each position printed (the deviation each position passes
+    on); then decode against forward over the first ``CONSISTENCY_LEN``
+    tokens of each row from fresh float32 caches, float and int8, the
+    float one within ``HYBRID_DECODE_BOUND``. Returns the deviations,
+    the kernel path's forwards, decode steps and position reruns, and
+    the peak memory; and, the period's first layer being its attention
+    layer (whose K/V rows come from the token alone, the same in both
+    decodes), whether the int8 cache's codes and scales there equal
+    ``attention._quantize_row`` of the float cache's rows."""
+    import torch
+
+    from repro_torch.configs.base import ATTN, MAMBA
+    from repro_torch.models import attention, forward, init_params, model
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    params = init_params(cfg, gen)
+    out = {"param_bytes": _tree_bytes(params)}
+    kernel, plain = [], []
+    with torch.no_grad():
+        with record_blocks(kernel):
+            logits, _ = forward(params, cfg, tokens)
+        with plain_attention(), record_blocks(plain):
+            plain_logits, _ = forward(params, cfg, tokens)
+    specs = cfg.layer_specs()
+    names = [f"pos{i} {spec.mixer}+{spec.ffn}" for i, spec in
+             enumerate(specs)]
+    out["carried"] = [(n, float((a - b).abs().max() / b.abs().max()))
+                      for n, (_, a), (_, b) in zip(names, kernel, plain)]
+    with torch.no_grad():
+        out["positions"] = [
+            (n, float((model._block(*args)[0] - b).abs().max()
+                      / b.abs().max()))
+            for n, (args, b) in zip(names, plain)]
+    out["logits"] = _logit_dev(logits, plain_logits, cfg.vocab_size)
+    out["finite"] = bool(torch.isfinite(logits).all())
+    del kernel, plain, logits, plain_logits
+    short = tokens[:, :CONSISTENCY_LEN]
+    caches: list = []
+    with torch.no_grad():
+        full, _ = forward(params, cfg, short)
+        for key, quant in (("decode", False), ("int8 decode", True)):
+            dec = _decode_logits(cfg, params, short, torch.float32, device,
+                                 kv_quant=quant, keep=caches)
+            out[key] = _logit_dev(dec, full, cfg.vocab_size)
+    if specs[0].mixer != ATTN:
+        raise AssertionError("the int8 cache check wants the period's "
+                             "attention layer first")
+    fl, q8 = (c["segments"][0]["pos0"] for c in caches)
+    out["int8 rows"] = {}
+    for k in ("k", "v"):
+        codes, scale = attention._quantize_row(fl[k])
+        out["int8 rows"][k] = (torch.equal(codes, q8[k]),
+                               torch.equal(scale, q8[k + "_scale"]))
+    del caches, fl, q8
+    out["forwards"], out["steps"] = 2, 2 * short.shape[1]
+    out["int8_steps"] = short.shape[1]
+    out["mamba"] = sum(s.mixer == MAMBA for s in specs)
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def hybrid_bf16_positions(cfg, params, tokens) -> list:
+    """bf16 at ``cfg``'s experts on ``tokens``: one forward on the plain
+    path with each position's input, output and routes recorded, then
+    each position run again on the kernel path from the plain path's
+    input to it, its MoE on the plain path's routes there
+    (``replay_routes``). Returns each position's largest deviation from
+    the plain path's output over the latter's largest |x|. Held
+    position by position: over a whole bf16 forward a rounding carries
+    through the Mamba states to every later token, and the logits
+    measure that carry, not the kernels."""
+    import torch
+
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import forward, model
+    plain, routes = [], []
+    with torch.no_grad(), plain_attention(), \
+            record_routes(routes, gaps=False), record_blocks(plain):
+        forward(params, cfg, tokens)
+    out, j = [], 0
+    with torch.no_grad():
+        for i, (args, want) in enumerate(plain):
+            spec, n = args[0], int(args[0].ffn == MOE)
+            with replay_routes(routes[j:j + n], []):
+                got = model._block(*args)[0]
+            j += n
+            out.append((f"pos{i} {spec.mixer}+{spec.ffn}",
+                        float((got.float() - want.float()).abs().max()
+                              / want.float().abs().max())))
+            plain[i] = None
+    return out
+
+
+def hybrid_long_decode(cfg, params, kv_quant: bool, device) -> dict:
+    """The launcher's decode (``decode_run``, no hot swap, each step held
+    alone against the plain path) of batch 4 from
+    a bf16 cache of ``LONG_LEN`` rows whose attention K/V are seeded to
+    ``LONG_POS`` (N(0, 1) from the seed; with ``kv_quant`` the int8 cache,
+    the same rows quantized by ``attention._quantize_row``), then one
+    more step profiled. Returns ``decode_run``'s figures, the cache's
+    bytes and its attention entry."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, init_cache
+    from repro_torch.serving.predictor import ServeDriver
+    args = serve.parse_args([*HYBRID_SERVE_ARGV, "--device", device.type,
+                             "--steps", str(HYBRID_DECODE_STEPS),
+                             "--max-len", str(LONG_LEN),
+                             "--hot-swap-every", "0"])
+    driver = ServeDriver(cfg=cfg, params=params, batch=args.batch,
+                         max_len=LONG_LEN, cache_dtype=torch.bfloat16,
+                         device=device)
+    if kv_quant:
+        driver.cache = init_cache(cfg, args.batch, LONG_LEN,
+                                  dtype=torch.bfloat16, device=device,
+                                  kv_quant=True)
+    data = torch.Generator(device=device).manual_seed(SEED + 31)
+    entry = None
+    for seg in driver.cache["segments"]:
+        for e in seg.values():
+            if "k" not in e:
+                continue
+            entry = entry or e
+            for k in ("k", "v"):
+                rows = torch.randn(e[k][:, :, :LONG_POS].shape,
+                                   generator=data, device=device)
+                if kv_quant:
+                    e[k][:, :, :LONG_POS], e[k + "_scale"][
+                        :, :, :LONG_POS] = attention._quantize_row(rows)
+                else:
+                    e[k][:, :, :LONG_POS] = rows
+    driver.pos = torch.full((args.batch,), LONG_POS, dtype=torch.int32,
+                            device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 37)
+    run = decode_run(cfg, driver, params, args, gen, device, local=True)
+    run["cache_bytes"] = _tree_bytes(driver.cache)
+    tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=device)
+    run["profile"] = profile_call(lambda: driver.step(tok), device)
+    run["entry"] = {k: v[0] for k, v in entry.items()}
+    return run
+
+
+def hybrid_launcher_run(cfg, device) -> dict:
+    """``launch.serve``'s build and run for ``cfg`` (batch 4, 32 steps, a
+    hot swap every 8, a float32 cache of 64 rows), each step held to the
+    plain path as it runs: the step's cache copied before it, the plain
+    step run on the copy with the same params, tokens and positions
+    (``decode_run`` keeps every swapped-in copy of the params for its
+    replay afterwards: five of 22.6 GB here). Each step's kernel-path
+    time is taken around the step and a device sync, the plain step
+    outside it."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step
+    args = serve.parse_args([*HYBRID_SERVE_ARGV, "--device", device.type])
+    cfg, params, driver, gen = serve.build(args, cfg=cfg)
+    inner, devs, ms = driver.step_fn, [], []
+    finite = [True]
+
+    def step(p, cache, tokens, pos):
+        before = _tree_map(lambda t: t.clone(), cache)
+        t0 = time.perf_counter()
+        logits, cache = inner(p, cache, tokens, pos)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with plain_attention():
+            plain, _ = decode_step(p, cfg, before, tokens, pos)
+        devs.append(_logit_dev(logits, plain, cfg.vocab_size))
+        finite[0] &= bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+        return logits, cache
+
+    driver.step_fn = step
+    t0 = time.perf_counter()
+    tokens, _ = serve.run(driver, params, args, gen)
+    wall = time.perf_counter() - t0
+    driver.step_fn = inner
+    if tokens.shape != (args.batch, args.steps):
+        raise AssertionError(f"launcher tokens of shape {tokens.shape}")
+    return {"ms": ms, "wall_s": wall, "steps": len(ms), "finite": finite[0],
+            "max_dev": max(d for d, _ in devs),
+            "agree": float(np.mean([a for _, a in devs])),
+            "param_bytes": _tree_bytes(params),
+            "swaps": args.steps // args.hot_swap_every}
+
+
+def dequantize_cache_row(entry, device) -> dict:
+    """Row 8k: ``dequantize_rows`` as the int8 cache's read runs it, one
+    row a (token, head) of ``entry``'s ``v`` (B, S, Kv, hd) with its
+    float32 scales, bit-equal to its plain version and timed beside its
+    bound (codes and scales read, float32 written), its plain version and
+    ``torch.mul``."""
+    from repro_torch.kernels import ops, ref
+    codes = entry["v"].reshape(-1, entry["v"].shape[-1])
+    scale = entry["v_scale"].reshape(-1, 1)
+    got = ops.dequantize_rows(codes, scale)
+    if not bool((got == ref.dequantize_rows(codes, scale)).all()):
+        raise AssertionError("dequantize_rows at the int8 cache's shape: "
+                             "not bit-equal")
+    n, d = codes.shape
+    return _row("dequantize_rows", "delta_codec.cu",
+                "src/repro/kernels/delta_codec.py:58", 0.0,
+                lambda: ops.dequantize_rows(codes, scale),
+                lambda: ref.dequantize_rows(codes, scale),
+                lambda: codes * scale, n * d * (1 + 4) + n * 4,
+                f"the int8 KV cache: {n} rows x {d} (B {entry['v'].shape[0]}"
+                f", S {entry['v'].shape[1]}, Kv {entry['v'].shape[2]})")
+
+
+def hybrid_serving_phase(dev, by_name: dict) -> dict:
+    """Phase 6f: jamba served at full width. The attention kernels at its
+    shapes against their plain versions and the MoE gathers at D = 8,192;
+    then, with the launch counters reset, at 8 experts: a bf16 prefill of
+    4 x 2048 against the plain path, decodes from a cache seeded to 4,000
+    of 4,096 (bf16, then int8); at 2 experts: the launcher's run with hot
+    swaps, the float32 check of every position and decode against
+    forward; the counters read. The timing rows 9j, 10j, 3j and 8k ride
+    on ``by_name``'s entries; returns the path's launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = hybrid_config(HYBRID_SERVE_EXPERTS)
+    print(f"Hybrid serving: host memory available {host_available()} bytes; "
+          f"{HYBRID_ARCH} {hybrid_reduced(cfg)}; LM kernels against their "
+          f"plain versions at its shapes:", flush=True)
+    for line in check_lm_kernels(cfg, dev):
+        print(f"  {line}")
+    by_name["embedding_lookup"][HYBRID_ARCH] = moe_gather_rows(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    data = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=data, device=dev)
+    ops.reset_launches()
+    t = time.perf_counter()
+    pre = prefill_phase(cfg, params, tokens, PREFILL_REPS, dev, f32=False,
+                        replay=True)
+    pre["positions"] = hybrid_bf16_positions(cfg, params, tokens)
+    pre["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    long = {}
+    for key, quant in (("bf16", False), ("int8", True)):
+        long[key] = hybrid_long_decode(cfg, params, quant, dev)
+    long_s = time.perf_counter() - t
+    serve_peak = torch.cuda.max_memory_allocated()
+    param_bytes = _tree_bytes(params)
+    del params
+    torch.cuda.empty_cache()
+    small = hybrid_config(HYBRID_SMALL_EXPERTS)
+    t = time.perf_counter()
+    launcher = hybrid_launcher_run(small, dev)
+    launcher["s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    check = hybrid_positions_check(
+        hybrid_config(HYBRID_SMALL_EXPERTS, "float32"),
+        tokens[:HYBRID_F32_BATCH], dev)
+    check["s"] = time.perf_counter() - t
+    launches = ops.launch_counts()
+    report_hybrid_serving(cfg, pre, long, launcher, check, launches,
+                          param_bytes, serve_peak, long_s)
+    rows = {"9j": flash_row(*_attn_inputs(
+        PREFILL_BATCH, cfg.num_heads, cfg.num_kv_heads, PREFILL_LEN,
+        cfg.head_dim, torch.bfloat16, torch.Generator(
+            device=dev).manual_seed(SEED + 41), dev), True, "causal")}
+    e = long["bf16"]["entry"]
+    rows["10j"] = decode_row(cfg, (e["k"].float(), e["v"].float(),
+                                   LONG_POS + 1), torch.Generator(
+                                       device=dev).manual_seed(SEED + 43),
+                             dev)
+    rows["8k"] = dequantize_cache_row(long["int8"]["entry"], dev)
+    step_ms = float(np.percentile(long["int8"]["lat_ms"], 50))
+    print(f"  the int8 cache's read: 2 dequantize_rows a step of "
+          f"{rows['8k']['ms']:.5f} ms each on the device, "
+          f"{100 * 2 * rows['8k']['ms'] / step_ms:.3f}% of the int8 decode "
+          f"step's p50 {step_ms:.3f} ms", flush=True)
+    for key, row in rows.items():
+        by_name[row["name"]][f"{HYBRID_ARCH} {key}"] = {k: row[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}
+    return launches
+
+
+def report_hybrid_serving(cfg, pre, long, launcher, check, launches,
+                          param_bytes, serve_peak, long_s) -> None:
+    """Print phase 6f's numbers and hold them to their limits."""
+    moe = _moe_layers(cfg)
+    gathers = 1 + 2 * moe
+    p50 = float(np.percentile(pre["ms"], 50))
+    tps = PREFILL_BATCH * PREFILL_LEN / p50 * 1e3
+    print(f"Hybrid serving: {HYBRID_ARCH} at full width, {cfg.num_layers} "
+          f"layers ({_attn_layers(cfg)} attention + {moe} MoE, Mamba and "
+          f"MLP), {cfg.num_experts} experts, random weights from seed "
+          f"{SEED}; params {param_bytes} bytes; peak device memory "
+          f"{serve_peak} bytes", flush=True)
+    print(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN} bf16: p50 {p50:.3f} ms"
+          f" over {len(pre['ms'])} ({tps:.0f} tokens/s); flash_attention "
+          f"launches per forward "
+          f"{pre['per_forward']} ({pre['forwards']} forwards on the kernel "
+          f"path); bf16 logits vs the plain path on the kernel path's "
+          f"routes, every token: max deviation {pre['bf16_dev']:.3g} (not "
+          f"held: the carry through the Mamba states), greedy tokens agree "
+          f"{pre['bf16_agree']:.4f}; each position on the plain path's "
+          f"input to it and its routes (of its largest |x|, limit "
+          f"{HYBRID_BF16_POSITION_BOUND}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in pre["positions"])
+          + f"; {pre['s']:.1f} s", flush=True)
+    print(_routes_line("bf16 prefill, the plain path's own choice",
+                       pre["bf16_routes"]))
+    print(_profile_line(f"bf16 prefill ({PREFILL_BATCH} x {PREFILL_LEN})",
+                        pre["profile"]))
+    for key, share in (("MoE", pre["moe"]), ("Mamba", pre["ssm"])):
+        print(f"  {key} share of one bf16 prefill's stream time "
+              f"({share['forward_ms']:.3f} ms): "
+              + ", ".join(f"{k} {v:.3f} ms "
+                          f"({100 * v / share['forward_ms']:.1f}%)"
+                          for k, v in share["ms"].items()), flush=True)
+    for key, run in long.items():
+        lat = run["lat_ms"]
+        print(f"  decode from a {key} cache (pos {LONG_POS} of {LONG_LEN}, "
+              f"cache {run['cache_bytes']} bytes): {run['steps']} steps, p50"
+              f" {np.percentile(lat, 50):.3f} ms, p99 "
+              f"{np.percentile(lat, 99):.3f} ms per step (every expert read "
+              f"a step: {param_bytes} bytes, bound "
+              f"{_bound_ms(param_bytes):.3f} ms); teacher-forced logits vs "
+              f"the plain path, each step from the kernel path's cache "
+              f"before it and on its routes: max deviation "
+              f"{run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), greedy "
+              f"tokens agree {run['agree']:.4f}; finite {run['finite']}",
+              flush=True)
+        print(_routes_line(f"{key} long-cache decode, the plain path's own "
+                           f"choice", run["routes"]))
+        print(_profile_line(f"{key}-cache decode step", run["profile"]))
+    dq = sum(ms for k, ms in long["int8"]["profile"]["entries"]
+             if "dequantize" in k)
+    print(f"  int8 cache: dequantize_rows in the profiled step {dq:.4f} ms "
+          f"of {long['int8']['profile']['wall_ms']:.3f} ms wall; the two "
+          f"long decodes {long_s:.1f} s", flush=True)
+    lat = launcher["ms"]
+    print(f"  the launcher's run at {HYBRID_SMALL_EXPERTS} experts "
+          f"({launcher['param_bytes']} bytes of bf16 params, "
+          f"{launcher['swaps']} hot swaps): {launcher['steps']} steps, p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f}"
+          f" ms per step (kernel path, a sync after each); logits vs the "
+          f"plain path: max deviation {launcher['max_dev']:.3g} (limit "
+          f"{BF16_LOGIT_BOUND}), greedy "
+          f"tokens agree {launcher['agree']:.4f}; finite "
+          f"{launcher['finite']}; {launcher['s']:.1f} s", flush=True)
+    print(f"  float32 at {HYBRID_SMALL_EXPERTS} experts "
+          f"({check['param_bytes']} bytes of params), {HYBRID_F32_BATCH} "
+          f"x {PREFILL_LEN}, kernel vs plain path, each position on the "
+          f"plain path's input to it (of "
+          f"its largest |x|, limit {HYBRID_POSITION_BOUND}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in check["positions"])
+          + "; the two forwards after each position: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in check["carried"])
+          + f"; logits {check['logits'][0]:.3g} (limit {F32_LOGIT_ATOL}), "
+          f"greedy agree {check['logits'][1]:.4f}", flush=True)
+    print(f"  decode against forward over {CONSISTENCY_LEN} tokens, float32"
+          f": max deviation {check['decode'][0]:.3g} (limit "
+          f"{HYBRID_DECODE_BOUND}), greedy agree {check['decode'][1]:.4f}; "
+          f"with the int8 cache {check['int8 decode'][0]:.3g} (limit "
+          f"{HYBRID_INT8_DECODE_BOUND}) / {check['int8 decode'][1]:.4f}; the "
+          f"int8 cache's first-layer codes and scales equal _quantize_row "
+          f"of the float cache's rows (K, V): {check['int8 rows']}; peak "
+          f"device memory {check['peak_bytes']} bytes; {check['s']:.1f} s",
+          flush=True)
+    print(f"  launches in the hybrid serving path: {launches}")
+    # each long decode's steps and its one profiled step
+    steps = (sum(r["steps"] + 1 for r in long.values()) + launcher["steps"]
+             + check["steps"])
+    # the two checks' position reruns (bf16, float32) each launch a
+    # forward's layers' kernels, the token gather apart
+    forwards = pre["forwards"] + check["forwards"]
+    want = {"flash_attention": _flash_layers(cfg, PREFILL_LEN)
+            * (forwards + 2),
+            "decode_attention": _attn_layers(cfg) * steps,
+            "embedding_lookup": gathers * (forwards + steps) + 4 * moe,
+            "dequantize_rows": 2 * _attn_layers(cfg) * (
+                long["int8"]["steps"] + 1 + check["int8_steps"])}
+    if pre["per_forward"] != _flash_layers(cfg, PREFILL_LEN) or \
+            {k: launches[k] for k in want} != want:
+        raise AssertionError(f"hybrid serving launches {launches}, want "
+                             f"{want}")
+    worst = max(v for _, v in check["positions"])
+    if not (worst <= HYBRID_POSITION_BOUND and check["finite"]
+            and check["logits"][0] <= F32_LOGIT_ATOL):
+        raise AssertionError(f"float32 kernel path vs plain path: "
+                             f"{check['positions']}, logits "
+                             f"{check['logits']}")
+    if not (check["decode"][0] <= HYBRID_DECODE_BOUND
+            and check["int8 decode"][0] <= HYBRID_INT8_DECODE_BOUND):
+        raise AssertionError(f"float32 decode vs forward "
+                             f"{check['decode'][0]:.3g}, with the int8 "
+                             f"cache {check['int8 decode'][0]:.3g}")
+    if not all(all(v) for v in check["int8 rows"].values()):
+        raise AssertionError(f"int8 cache rows against _quantize_row: "
+                             f"{check['int8 rows']}")
+    if not (launcher["finite"] and all(r["finite"] for r in long.values())):
+        raise AssertionError("non-finite decode logits")
+    worst = max(launcher["max_dev"], *(r["max_dev"] for r in long.values()))
+    if worst > BF16_LOGIT_BOUND:
+        raise AssertionError(f"bf16 decode logits deviate from the plain "
+                             f"path by {worst:.3g}")
+    if max(v for _, v in pre["positions"]) > HYBRID_BF16_POSITION_BOUND:
+        raise AssertionError(f"bf16 kernel path vs plain path by position: "
+                             f"{pre['positions']}")
+
+
+def moe_scatter_add_row(cfg, device) -> dict:
+    """Row 5j: ``embedding_scatter_add`` as the MoE dispatch's gradient
+    runs it at the training batch (``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens
+    from the seed, routed by a router at the init scale): the E * C
+    buffer rows' bf16 gradients added onto (T + 1, D) zeros at their
+    tokens (an empty slot's at the appended zero row), bit-equal to its
+    plain version and timed beside its bound, plain version and
+    ``index_add_``."""
+    import torch
+
+    from repro_torch.kernels import embedding_lookup as el
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+    gen = torch.Generator(device=device).manual_seed(SEED + 47)
+    t, d, e, k = (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.num_experts,
+                  cfg.experts_per_token)
+    xt = torch.randn((t, d), generator=gen, device=device).bfloat16()
+    router = torch.randn((d, e), generator=gen, device=device) * d ** -0.5
+    idx, _, _ = moe.route(router, xt, cfg)
+    cap = moe.moe_capacity(t, cfg)
+    _, rows, keep, _ = moe._dispatch(xt, idx, cap, cfg)
+    src = torch.full((e * cap,), t, device=device)
+    src[rows[keep]] = torch.arange(t * k, device=device)[keep] // k
+    ids32, ids64 = src.int(), src.long()
+    upd = torch.randn((e * cap, d), generator=gen, device=device).bfloat16()
+    table = torch.zeros((t + 1, d), dtype=torch.bfloat16, device=device)
+    if not torch.equal(el.embedding_scatter_add(table.clone(), ids32, upd),
+                       ref.embedding_scatter_add(table.clone(), ids64,
+                                                 upd)):
+        raise AssertionError("the dispatch's scatter-add: not bit-equal")
+    distinct = int(src.unique().numel())
+    return _row("embedding_scatter_add", "embedding_lookup.cu",
+                "src/repro/kernels/embedding_lookup.py:79", 0.0,
+                lambda: el.embedding_scatter_add(table, ids32, upd),
+                lambda: ref.embedding_scatter_add(table, ids64, upd),
+                lambda: table.index_add_(0, ids64, upd),
+                e * cap * d * 2 + 2 * distinct * d * 2 + e * cap * 4,
+                f"the dispatch's gradient: {e * cap} rows ({distinct} "
+                f"distinct ids) x {d} bf16 into ({t + 1}, {d})")
+
+
+def adafactor_peaks(cfg, device) -> dict:
+    """Adafactor's ``update_`` on the card at jamba's two largest leaf
+    shapes, bf16 with a bf16 gradient: the (vocab, d_model) tables and an
+    expert leaf (1, E, d_model, d_ff). Each update's peak device memory
+    over what the leaf, its gradient and its slots hold, against one
+    float32 buffer of a slice (the leaf's last two axes): the design's
+    transient, beside the means' reduction workspace (under
+    ``ADAFACTOR_SLICES`` slices in all)."""
+    import torch
+
+    from repro_torch.optim import get_optimizer
+    opt = get_optimizer("adafactor")
+    gen = torch.Generator(device=device).manual_seed(SEED + 53)
+    out = {}
+    for key, shape in (("table", (cfg.padded_vocab, cfg.d_model)),
+                       ("expert", (1, cfg.num_experts, cfg.d_model,
+                                   cfg.d_ff))):
+        p = torch.randn(shape, generator=gen, device=device).bfloat16()
+        g = torch.randn(shape, generator=gen, device=device).bfloat16()
+        slots = opt.init_slots(p)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        opt.update_(p, slots, g, 0)
+        torch.cuda.synchronize()
+        out[key] = {"shape": shape, "s": time.perf_counter() - t0,
+                    "peak": torch.cuda.max_memory_allocated() - base,
+                    "slice_f32": 4 * shape[-2] * shape[-1],
+                    "finite": bool(torch.isfinite(p).all())}
+        del p, g, slots
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
+    """Phase 7f: jamba trained at full width at 2 experts (bf16,
+    Adafactor, remat): the dispatch's scatter-add at D = 8,192 (row 5j,
+    on ``by_name``'s entry), Adafactor's transient at the largest leaves,
+    ``drive_lm_train`` with ``HYBRID_TRAIN_ARGV`` on the cut config: the
+    replica's bootstrap, 4 steps, one cast16 flush, one int8 flush, a
+    hot swap of the replica's params into a driver on the trained ones.
+    Returns the launches of the training run and of its hot-swap
+    decode."""
+    import torch
+    cfg = hybrid_config(HYBRID_SMALL_EXPERTS)
+    print(f"Hybrid training: host memory available {host_available()} "
+          f"bytes; {HYBRID_ARCH} {hybrid_reduced(cfg)}; the dispatch's "
+          f"gradient at D = {cfg.d_model}:", flush=True)
+    row = moe_scatter_add_row(cfg, dev)
+    by_name["embedding_scatter_add"][f"{HYBRID_ARCH} 5j"] = {
+        k: row[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                            "library_ms", "max_abs_err")}
+    peaks = adafactor_peaks(cfg, dev)
+    for key, v in peaks.items():
+        print(f"  Adafactor update_ of a bf16 {key} leaf {v['shape']}: peak "
+              f"{v['peak']} bytes over the leaf, its gradient and slots "
+              f"(one float32 slice: {v['slice_f32']} bytes), {v['s']:.3f} s"
+              f", finite {v['finite']}", flush=True)
+    if not all(v["finite"] and v["peak"] <= ADAFACTOR_SLICES * v["slice_f32"]
+               for v in peaks.values()):
+        raise AssertionError(f"Adafactor's transient: {peaks}")
+    torch.cuda.empty_cache()
+    lm = drive_lm_train(dev, HYBRID_TRAIN_ARGV, decode_steps=SWAP_DECODE_STEPS,
+                        cfg=cfg, keep_initial=False, min_flushes=1)
+    report_lm_train(lm, None)
     return lm["run"]["launches"], lm["run"]["decode"]["launches"]
 
 
@@ -5144,6 +5875,10 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    print("depth cuts of the training runs, every width as published: "
+          + ", ".join(f"{a} {train_cut(a).num_layers} of "
+                      f"{get_config(a).num_layers} layers"
+                      for a in TRAIN_DEPTH_CUTS), flush=True)
     print(f"LM training kernel against its plain version at {LM_ARCH}'s "
           f"shapes:", flush=True)
     for line in check_scatter_add(lm_cfg, dev):
@@ -5170,7 +5905,7 @@ def main() -> int:
     f32 = check_train_f32(moe_cfg, dev, MOE_GRAD_LEAVES,
                           layers=MOE_F32_LAYERS)
     torch.cuda.empty_cache()
-    moe_train = drive_lm_train(dev, MOE_TRAIN_ARGV,
+    moe_train = drive_lm_train(dev, MOE_TRAIN_ARGV, cfg=train_cut(MOE_ARCH),
                                decode_steps=SWAP_DECODE_STEPS)
     report_lm_train(moe_train, f32)
     paths[f"{MOE_ARCH} training run"] = moe_train["run"]["launches"]
@@ -5190,7 +5925,7 @@ def main() -> int:
         "max_abs_err")}
     f32 = check_train_f32(ssm_cfg, dev, SSM_GRAD_LEAVES)
     torch.cuda.empty_cache()
-    ssm_train = drive_lm_train(dev, SSM_TRAIN_ARGV,
+    ssm_train = drive_lm_train(dev, SSM_TRAIN_ARGV, cfg=train_cut(SSM_ARCH),
                                decode_steps=SWAP_DECODE_STEPS)
     report_lm_train(ssm_train, f32)
     paths[f"{SSM_ARCH} training run"] = ssm_train["run"]["launches"]
@@ -5224,6 +5959,18 @@ def main() -> int:
             dev, by_name)
     print(f"encoder-decoder training phase in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths[f"{HYBRID_ARCH} serving"] = hybrid_serving_phase(dev, by_name)
+    print(f"hybrid serving phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths[f"{HYBRID_ARCH} training run"], \
+        paths[f"{HYBRID_ARCH} hot-swap decode"] = hybrid_training_phase(
+            dev, by_name)
+    print(f"hybrid training phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
     for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}
         print(f"launches of {name} by path: "

@@ -198,21 +198,31 @@ def load_lm_train_state(cfg: ModelConfig, state, device="cuda"):
       state: the reference's ``TrainState`` (or any object with
         ``params``, ``slots`` and ``step``), leaves as NumPy or JAX
         arrays: ``slots`` has the params' structure with a dict of
-        float32 slots (Adam: ``m``, ``v``) where the params have a leaf;
-        ``step`` an integer scalar.
+        float32 slots where the params have a leaf, named and shaped as
+        the optimizer of ``cfg.optimizer`` gives them (Adam: ``m``, ``v``
+        of the param's shape; Adafactor: ``vr`` of ``shape[:-1]`` and
+        ``vc`` of ``shape[:-2] + shape[-1:]`` for a leaf of two or more
+        dimensions, ``v`` for a vector); ``step`` an integer scalar.
       device: where the tensors go (default the card; raises without one).
     Returns the port's ``TrainState``: params via ``load_lm_params``,
-    float32 slot tensors, ``step`` as an int.
+    float32 slot tensors (exact copies), ``step`` as an int. A slot dict
+    of other names or shapes raises ``ValueError``.
     """
     from repro_torch.core.tree import map_like
+    from repro_torch.optim import get_optimizer
     from repro_torch.training.trainer import TrainState
     dev = resolve_device(device)
     params = load_lm_params(cfg, state.params, dev)
+    opt = get_optimizer(cfg.optimizer)
 
     def slot_dict(p, slots):
-        if any(np.shape(v) != tuple(p.shape) for v in slots.values()):
-            raise ValueError(f"{cfg.name}: slots {sorted(slots)} do not "
-                             f"match a param of shape {tuple(p.shape)}")
+        want = {k: tuple(v.shape) for k, v in opt.init_slots(
+            torch.empty(p.shape, device="meta")).items()}
+        got = {k: tuple(np.shape(v)) for k, v in slots.items()}
+        if got != want:
+            raise ValueError(f"{cfg.name}: slots {got} do not match what "
+                             f"{opt.name} keeps for a param of shape "
+                             f"{tuple(p.shape)}: {want}")
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
                 for k, v in slots.items()}
 

@@ -31,10 +31,12 @@ stay NumPy. A dense leaf is ONE codec row, an expert leaf one row a
 
 Deliberate differences: the pusher keeps its last-pushed shadow of a
 dense leaf only when ``delta_threshold`` is on, the one case that reads
-it (the reference copies every pushed leaf); and it selects an expert
+it (the reference copies every pushed leaf); it selects an expert
 leaf's dirty (repeat, expert) slices on the leaf's device before the
-copy to the host (the reference reads the whole leaf, then indexes it).
-The values are the same.
+copy to the host (the reference reads the whole leaf, then indexes it);
+and ``ServeReplica.staleness`` takes each leaf's norms in tensor ops on
+the leaf's device, summed in float64. The values are the same (the
+staleness to the reference's float32 rounding).
 """
 
 from __future__ import annotations
@@ -199,13 +201,22 @@ class ServeReplica:
 
     def staleness(self, train_params: dict) -> float:
         """Max relative L2 distance to the training params over the
-        leaves — the eventual-consistency measure the tests bound."""
+        leaves — the eventual-consistency measure the tests bound. Each
+        leaf's norms are taken in tensor ops on the leaf's own device,
+        the replica's float32 rows copied there and the sums of squares
+        kept in float64 (the reference reads every leaf to the host and
+        sums in float32; at a 22.6 GB model on the card that host pass
+        is a minute); a leaf that is not a tensor is read as a host
+        float32 array."""
         worst = 0.0
         for path, leaf in tree.flatten_with_paths(train_params):
-            a = _host_f32(leaf)
-            denom = max(float(np.linalg.norm(a)), 1e-9)
-            worst = max(worst,
-                        float(np.linalg.norm(a - self.host[path])) / denom)
+            a = leaf.detach().float() if isinstance(leaf, torch.Tensor) \
+                else torch.from_numpy(_host_f32(leaf))
+            num = torch.linalg.vector_norm(torch.from_numpy(
+                self.host[path]).to(a.device, copy=True).sub_(a),
+                dtype=torch.float64)
+            den = torch.linalg.vector_norm(a, dtype=torch.float64)
+            worst = max(worst, float(num) / max(float(den), 1e-9))
         return worst
 
 

@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.configs import ARCH_IDS, ModelConfig, get_config, reduced
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import init_params, precompute_cross_cache
 from repro_torch.serving.predictor import ServeDriver
@@ -35,18 +36,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
-    """The config, random serve params drawn from a generator seeded with
-    ``args.seed`` on ``args.device``, the ``ServeDriver`` over them (float32
-    cache) and the generator, which the hot swaps go on drawing from. A
+def build(args: argparse.Namespace, cfg: Optional[ModelConfig] = None):
+    """The config (``cfg`` where a caller passes its own cut of a config,
+    else ``args.arch``'s, reduced with ``args.reduced``), random serve
+    params drawn from a generator seeded with ``args.seed`` on
+    ``args.device``, the ``ServeDriver`` over them (float32 cache) and
+    the generator, which the hot swaps go on drawing from. A
     model with context gets frames (batch, encoder_len, d_model) ~ N(0,
     1) drawn next from the same generator, and its driver's cross cache
     precomputed from them, as the reference's launcher does.
     Returns ``(cfg, params, driver, gen)``."""
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen)
     driver = ServeDriver(cfg=cfg, params=params, batch=args.batch,

@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.configs import ARCH_IDS, ModelConfig, get_config, reduced
 from repro_torch.core.ps import resolve_device
 from repro_torch.core.sync_engine import ModelSyncEngine, SyncConfig
 from repro_torch.data import lm_batches
@@ -44,17 +44,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
-    """The config, a ``TrainState`` drawn from a generator seeded with
-    ``args.seed`` on ``args.device``, the train step, the sync engine
-    (its replica bootstrapped from the initial params) and the batch
-    stream (``train_batches``). Returns ``(cfg, state, step_fn, engine,
+def build(args: argparse.Namespace, cfg: Optional[ModelConfig] = None):
+    """The config (``cfg`` where a caller passes its own cut of a config,
+    else ``args.arch``'s, reduced with ``args.reduced``), a
+    ``TrainState`` drawn from a generator seeded with ``args.seed`` on
+    ``args.device``, the train step, the sync engine (its replica
+    bootstrapped from the initial params) and the batch stream
+    (``train_batches``). Returns ``(cfg, state, step_fn, engine,
     batches)``."""
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg, d_model=args.d_model,
-                      layers_per_segment=args.layers)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg, d_model=args.d_model,
+                          layers_per_segment=args.layers)
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"params={cfg.param_counts()['total'] / 1e6:.1f}M device={dev}")
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -41,7 +41,17 @@ plain tensor ops (the reference has no Pallas backward either: it trains
 through XLA's autodiff of its einsum softmax). A cross layer's k and v
 gradients flow back into the encoder's states.
 
-The int8 KV cache is not ported yet and raises ``NotImplementedError``.
+The int8 KV cache (``k``, ``v`` int8 beside float32 ``k_scale``,
+``v_scale`` of one absmax scale a (token, head) row) quantizes each new
+row as the reference's jitted decode does (``_quantize_row``, tensor
+ops in the row's dtype) and reads the cache through the
+``dequantize_rows`` kernel before ``decode_attention``: values as
+``f32(codes) * v_scale``, keys as the codes times ``k_scale`` rounded
+to q's dtype, the product rounded to q's dtype — the reference's
+``keys`` and ``values`` exactly (codes have 7 bits and a bf16 scale 8,
+so the float32 product is exact). The reference reads the int8 cache
+in its einsums; a ``decode_attention`` that reads int8 itself is later
+device work.
 The function boundaries keep the reference's layouts: x (B, S, D), q
 (B, S, H, hd), cache (B, S_cache, Kv, hd).
 """
@@ -247,11 +257,38 @@ def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor, *,
     return _flash(p, q, k, v, causal=False)
 
 
+def _quantize_row(x: torch.Tensor):
+    """(B, Kv, hd) -> int8 codes and (B, Kv, 1) float32 absmax scales, the
+    reference's ``_quantize_row`` as its jitted decode computes it: the
+    absmax clamped at 1e-6 in x's dtype, ``scale = f32(absmax) * f32(1 /
+    127)`` (XLA folds the constant division ``/ 127.0`` into that
+    multiply, and keeps a bf16 x's scale in float32 where it is
+    returned; JAX's op-by-op dispatch divides and rounds to x's dtype),
+    ``codes = clip(round_half_even(x / scale), -127, 127)`` in x's dtype,
+    on the scale rounded to it."""
+    scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6).float() \
+        * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / scale.to(x.dtype)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 ``codes`` (..., hd) times ``scale`` (..., 1) through the
+    ``dequantize_rows`` kernel, one row an hd: float32 of codes' shape."""
+    hd = codes.shape[-1]
+    return ops.dequantize_rows(codes.reshape(-1, hd),
+                               scale.reshape(-1, 1)).view(codes.shape)
+
+
 def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
                           cache: dict, *, cfg: ModelConfig,
                           window: int = 0):
     """One-token decode. x (B, 1, D); pos (B,) positions of the new token;
-    cache ``{"k", "v": (B, S_cache, Kv, hd)}`` in float32 or bfloat16.
+    cache ``{"k", "v": (B, S_cache, Kv, hd)}`` in float32 or bfloat16, or
+    int8 with ``{"k_scale", "v_scale": (B, S_cache, Kv, 1)}`` float32
+    (the int8 cache: the new rows quantized by ``_quantize_row``, the
+    cache read through ``_dequantize`` into keys in q's dtype and
+    float32 values, as the reference reads it).
 
     A global layer (``window`` 0) writes the new K/V row at ``pos``, each
     in ``[0, S_cache)``, and attends over ``pos + 1`` rows. A windowed
@@ -264,8 +301,6 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
     the old one). Returns ``(out (B, 1, D), cache)``, the cache dict
     being the one passed in.
     """
-    if "k_scale" in cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     b = x.shape[0]
     cache_k, cache_v = cache["k"], cache["v"]
     if window and cache_k.shape[1] != window:
@@ -277,8 +312,15 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
     bidx, slot = torch.arange(b, device=x.device), pos.long()
     if window:
         slot = slot % window
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    if "k_scale" in cache:
+        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        cache_k[bidx, slot], k_scale[bidx, slot] = _quantize_row(k[:, 0])
+        cache_v[bidx, slot], v_scale[bidx, slot] = _quantize_row(v[:, 0])
+        keys = _dequantize(cache_k, k_scale.to(q.dtype)).to(q.dtype)
+        cache_k, cache_v = keys.float(), _dequantize(cache_v, v_scale)
+    else:
+        cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
     lengths = torch.clamp(pos + 1, max=window) if window else pos + 1
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
     return _out_proj(p, out[:, None].to(x.dtype)), cache

@@ -32,8 +32,10 @@ A model with context (``cfg.has_encoder_context``) takes stub frontend
 embeddings ``enc_context`` (B, T, D): an encoder-decoder (whisper) runs
 them through its encoder stack (``encode``), a model without an encoder
 (llama-3.2-vision) attends to them as they are, cast to the activations'
-dtype — the reference's two branches. The int8 KV cache is not ported
-yet and raises ``NotImplementedError``.
+dtype — the reference's two branches. With ``init_cache(kv_quant=True)``
+the global and sliding-window positions cache int8 K/V rows with a
+float32 scale each (``attention.decode_self_attention`` quantizes and
+reads them).
 """
 
 from __future__ import annotations
@@ -364,9 +366,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     position's ``{"xk", "xv": (repeats, batch, encoder_len, Kv, hd)}``
     in ``dtype`` (``precompute_cross_cache`` fills it), a Mamba
     position's ``{"conv": (repeats, batch, K - 1, d_inner + 2 N)}`` in
-    ``dtype`` and ``{"state": (repeats, batch, H, P, N)}`` in float32."""
-    if kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+    ``dtype`` and ``{"state": (repeats, batch, H, P, N)}`` in float32.
+    ``kv_quant`` makes an attention position's ``k`` and ``v`` int8 and
+    adds float32 ``k_scale`` and ``v_scale`` of shape ``(..., Kv, 1)``,
+    one absmax scale a (token, head) row, as the reference's; cross and
+    Mamba entries stay as they are."""
     dev = resolve_device(device)
 
     def zeros(*shape, dt=dtype):
@@ -386,7 +390,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         rows = min(cfg.window_size, seq_len) if spec.mixer == LOCAL_ATTN \
             else seq_len
         shape = (r, batch, rows, *kv)
-        return {"k": zeros(*shape), "v": zeros(*shape)}
+        if not kv_quant:
+            return {"k": zeros(*shape), "v": zeros(*shape)}
+        return {"k": zeros(*shape, dt=torch.int8),
+                "v": zeros(*shape, dt=torch.int8),
+                "k_scale": zeros(*shape[:-1], 1, dt=torch.float32),
+                "v_scale": zeros(*shape[:-1], 1, dt=torch.float32)}
 
     return {"segments": [
         {f"pos{i}": entry(spec, seg.repeats)

@@ -288,11 +288,29 @@ class FTRL(Optimizer):
         return self._np_weights(z_new, n_new), {"z": z_new, "n": n_new}
 
 
+# Adafactor's update works on at most this many elements of a leaf at a
+# time (1 GiB of float32): a leaf of three or more dimensions is updated
+# in chunks of whole (a, b) slices of its last two axes
+ADAFACTOR_CHUNK_ELEMS = 1 << 28
+
+
 @dataclass(frozen=True)
 class Adafactor(Optimizer):
     """Factored second-moment optimizer (Shazeer & Stern 2018, simplified:
     no update clipping, fixed decay). Slots for an (a, b, ...) tensor are
-    row/col moment factors — O(a+b) memory instead of O(a·b)."""
+    row/col moment factors — O(a+b) memory instead of O(a·b).
+
+    ``update_`` runs the reference's arithmetic in its order, but not as
+    one expression over the leaf: XLA fuses the reference's update into
+    its outputs, where eager tensor ops would hold about six float32
+    copies of the leaf at once. A leaf of three or more dimensions is
+    updated in chunks of its (a, b) slices over its leading axes, at most
+    ``ADAFACTOR_CHUNK_ELEMS`` elements a chunk where a slice fits (its
+    ``vr`` and ``vc`` means run over the last two axes only, so a chunk's
+    update is the whole leaf's), and each chunk, or a matrix, in ONE
+    float32 buffer: ``g * g + eps``, then the factored ``v`` in its
+    place, then the update, then the new param, each written over the
+    last."""
 
     eps: float = 1e-30
     decay: float = 0.8
@@ -309,21 +327,34 @@ class Adafactor(Optimizer):
         return _step_like(self, param, slots, grad, step)
 
     def update_(self, param, slots, grad, step):
-        g = grad.float()
         t = int(step) + 1
         beta = 1.0 - t ** (-self.decay)
-        g2 = (g * g).add_(self.eps)
-        if param.dim() >= 2:
-            vr, vc = slots["vr"], slots["vc"]
-            vr.mul_(beta).add_(g2.mean(dim=-1) * (1 - beta))
-            vc.mul_(beta).add_(g2.mean(dim=-2) * (1 - beta))
-            rfac = vr / vr.mean(dim=-1, keepdim=True).clamp_min(self.eps)
-            v = rfac[..., None] * vc[..., None, :]
-        else:
+        if param.dim() < 2:
+            g = grad.float()
             v = slots["v"]
-            v.mul_(beta).add_(g2 * (1 - beta))
-        upd = g * v.clamp_min(self.eps).rsqrt()
-        param.copy_(param.float() - upd.mul_(self.lr))
+            v.mul_(beta).add_((g * g).add_(self.eps).mul_(1 - beta))
+            param.copy_(param.float()
+                        - (g * v.clamp_min(self.eps).rsqrt()).mul_(self.lr))
+            return
+        a, b = param.shape[-2:]
+        # views: the chunks' in-place writes land in the leaf and its slots
+        p3, g3 = param.view(-1, a, b), grad.reshape(-1, a, b)
+        vr, vc = slots["vr"].view(-1, a), slots["vc"].view(-1, b)
+        step_n = max(1, ADAFACTOR_CHUNK_ELEMS // (a * b))
+        for i in range(0, p3.shape[0], step_n):
+            j = slice(i, i + step_n)
+            self._update_slices(p3[j], vr[j], vc[j], g3[j], beta)
+
+    def _update_slices(self, param, vr, vc, grad, beta: float) -> None:
+        """The factored update of (n, a, b) slices in one float32 buffer."""
+        buf = grad.to(torch.float32, copy=True)
+        buf.mul_(buf).add_(self.eps)                        # g * g + eps
+        vr.mul_(beta).add_(buf.mean(dim=-1) * (1 - beta))
+        vc.mul_(beta).add_(buf.mean(dim=-2) * (1 - beta))
+        rfac = vr / vr.mean(dim=-1, keepdim=True).clamp_min(self.eps)
+        torch.mul(rfac[..., None], vc[..., None, :], out=buf)   # v
+        buf.clamp_min_(self.eps).rsqrt_().mul_(grad).mul_(self.lr)
+        param.copy_(buf.neg_().add_(param))                 # p - lr * upd
 
 
 _OPTIMIZERS = {

@@ -175,17 +175,34 @@ def test_decode_self_attention_matches_reference():
 
 @pytest.mark.parametrize("mode", ["window", "int8 cache"])
 def test_unported_attention_modes_raise(mode):
+    """What still raises: a windowed layer past one chunk whose S is no
+    multiple of the window (``NotImplementedError``, as the reference);
+    an int8 cache without its ``v_scale`` (``KeyError`` in both
+    packages; the int8 cache itself is ported, ``test_torch_kv_int8``,
+    and a whole one decodes)."""
     cfg = _cfg()
     rng = np.random.default_rng(1)
-    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, rng).items()}
+    layer = _layer(cfg, rng)
+    p = {k: torch.from_numpy(v) for k, v in layer.items()}
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError):
-        if mode == "window":        # past one chunk, S % window != 0
+    if mode == "window":            # past one chunk, S % window != 0
+        with pytest.raises(NotImplementedError):
             port_attn.self_attention(p, x, pos, cfg=cfg, window=3, chunk=2)
-        else:
-            cache = {"k": torch.zeros(1, 4, 2, 64), "v": torch.zeros(1, 4, 2,
-                                                                      64),
-                     "k_scale": torch.zeros(1, 4, 2, 1)}
-            port_attn.decode_self_attention(p, x[:, :1], torch.zeros(
-                1, dtype=torch.int32), cache, cfg=cfg)
+        return
+    shp = (1, 4, cfg.num_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shp, dtype=torch.int8),
+             "v": torch.zeros(shp, dtype=torch.int8),
+             "k_scale": torch.zeros(*shp[:-1], 1)}
+    zero = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(KeyError, match="v_scale"):
+        port_attn.decode_self_attention(p, x[:, :1], zero, cache, cfg=cfg)
+    with pytest.raises(KeyError, match="v_scale"):
+        jax_attn.decode_self_attention(
+            {k: jnp.asarray(v) for k, v in layer.items()},
+            jnp.zeros((1, 1, cfg.d_model)), jnp.zeros(1, jnp.int32),
+            {k: jnp.asarray(v.numpy()) for k, v in cache.items()}, cfg=cfg)
+    cache["v_scale"] = torch.zeros(*shp[:-1], 1)
+    out, _ = port_attn.decode_self_attention(p, x[:, :1], zero, cache,
+                                             cfg=cfg)
+    assert out.shape == (1, 1, cfg.d_model) and cache["k"].dtype == torch.int8

@@ -1485,3 +1485,141 @@ def test_runtime_workers_count_kernel_launches_on_card(cuda, runtime_runs):
     for tree in runtime_runs("host", False)["metrics"]["workers"].values():
         assert set(tree["kernels"].values()) == {0}
         assert "device_memory" not in tree
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family on the card: the int8 KV cache and Adafactor
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_dequantize_at_cache_shape_on_card(cuda, dtype):
+    """``attention._dequantize`` at jamba's decode cache (4 x 4096 rows of
+    8 heads of 128, int8, a float32 scale each, the scale rounded to q's
+    dtype as the keys take it): one ``dequantize_rows`` launch, bit-equal
+    to its plain version on the card."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    codes = torch.randint(-127, 128, (4, 4096, 8, 128), generator=gen,
+                          device=cuda, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((4, 4096, 8, 1), generator=gen, device=cuda) * 1e-2
+    before = port_ops.launch_counts()["dequantize_rows"]
+    got = attention._dequantize(codes, scale.to(dtype))
+    assert port_ops.launch_counts()["dequantize_rows"] == before + 1
+    want = port_ref.dequantize_rows(codes.reshape(-1, 128),
+                                    scale.to(dtype).reshape(-1, 1))
+    assert got.dtype == torch.float32 and got.shape == codes.shape
+    assert torch.equal(got.reshape(-1, 128), want)
+
+
+@pytest.mark.cuda
+def test_int8_cache_decode_on_card_matches_cpu(cuda):
+    """Reduced jamba decoding 12 steps from an empty int8 cache, float32,
+    on the card (the quantizer in tensor ops, ``dequantize_rows`` twice
+    and ``decode_attention`` once per attention layer a step) against the
+    same steps on the CPU's plain versions: logits within 1e-4, codes
+    within 1, scales within rtol 1e-5."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import tree
+    from repro_torch.models import decode_step, init_cache, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("jamba-1.5-large-398b"))
+    params = init_params(cfg, torch.Generator().manual_seed(1))
+    b, steps = 2, 12
+    toks = torch.randint(0, cfg.vocab_size, (steps, b, 1),
+                         generator=torch.Generator().manual_seed(2))
+    caches, logits = {}, {}
+    for dev in ("cpu", cuda):
+        p = tree.map_like(lambda t: t.to(dev), params)
+        cache = init_cache(cfg, b, steps, dtype=torch.float32, device=dev,
+                           kv_quant=True)
+        before = port_ops.launch_counts()
+        out = []
+        for t in range(steps):
+            lg, cache = decode_step(p, cfg, cache, toks[t].to(dev),
+                                    torch.full((b,), t, dtype=torch.int32,
+                                               device=dev))
+            out.append(lg.cpu())
+        after = port_ops.launch_counts()
+        if dev != "cpu":
+            assert after["dequantize_rows"] - before["dequantize_rows"] \
+                == 2 * steps
+            assert after["decode_attention"] - before["decode_attention"] \
+                == steps
+        caches[str(dev)] = tree.map_like(lambda t: t.cpu(), cache)
+        logits[str(dev)] = torch.stack(out)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    got, want = (c["segments"][0]["pos0"] for c in (caches["cuda"],
+                                                    caches["cpu"]))
+    for k in ("k", "v"):
+        assert (got[k].int() - want[k].int()).abs().max() <= 1
+        torch.testing.assert_close(got[k + "_scale"], want[k + "_scale"],
+                                   rtol=1e-5, atol=0)
+
+
+def _whole_leaf_adafactor(opt, param, slots, grad, step) -> None:
+    """Adafactor's update as one expression over the whole leaf, the
+    port's arithmetic before it was chunked: the oracle the chunked
+    update is held bit-equal to on the CPU (``test_torch_hybrid``) and
+    the transient it is measured against on the card."""
+    g = grad.float()
+    beta = 1.0 - (int(step) + 1) ** (-opt.decay)
+    g2 = (g * g).add_(opt.eps)
+    if param.dim() >= 2:
+        vr, vc = slots["vr"], slots["vc"]
+        vr.mul_(beta).add_(g2.mean(dim=-1) * (1 - beta))
+        vc.mul_(beta).add_(g2.mean(dim=-2) * (1 - beta))
+        rfac = vr / vr.mean(dim=-1, keepdim=True).clamp_min(opt.eps)
+        v = rfac[..., None] * vc[..., None, :]
+    else:
+        v = slots["v"]
+        v.mul_(beta).add_(g2 * (1 - beta))
+    upd = g * v.clamp_min(opt.eps).rsqrt()
+    param.copy_(param.float() - upd.mul_(opt.lr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 96), (2, 4, 64, 96),
+                                   (1, 4, 1024, 3072), (8192, 1024)])
+def test_sliced_adafactor_on_card_matches_cpu(cuda, shape):
+    """Three Adafactor steps of a float32 leaf on the card against the
+    CPU: params within rtol 1e-6, atol 1e-7 and slots within rtol 1e-5
+    (the means sum in another order; a bf16 leaf would round those last
+    bits to a whole bf16 step now and then). Then one step of a bf16 leaf
+    with a bf16 gradient on the card, chunked and whole-leaf
+    (``_whole_leaf_adafactor``), each one's transient device memory the
+    peak over what the leaf, its gradient and its slots hold: the
+    chunked update holds at least two float32 copies of the leaf fewer
+    (measured at (1, 4, 1024, 3072): 3.0 copies against 6.0, one buffer
+    and CUDA's reduction workspace, which is 0.13-0.17 of a buffer at
+    jamba's leaves in the smoke's phase 7f)."""
+    from repro_torch.optim import get_optimizer
+    opt = get_optimizer("adafactor")
+    gen = torch.Generator().manual_seed(3)
+    p0 = torch.randn(shape, generator=gen)
+    grads = [torch.randn(shape, generator=gen) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = p0.to(dev, copy=True)
+        slots = opt.init_slots(p)
+        for step, g in enumerate(grads):
+            opt.update_(p, slots, g.to(dev), step)
+        out[str(dev)] = (p.cpu(), {k: v.cpu() for k, v in slots.items()})
+    (pg, sg), (pc, sc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(pg, pc, rtol=1e-6, atol=1e-7)
+    for k in sc:
+        torch.testing.assert_close(sg[k], sc[k], rtol=1e-5, atol=1e-12)
+    peaks = []
+    for update in (opt.update_, lambda *a: _whole_leaf_adafactor(opt, *a)):
+        p, g = p0.to(cuda).bfloat16(), grads[0].to(cuda).bfloat16()
+        slots = opt.init_slots(p)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        update(p, slots, g, 0)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del p, g, slots
+    print(f"{shape}: transient {peaks[0]} bytes chunked, {peaks[1]} whole; "
+          f"a float32 copy of the leaf is {4 * p0.numel()}")
+    assert peaks[0] <= peaks[1] - 2 * 4 * p0.numel()

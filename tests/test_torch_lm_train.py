@@ -14,9 +14,9 @@ and a global one), whose seq-32 batch takes the block-local branch
 forward and backward; and for whisper-medium (one encoder layer and one
 decoder layer of self-attention, cross attention and an MLP) on seeded
 frames, the same on both sides (``_batch``), and its launcher on its
-seeded N(0, 1) frames. (llama-3.2-vision-90b trains with Adafactor,
-whose factored slots ``convert.load_lm_train_state`` does not carry yet:
-its step tests wait for that optimizer's slice.)
+seeded N(0, 1) frames. (llama-3.2-vision-90b, dbrx-132b and
+jamba-1.5-large-398b train with Adafactor: their step tests are in
+``test_torch_hybrid.py``.)
 
 The reference's ``init_train_state`` is perturbed leaf by leaf with
 seeded numpy noise (so the zero-initialised norms and QKV biases take

@@ -7,7 +7,9 @@ dense leaves, gemma3-4b, whose tied embedding streams as one dense
 tensor beside its windowed and global layers, whisper-medium, whose
 encoder's leaves (``encoder/segments/0/pos0/mixer/wq``, ...,
 ``encoder/final_norm``) stream as dense leaves in the reference's order,
-and llama-3.2-vision-90b's cross layers.
+llama-3.2-vision-90b's cross layers, and jamba-1.5-large-398b's hybrid
+period (its expert leaves at four MoE positions beside Mamba, MLP and
+attention leaves, under Adafactor's ``window`` mode).
 
 Both engines are fed the same parameter trees (numpy, perturbed every
 step) and the same tokens on the same clock, so their records — path,
@@ -33,6 +35,7 @@ from repro.core.sync_engine import ModelSyncEngine as JaxEngine
 from repro.core.sync_engine import SyncConfig as JaxSyncConfig
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import MOE
 from repro_torch.core import tree
 from repro_torch.core.sync_engine import ModelSyncEngine, SyncConfig
 from repro_torch.models import decode_step, init_cache
@@ -83,6 +86,8 @@ def _same_record(a, b) -> None:
     ("gemma3-4b", None),           # windowed and global layers, tied embed
     ("whisper-medium", None),      # the encoder's leaves, cross layers
     ("llama-3.2-vision-90b", None),   # cross layers; Adafactor -> window
+    ("jamba-1.5-large-398b", None),   # hybrid: experts at four positions,
+                                      # Mamba and attention; Adafactor
 ])
 def test_records_and_replica_equal_reference(arch, optimizer, codec):
     """Five steps and the final flush on both engines; a MoE config's
@@ -115,8 +120,10 @@ def test_records_and_replica_equal_reference(arch, optimizer, codec):
                                                      dtype=np.float32),
             params)
         tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-        counts = [{"pos0": rng.integers(0, 3, (seg.repeats, cfg.num_experts))
-                   .astype(np.int32)} for seg in cfg.segments]
+        counts = [{f"pos{i}": rng.integers(0, 3, (seg.repeats,
+                                                  cfg.num_experts))
+                   .astype(np.int32) for i, spec in enumerate(seg.pattern)
+                   if spec.ffn == MOE} for seg in cfg.segments]
         metrics = {"expert_counts_per_layer": counts} if cfg.num_experts \
             else None
         ref.collect_step(tokens, metrics)
