@@ -373,7 +373,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+# the card's figures, held in one place (H100 SXM5 80 GB datasheet)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_PEAK_FLOPS  # noqa: E402,E501
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as F32_PEAK_FLOPS  # noqa: E402,E501
+
 SMS = 132                           # H100 SXM streaming multiprocessors
 # thread instructions a clock an SM: MUFU (RCP, RSQ) and issue (4 warp
 # schedulers x 32 lanes; the FP32 pipes keep the same pace)
@@ -2722,8 +2726,6 @@ SERVE_ARGV = ("--arch", LM_ARCH, "--batch", "4", "--steps", "32",
               "--seed", str(SEED))
 LONG_LEN, LONG_POS, LONG_STEPS = 4096, 4000, 32
 LM_KERNELS = ("flash_attention", "decode_attention")
-BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
-F32_PEAK_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 F32_LOGIT_ATOL = 1e-3               # float32 logits, kernel vs plain path
 # bfloat16 logits, kernel vs plain path: the two attentions agree to fp32
 # rounding, but a bf16 rounding of an attention output can flip and travel
@@ -5658,6 +5660,214 @@ def hybrid_training_phase(dev, by_name: dict) -> tuple[dict, dict]:
     return lm["run"]["launches"], lm["run"]["decode"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: sharding and cost (launch/dryrun, cost_model, hlo_analysis)
+# ---------------------------------------------------------------------------
+
+# each LM kernel at a zoo shape of PERF.md's kernel table, with that
+# table's bound (ms): the row, its arguments' maker and the table's bound
+ABSTRACT_KERNEL_ROWS = ("9", "10", "3m", "5m", "8k")
+TABLE_BOUND_MS = {"9": 0.05211, "10": 0.00979, "3m": 0.02004,
+                  "5m": 0.01458, "8k": 0.02520}
+LOCAL_PASS_SHAPE = ("prefill", 2048, 4)     # qwen2-1.5b, 4 x 2048 bf16
+LOCAL_PASS_REPS = 5
+# (arch, shape, multi_pod, opt): each must be ok, or an ``applicable`` skip
+PRODUCTION_PAIRS = (("qwen2-1.5b", "train_4k", False, False),
+                    ("qwen2-1.5b", "decode_32k", False, False),
+                    ("granite-moe-3b-a800m", "prefill_32k", False, True),
+                    ("jamba-1.5-large-398b", "long_500k", True, False),
+                    ("whisper-medium", "train_4k", False, False))
+
+
+def _abstract_kernel_args(row: str, device):
+    """``(wrapper, args, label)`` of a kernel table row's shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def ids(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    if row == "9":
+        cfg = get_config(LM_ARCH)
+        q, k, v = _attn_inputs(PREFILL_BATCH, cfg.num_heads,
+                               cfg.num_kv_heads, PREFILL_LEN, cfg.head_dim,
+                               torch.bfloat16, gen, device)
+        return (lambda *a: ops.flash_attention(*a, causal=True), (q, k, v),
+                f"q {tuple(q.shape)}, k, v {tuple(k.shape)} bf16 causal")
+    if row == "10":
+        cfg = get_config(LM_ARCH)
+        n, h, g, d = 4, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = randn(n, h, d)
+        ck, cv = (randn(n, LONG_LEN, g, d, dtype=torch.float32)
+                  for _ in range(2))
+        lengths = torch.full((n,), LONG_POS + 1, dtype=torch.int32,
+                             device=device)
+        return (ops.decode_attention, (q, ck, cv, lengths),
+                f"q {tuple(q.shape)} bf16 vs cache {tuple(ck.shape)} f32 "
+                f"at {LONG_POS + 1}")
+    if row == "3m":
+        cfg = get_config(SSM_ARCH)
+        table = randn(cfg.padded_vocab, cfg.d_model)
+        return (ops.embedding_lookup, (table, ids(8192, cfg.vocab_size)),
+                f"8192 ids x {cfg.d_model} bf16 from {tuple(table.shape)}")
+    if row == "5m":
+        cfg = get_config(SSM_ARCH)
+        table = randn(cfg.padded_vocab, cfg.d_model)
+        upd = randn(4096, cfg.d_model)
+        return (ops.embedding_scatter_add,
+                (table, ids(4096, cfg.vocab_size), upd),
+                f"4096 ids x {cfg.d_model} bf16 into {tuple(table.shape)}")
+    codes = torch.randint(-127, 128, (131072, 128), generator=gen,
+                          device=device, dtype=torch.int8)
+    return (ops.dequantize_rows, (codes, randn(131072, 1,
+                                               dtype=torch.float32)),
+            "131072 rows x 128 int8")
+
+
+def abstract_kernel_checks(device) -> list[str]:
+    """Phase 8 (a): each LM kernel's fake path against the kernel at a
+    zoo shape — the fake output's shape, dtype and strides equal the
+    kernel's real output's — and the bound from its registered FLOPs
+    and bytes (``CostMode`` on the fake call) beside the table's."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import CostMode
+    lines = []
+    for row in ABSTRACT_KERNEL_ROWS:
+        fn, args, label = _abstract_kernel_args(row, device)
+        fm = FakeTensorMode()
+        fake_args = [fm.from_tensor(a) for a in args]
+        real = fn(*[a.clone() for a in args])
+        with fm, CostMode() as mode:
+            fake = fn(*fake_args)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        got = (tuple(fake.shape), fake.dtype, fake.stride())
+        want = (tuple(real.shape), real.dtype, real.stride())
+        if got != want:
+            raise AssertionError(f"row {row}: the fake output {got} is not "
+                                 f"the kernel's {want}")
+        (op, _), = [(k, v) for k, v in mode.op_counts.items()
+                    if k.startswith("repro_torch.")]
+        peak = BF16_PEAK_FLOPS if args[0].dtype == torch.bfloat16 \
+            else F32_PEAK_FLOPS
+        bound = max(mode.bytes / HBM_BYTES_PER_S, mode.flops / peak) * 1e3
+        lines.append(f"row {row} {op}: {label}; fake out == kernel out "
+                     f"{got[0]} {str(got[1])[6:]} strides {got[2]}; "
+                     f"registered {mode.flops} FLOPs, {mode.bytes} bytes: "
+                     f"bound {bound:.5f} ms (table {TABLE_BOUND_MS[row]})")
+        del real, fake, args, fake_args
+    return lines
+
+
+def local_pass_report(device) -> dict:
+    """Phase 8 (b): qwen2-1.5b's 4 x 2048 bf16 prefill at full width,
+    counted on real ``DTensor``s on ``make_local_mesh(1, 1)`` and on fake
+    ones (``dryrun.local_pass``): FLOPs, bytes, collectives and every
+    op's count must be equal. Prints the plain step's p50 beside the
+    roofline terms. Returns the pass's launch counts."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    cfg = get_config(LM_ARCH)
+    kind, s, b = LOCAL_PASS_SHAPE
+    ops.reset_launches()
+    r = dryrun.local_pass(cfg, InputShape("local", s, b, kind),
+                          device_type=device.type, reps=LOCAL_PASS_REPS)
+    launches = ops.launch_counts()
+    real, fake = r["real"], r["fake"]
+    if real != fake or r["real_mode"].op_counts != r["fake_mode"].op_counts:
+        diff = set(r["real_mode"].op_counts.items()) ^ set(
+            r["fake_mode"].op_counts.items())
+        raise AssertionError(f"local pass: real {real} != fake {fake}; "
+                             f"ops differing: {sorted(diff)[:10]}")
+    mf = dryrun.model_flops(cfg, InputShape("local", s, b, kind))
+    print(f"  local pass {cfg.name} {kind} {b} x {s} bf16 on "
+          f"make_local_mesh(1, 1): real == fake: {real.flops_per_device:.6g}"
+          f" FLOPs, {real.bytes_per_device:.6g} bytes (no fusion), "
+          f"collectives {real.collective_counts}; "
+          f"{sum(r['real_mode'].op_counts.values())} ops; FLOPs by op "
+          f"{dict(r['real_mode'].flops_by_op)}", flush=True)
+    print(f"  p50 {r['p50_ms']:.3f} ms (plain tensors, {LOCAL_PASS_REPS} "
+          f"calls) vs compute {real.flops_per_device / BF16_PEAK_FLOPS * 1e3:.3f}"
+          f" ms, no-fusion memory {real.bytes_per_device / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms, model FLOPs {mf:.6g} = {mf / BF16_PEAK_FLOPS * 1e3:.3f} ms; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def production_pairs() -> list[dict]:
+    """Phase 8 (c): the listed production-mesh pairs through
+    ``dryrun.run_pair`` on fake CUDA tensors, each printing the
+    reference's one-line summary; each must be ``ok`` or an
+    ``applicable`` skip. JSONs under ``build/dryrun/smoke``."""
+    from repro_torch.configs import SHAPES, applicable, get_config
+    from repro_torch.launch import dryrun
+    out, bad = [], []
+    for arch, shape, multi_pod, opt in PRODUCTION_PAIRS:
+        r = dryrun.run_pair(arch, shape, multi_pod=multi_pod,
+                            out_dir=str(ROOT / "build" / "dryrun" / "smoke"),
+                            verbose=False, opt=opt)
+        ok, _ = applicable(get_config(arch), SHAPES[shape])
+        if r["status"] != ("ok" if ok else "skip"):
+            print(r.get("traceback", ""), flush=True)
+            bad.append(f"{arch} {shape}: {r['status']} {r.get('error', '')}")
+        out.append(r)
+    if bad:
+        raise AssertionError("dry-run pairs failed: " + "; ".join(bad))
+    return out
+
+
+def hook_overhead_line(device, calls: int = 100_000) -> str:
+    """The host cost the sharding registrations add to a plain-tensor
+    call: ``_build.direct`` (each LM kernel wrapper's check before its
+    direct route) on three tensors, ``_build.dtensor_args`` (the model's
+    check before a weight's or a cache's DTensor handling) and the
+    model's mesh hooks with no mesh in scope (``constrain_batch``,
+    ``fsdp_gather`` on a layer's dict), each averaged over ``calls``
+    calls on the host clock."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models.common import constrain_batch, fsdp_gather
+    t = torch.zeros(4, device=device)
+    layer = {"mixer": {"wq": t, "wk": t}, "ffn": {"w_up": t}}
+    out = []
+    for name, fn in (("direct(q, k, v)", lambda: _build.direct(t, t, t)),
+                     ("dtensor_args(w)", lambda: _build.dtensor_args(t)),
+                     ("constrain_batch(x)", lambda: constrain_batch(t)),
+                     ("fsdp_gather(layer)", lambda: fsdp_gather(layer))):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append(f"{name} {(time.perf_counter() - t0) / calls * 1e6:.3f}"
+                   f" us")
+    return "host cost a call with no mesh in scope: " + ", ".join(out)
+
+
+def sharding_phase(device) -> dict:
+    """Phase 8: the five LM kernels' abstract paths, the local pass, the
+    production-mesh pairs. Returns the local pass's launch counts."""
+    print("sharding and cost: the LM kernels' fake paths at zoo shapes:",
+          flush=True)
+    for line in abstract_kernel_checks(device):
+        print(f"  {line}", flush=True)
+    print(f"  {hook_overhead_line(device)}", flush=True)
+    launches = local_pass_report(device)
+    print("sharding and cost: production-mesh pairs (fake process groups, "
+          "fake CUDA tensors):", flush=True)
+    production_pairs()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5970,6 +6180,11 @@ def main() -> int:
         paths[f"{HYBRID_ARCH} hot-swap decode"] = hybrid_training_phase(
             dev, by_name)
     print(f"hybrid training phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths["sharding local pass"] = sharding_phase(dev)
+    print(f"sharding and cost phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name in ops.KERNELS:
         counts = {path: c[name] for path, c in paths.items()}

@@ -16,6 +16,17 @@ with no CUDA toolkit; asking for a kernel there raises ``RuntimeError``.
 The wrappers share ``on_cpu`` (device dispatch), ``launch`` (stream,
 device guard and launch-error check), ``rows_aligned`` and
 ``DTYPE_CODES`` from here.
+
+The LM path's five kernels (``flash_attention``, ``decode_attention``,
+``embedding_lookup``, ``embedding_scatter_add``, ``dequantize_rows``)
+are also ``torch.library`` custom ops (namespace ``repro_torch``), each
+with a fake implementation (output shape, dtype and strides only), a
+FLOP formula in ``torch.utils.flop_counter``'s registry and a byte count
+in ``OP_BYTES``, so that the dry-run can count a step on fake tensors
+and ``DTensor``s. A wrapper takes its direct route when ``direct``
+says so (plain tensors, no dispatch mode), and the op otherwise; a
+``DTensor`` argument goes through the kernel's sharding rule
+(``local_map``) to the op on the local shards.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -43,6 +55,10 @@ EXTRA_FLAGS = {"flash_attention_sm90": ("-lcuda",)}
 
 # the C interfaces' dtype codes (float32 and bfloat16 kernels)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# custom op -> bytes(args, kwargs, out) the kernel moves: each input read
+# and each output written once, as ``launch/hlo_analysis`` counts them
+OP_BYTES: dict = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -149,3 +165,129 @@ def rows_aligned(t: torch.Tensor) -> torch.Tensor:
             and all(st % word == 0 for st in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def direct(*tensors: torch.Tensor) -> bool:
+    """True when a wrapper may take its direct route: every tensor is a
+    plain ``torch.Tensor`` (no ``DTensor``, no fake tensor) and no
+    dispatch mode is active (no fake mode, no counting mode). Else the
+    wrapper calls its custom op, which the modes see. One C call and a
+    type check a tensor: no allocation."""
+    if torch._C._len_torch_dispatch_stack():
+        return False
+    for t in tensors:
+        if type(t) is not torch.Tensor:
+            return False
+    return True
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors' elements (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def dense_stride(shape, like: torch.Tensor) -> tuple[int, ...]:
+    """Dense strides of ``shape`` with ``like``'s dim order (its dims
+    sorted by stride, innermost last): the global strides of a DTensor
+    whose shards are laid out as ``like``."""
+    order = sorted(range(len(shape)), key=lambda d: (like.stride(d), d),
+                   reverse=True)
+    out, step = [0] * len(shape), 1
+    for d in reversed(order):
+        out[d] = step
+        step *= max(1, shape[d])
+    return tuple(out)
+
+
+def dtensor_args(*args) -> bool:
+    """True when any argument is a ``DTensor``; a plain tensor or None is
+    passed over by a type check alone."""
+    for a in args:
+        if a is None or type(a) is torch.Tensor:
+            continue
+        from torch.distributed.tensor import DTensor
+        if isinstance(a, DTensor):
+            return True
+    return False
+
+
+def local_map(fn, args, in_placements, out_placements, out_shape, mesh):
+    """Run ``fn`` on the local shards of ``args`` laid out as
+    ``in_placements`` (one tuple a tensor argument, None for a
+    non-tensor), and wrap its output as a ``DTensor`` of ``out_shape``
+    with ``out_placements`` (None: ``fn`` returns nothing; lists of
+    both: ``fn`` returns that many tensors). A ``DTensor`` argument is
+    redistributed where its placements differ (DTensor issues and counts
+    the collectives); a plain tensor argument stands for a replicated
+    one (split locally, no collective, where asked). Every
+    step is differentiable, so ``fn``'s own backward runs on the local
+    shards too."""
+    from torch.distributed.tensor import DTensor, Replicate
+    local = []
+    for a, pl in zip(args, in_placements):
+        if pl is None:
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            if all(isinstance(p, Replicate) for p in pl):
+                local.append(a)
+                continue
+            # a plain tensor stands for a replicated one: take its shard
+            a = DTensor.from_local(a, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        if tuple(a.placements) != tuple(pl):
+            a = a.redistribute(mesh, pl)
+        local.append(a.to_local())
+    out = fn(*local)
+    if out_placements is None:
+        return None
+    if isinstance(out_shape, list):
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False,
+                                        shape=torch.Size(sh),
+                                        stride=dense_stride(sh, o))
+                     for o, pl, sh in zip(out, out_placements, out_shape))
+    return DTensor.from_local(out, mesh, out_placements, run_check=False,
+                              shape=torch.Size(out_shape),
+                              stride=dense_stride(out_shape, out))
+
+
+def mesh_of(*args):
+    """The ``DeviceMesh`` of the first ``DTensor`` argument."""
+    from torch.distributed.tensor import DTensor
+    return next(a.device_mesh for a in args if isinstance(a, DTensor))
+
+
+def placements_of(t, mesh) -> tuple:
+    """``t``'s placements on ``mesh``, all ``Replicate`` for a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return tuple(t.placements)
+    return (Replicate(),) * mesh.ndim
+
+
+def shard_dim(p) -> Optional[int]:
+    """The tensor dim a placement shards (plain ``Shard`` only), else
+    None."""
+    from torch.distributed.tensor import Shard
+    return p.dim if type(p) is Shard else None
+
+
+def local_extent(shape, mesh, placements) -> tuple[list, list]:
+    """``(local shape, global offset)`` of this rank's shard of a
+    ``shape`` tensor under plain ``Shard`` / ``Replicate`` / ``Partial``
+    placements (``torch.chunk``'s split, mesh dims outer first), in
+    Python arithmetic: no tensor op, so it runs under a fake mode."""
+    size, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        d = shard_dim(p)
+        if d is None:
+            continue
+        n = mesh.size(i)
+        chunk = -(-size[d] // n)
+        start = min(coord[i] * chunk, size[d])
+        offset[d] += start
+        size[d] = max(0, min(chunk, size[d] - start))
+    return size, offset

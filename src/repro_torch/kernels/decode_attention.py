@@ -14,6 +14,17 @@ The wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
 raise — there is no fallback). ``decode_attention.launches`` counts its
 kernel launches.
+
+It is also the custom op ``repro_torch::decode_attention`` (fake: an
+empty (B, H, D) tensor of q's dtype; FLOPs ``4 D`` a cache row a head;
+bytes: q, the whole cache, the lengths read and the output written
+once — the capacity, since the lengths stay on the card), which the
+wrapper calls under a dispatch mode or on fake tensors, and whose
+sharding rule (``_sharded``) runs it on ``DTensor`` shards split by
+batch or by heads (q's and the cache's together), else replicated. A
+sequence-split cache (the reference's flash-decode layout) is gathered
+first: the kernel combines its splits in one launch and returns no
+log-sum-exp for a cross-shard combine.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -86,6 +98,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths.shape != (b,) or lengths.dtype.is_floating_point:
         raise ValueError(f"lengths must be (B,) integers, got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
+    if _build.direct(q, k, v, lengths):
+        return _run(q, k, v, lengths)
+    if _build.dtensor_args(q, k, v, lengths):
+        return _sharded(q, k, v, lengths)
+    return torch.ops.repro_torch.decode_attention(q, k, v, lengths)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         lengths: torch.Tensor) -> torch.Tensor:
+    """The checked call on plain tensors: the plain version on the CPU,
+    the kernel on the card."""
+    b, h, d = q.shape
+    s, g = k.shape[1], k.shape[2]
     if _build.on_cpu(q, k, v, lengths):
         if b and not bool(((lengths >= 1) & (lengths <= s)).all()):
             raise ValueError(f"lengths must lie in [1, {s}], got "
@@ -124,3 +149,64 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        lengths: torch.Tensor) -> torch.Tensor:
+    return _run(q, k, v, lengths)
+
+
+@_op.register_fake
+def _(q, k, v, lengths):
+    return q.new_empty(q.shape)
+
+
+def flops(q_shape, k_shape) -> int:
+    """q·k and p·v over every cache row: ``4 D`` a row a head."""
+    b, h, d = q_shape
+    return 4 * b * h * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flop_formula(q_shape, k_shape, v_shape, lengths_shape, *args,
+                  out_shape=None, **kwargs) -> int:
+    return flops(q_shape, k_shape)
+
+
+_build.OP_BYTES[torch.ops.repro_torch.decode_attention.default] = \
+    lambda args, kwargs, out: _build.nbytes(*args[:4], out)
+
+
+def _sharded(q, k, v, lengths):
+    """The sharding rule: a mesh dim of size 1 keeps every placement;
+    else everything is split on batch where any of q, the cache or the
+    lengths is (or, if none is, where something must move and the batch
+    left divides), on heads (q's dim 1, the cache's dim 2, the lengths
+    replicated) where the heads and groups left divide, else
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _build.mesh_of(q, k, v, lengths)
+    pls = [_build.placements_of(x, mesh) for x in (q, k, v, lengths)]
+    b, h, g = q.shape[0], q.shape[1], k.shape[2]
+    ins = [list(p) for p in pls]
+    out = []
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            out.append(Replicate())
+            continue
+        moved = any(not isinstance(p[i], Replicate) for p in pls)
+        batch = any(_build.shard_dim(p[i]) == 0 for p in pls)
+        if batch or (moved and b % n == 0):
+            picks, b = (Shard(0),) * 4, -(-b // n)
+        elif moved and h % n == 0 and g % n == 0:
+            picks, h, g = (Shard(1), Shard(2), Shard(2), Replicate()), \
+                h // n, g // n
+        else:
+            picks = (Replicate(),) * 4
+        for p, pick in zip(ins, picks):
+            p[i] = pick
+        out.append(picks[0])
+    return _build.local_map(
+        torch.ops.repro_torch.decode_attention, (q, k, v, lengths),
+        [tuple(p) for p in ins], tuple(out), q.shape, mesh)

@@ -14,6 +14,14 @@ Each wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
 raise — there is no fallback). Each wrapper's ``launches`` attribute
 counts its kernel launches.
+
+``dequantize_rows`` (the int8 KV cache's read on the LM decode path) is
+also the custom op ``repro_torch::dequantize_rows`` (fake: an empty
+(B, D) float32 tensor; FLOPs one multiply an element; bytes: the codes
+and scales read, the float32 rows written), which the wrapper calls
+under a dispatch mode or on fake tensors; its sharding rule splits the
+codes by rows (the scales with them) or by columns (the scales
+replicated).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -126,6 +135,16 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
       scale: (B, 1) per-row scales, cast to float32.
     Returns (B, D) float32. One launch.
     """
+    if _build.direct(q, scale):
+        return _dequantize(q, scale)
+    if _build.dtensor_args(q, scale):
+        return _dequantize_sharded(q, scale)
+    return torch.ops.repro_torch.dequantize_rows(q, scale)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The call on plain tensors: the plain version on the CPU, the
+    kernel on the card."""
     if _build.on_cpu(q, scale):
         return ref.dequantize_rows(q, scale)
     if q.dtype != torch.int8 or q.dim() != 2:
@@ -148,3 +167,50 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 dequantize_rows.launches = 0
+
+
+@torch.library.custom_op("repro_torch::dequantize_rows", mutates_args=())
+def _dequantize_op(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return _dequantize(q, scale)
+
+
+@_dequantize_op.register_fake
+def _(q, scale):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.dequantize_rows)
+def _dequantize_flops(q_shape, *args, out_shape=None, **kwargs) -> int:
+    return q_shape[0] * q_shape[1]
+
+
+_build.OP_BYTES[torch.ops.repro_torch.dequantize_rows.default] = \
+    lambda args, kwargs, out: _build.nbytes(args[0], args[1], out)
+
+
+def _dequantize_sharded(q, scale):
+    """The sharding rule, a mesh dim at a time (a dim of size 1 keeps its
+    placements): rows split where the codes' or the scales' rows are, or
+    where the codes' columns are not and something must move; columns
+    split where the codes' columns are (the scales replicated); else
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _build.mesh_of(q, scale)
+    pq = list(_build.placements_of(q, mesh))
+    ps = list(_build.placements_of(scale, mesh))
+    out = []
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            out.append(Replicate())
+            continue
+        dq, ds = _build.shard_dim(pq[i]), _build.shard_dim(ps[i])
+        if dq == 1:
+            pq[i], ps[i] = Shard(1), Replicate()
+        elif 0 in (dq, ds):
+            pq[i], ps[i] = Shard(0), Shard(0)
+        else:
+            pq[i], ps[i] = Replicate(), Replicate()
+        out.append(pq[i])
+    return _build.local_map(torch.ops.repro_torch.dequantize_rows,
+                            (q, scale), [tuple(pq), tuple(ps)], tuple(out),
+                            q.shape, mesh)

@@ -16,6 +16,21 @@ Each wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
 raise — there is no fallback). Each wrapper's ``launches`` attribute
 counts its kernel launches.
+
+``embedding_lookup`` and ``embedding_scatter_add`` are also the custom
+ops ``repro_torch::embedding_lookup`` (fake: an empty (N, D) tensor of
+the table's dtype; no FLOPs; bytes: the ids read, N rows read and
+written) and ``repro_torch::embedding_scatter_add`` (mutates the table;
+FLOPs one add an element of the updates; bytes: the ids and updates
+read, N table rows read and written — the most the ids can touch),
+which the wrappers call under a dispatch mode or on fake tensors.
+Their sharding rules take ``DTensor``s: a vocab-split table gathers
+(or adds) the rows in its range on each shard (the rest masked: the
+kernels do not check bounds), giving a ``Partial`` output (or taking a
+replicated update); a column-split table works on its columns with
+the ids replicated; a replicated table follows the ids' split (the
+scatter-add into a table ``Partial`` over the token split: each shard
+adds its own tokens).
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -96,6 +112,16 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         kernel does not check).
     Returns (N, D) rows, same dtype as ``table``.
     """
+    if _build.direct(table, ids):
+        return _lookup(table, ids)
+    if _build.dtensor_args(table, ids):
+        return _lookup_sharded(table, ids)
+    return torch.ops.repro_torch.embedding_lookup(table, ids)
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The call on plain tensors: the plain version on the CPU, the
+    kernel on the card."""
     if _build.on_cpu(table, ids):
         return ref.embedding_lookup(table, ids)
     _check_table_ids(table, ids)
@@ -173,6 +199,19 @@ def embedding_scatter_add(table: torch.Tensor, ids: torch.Tensor,
         than 4 GB apart).
     Returns ``table``. No ids is a no-op.
     """
+    if _build.direct(table, ids, updates):
+        return _scatter_add(table, ids, updates)
+    if _build.dtensor_args(table, ids, updates):
+        _scatter_add_sharded(table, ids, updates)
+    else:
+        torch.ops.repro_torch.embedding_scatter_add(table, ids, updates)
+    return table
+
+
+def _scatter_add(table: torch.Tensor, ids: torch.Tensor,
+                 updates: torch.Tensor) -> torch.Tensor:
+    """The call on plain tensors: the plain version on the CPU, the
+    kernel on the card."""
     if _build.on_cpu(table, ids, updates):
         return ref.embedding_scatter_add(table, ids, updates)
     if table.dim() != 2 or not table.is_contiguous():
@@ -222,3 +261,179 @@ def scatter_add_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
                   sorted_ids.shape[0], upd.data_ptr(), upd.stride(0),
                   _build.DTYPE_CODES[table.dtype], word)
     embedding_scatter_add.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The custom ops, their counts and their sharding rules
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::embedding_lookup", mutates_args=())
+def _lookup_op(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return _lookup(table, ids)
+
+
+@_lookup_op.register_fake
+def _(table, ids):
+    return table.new_empty((ids.shape[0], table.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::embedding_scatter_add",
+                         mutates_args=("table",))
+def _scatter_add_op(table: torch.Tensor, ids: torch.Tensor,
+                    updates: torch.Tensor) -> None:
+    _scatter_add(table, ids, updates)
+
+
+@_scatter_add_op.register_fake
+def _(table, ids, updates):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_lookup)
+def _lookup_flops(*args, out_shape=None, **kwargs) -> int:
+    return 0
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_scatter_add)
+def _scatter_add_flops(table_shape, ids_shape, updates_shape, *args,
+                       out_shape=None, **kwargs) -> int:
+    return ids_shape[0] * table_shape[1]
+
+
+def lookup_bytes(table, ids) -> int:
+    """The ids read, N rows read and N written."""
+    return _build.nbytes(ids) + 2 * ids.shape[0] * table.shape[1] \
+        * table.element_size()
+
+
+def scatter_add_bytes(table, ids, updates) -> int:
+    """The ids and the updates read, N table rows read and written."""
+    return _build.nbytes(ids, updates) + 2 * ids.shape[0] \
+        * table.shape[1] * table.element_size()
+
+
+_build.OP_BYTES[torch.ops.repro_torch.embedding_lookup.default] = \
+    lambda args, kwargs, out: lookup_bytes(*args[:2])
+_build.OP_BYTES[torch.ops.repro_torch.embedding_scatter_add.default] = \
+    lambda args, kwargs, out: scatter_add_bytes(*args[:3])
+
+
+def _vocab_range(table, placements) -> tuple[int, int]:
+    """``(first row, rows)`` of this rank's shard of a ``DTensor`` table
+    laid out as ``placements``."""
+    shape, offset = _build.local_extent(table.shape, table.device_mesh,
+                                        placements)
+    return offset[0], shape[0]
+
+
+def _in_range(ids: torch.Tensor, lo: int, rows: int):
+    """``(local ids, mask)``: ids shifted into a shard of ``rows`` rows
+    from ``lo``, those outside it set to 0 and masked."""
+    rel = ids - lo
+    ok = (rel >= 0) & (rel < rows)
+    return torch.where(ok, rel, 0).to(torch.int32), ok
+
+
+def _lookup_sharded(table, ids):
+    """The gather's sharding rule, a mesh dim at a time (a dim of size 1
+    keeps its placements): a vocab-split table (``Shard(0)``) takes the
+    ids replicated and gives a ``Partial`` output, each shard gathering
+    the rows in its range; a column-split one (``Shard(1)``) the ids
+    replicated and a column-split output; a replicated table the ids'
+    split (tokens) or replication. Anything else (a strided split, a
+    ``Partial`` table) is replicated first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = _build.mesh_of(table, ids)
+    pt = list(_build.placements_of(table, mesh))
+    pi = list(_build.placements_of(ids, mesh))
+    out = []
+    vocab = False
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            out.append(Replicate())
+            continue
+        d = _build.shard_dim(pt[i])
+        if d == 0:
+            pi[i], vocab = Replicate(), True
+            out.append(Partial())
+        elif d == 1:
+            pi[i] = Replicate()
+            out.append(Shard(1))
+        else:
+            pt[i] = Replicate()
+            di = _build.shard_dim(pi[i])
+            pi[i] = Shard(0) if di == 0 else Replicate()
+            out.append(pi[i])
+    lo, rows = _vocab_range(table, pt) if vocab else (0, table.shape[0])
+
+    def fn(table_, ids_):
+        if not vocab:
+            return torch.ops.repro_torch.embedding_lookup(table_, ids_)
+        local, ok = _in_range(ids_, lo, rows)
+        got = torch.ops.repro_torch.embedding_lookup(table_, local)
+        return torch.where(ok[:, None], got, 0)
+
+    return _build.local_map(fn, (table, ids), [tuple(pt), tuple(pi)],
+                            tuple(out), (ids.shape[0], table.shape[1]),
+                            mesh)
+
+
+def scatter_add_placements(mesh, ids, updates) -> tuple:
+    """The placements of a zeros table ``_scatter_add_sharded`` adds
+    ``updates`` into without moving them: ``Partial`` where the tokens
+    are split, ``Shard(1)`` where the columns are, else replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pu = _build.placements_of(updates, mesh)
+    out = []
+    for i, n in enumerate(mesh.shape):
+        d = _build.shard_dim(pu[i])
+        out.append(Replicate() if n == 1 else Partial() if d == 0
+                   else Shard(1) if d == 1 else Replicate())
+    return tuple(out)
+
+
+def _scatter_add_sharded(table, ids, updates) -> None:
+    """The scatter-add's sharding rule, a mesh dim at a time, IN PLACE
+    on the ``DTensor`` table's shards (a dim of size 1 keeps its
+    placements): a ``Partial`` table takes the ids and updates split on
+    tokens (each shard adds its own); a column-split table the ids
+    replicated and the updates split on columns; a vocab-split one both
+    replicated, each shard adding the rows in its range (the rest
+    masked to zero rows at its row 0); a replicated one both
+    replicated. Any other table placement raises ``ValueError``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor):
+        raise ValueError("a scatter-add of DTensor updates needs a DTensor "
+                         "table (its placements say how the sums combine)")
+    mesh = table.device_mesh
+    pt = table.placements
+    pi = list(_build.placements_of(ids, mesh))
+    pu = list(_build.placements_of(updates, mesh))
+    vocab = False
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            continue
+        d = _build.shard_dim(pt[i])
+        if isinstance(pt[i], Partial):
+            pi[i], pu[i] = Shard(0), Shard(0)
+        elif d == 1:
+            pi[i], pu[i] = Replicate(), Shard(1)
+        elif d == 0:
+            pi[i], pu[i], vocab = Replicate(), Replicate(), True
+        elif isinstance(pt[i], Replicate):
+            pi[i], pu[i] = Replicate(), Replicate()
+        else:
+            raise ValueError(f"embedding_scatter_add cannot take a table "
+                             f"placed {pt[i]} on mesh dim {i}")
+    lo, rows = _vocab_range(table, pt) if vocab else (0, table.shape[0])
+
+    def fn(table_, ids_, updates_):
+        if vocab:
+            ids_, ok = _in_range(ids_, lo, rows)
+            updates_ = torch.where(ok[:, None], updates_, 0)
+        torch.ops.repro_torch.embedding_scatter_add(
+            table_, ids_, updates_.to(table_.dtype))
+
+    _build.local_map(fn, (table, ids, updates),
+                     [tuple(pt), tuple(pi), tuple(pu)], None, None, mesh)

@@ -12,6 +12,14 @@ The wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
 raise — there is no fallback). ``flash_attention.launches`` counts its
 kernel launches.
+
+It is also the custom op ``repro_torch::flash_attention`` (fake: an
+empty tensor like q; FLOPs: ``4 D`` a (query, key) pair the causal mask
+keeps, QKᵀ and PV; bytes: q, k, v read and the output written once),
+which the wrapper calls under a dispatch mode or on fake tensors, and
+whose sharding rule (``_sharded``) runs it on ``DTensor`` shards split
+by batch or by heads (q's and k/v's heads together, so each shard keeps
+the H:G ratio the kernel maps heads by), else replicated.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -88,6 +97,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)}: need (B, G, T >= 1, D), H % G "
                          f"== 0")
+    if _build.direct(q, k, v):
+        return _run(q, k, v, causal)
+    if _build.dtensor_args(q, k, v):
+        return _sharded(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         causal: bool) -> torch.Tensor:
+    """The checked call on plain tensors: the plain version on the CPU,
+    the kernel on the card."""
+    b, h, s, d = q.shape
+    g, t = k.shape[1], k.shape[2]
     if _build.on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
     if d not in HEAD_DIMS:
@@ -122,3 +144,86 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool) -> torch.Tensor:
+    out = _run(q, k, v, causal)
+    if out.stride() != q.stride():      # the fake's layout: q's strides
+        out = torch.empty_like(q).copy_(out)
+    return out
+
+
+@_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def kept_pairs(s: int, t: int, causal: bool) -> int:
+    """(query, key) pairs the kernel computes: every one, or with the
+    causal mask (key index <= query index) ``sum_i min(i + 1, t)``."""
+    if not causal:
+        return s * t
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def flops(q_shape, k_shape, causal: bool) -> int:
+    """QKᵀ and PV: ``2 D`` each a kept pair a head."""
+    b, h, s, d = q_shape
+    return 4 * b * h * d * kept_pairs(s, k_shape[2], causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flop_formula(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+                  **kwargs) -> int:
+    return flops(q_shape, k_shape, causal)
+
+
+_build.OP_BYTES[torch.ops.repro_torch.flash_attention.default] = \
+    lambda args, kwargs, out: _build.nbytes(*args[:3], out)
+
+
+def _sharded(q, k, v, causal: bool):
+    """The op on ``DTensor``s through ``shard_plan``."""
+    ins, out, mesh = shard_plan(q, k, v)
+    return _build.local_map(
+        lambda q_, k_, v_: torch.ops.repro_torch.flash_attention(
+            q_, k_, v_, causal),
+        (q, k, v), ins, out, q.shape, mesh)
+
+
+def shard_plan(q, k, v):
+    """The sharding rule, ``(placements of q, k, v; of the output;
+    mesh)``: a mesh dim of size 1 keeps every placement;
+    else q, k, v and the output are split on batch where any of them is
+    (or, if none is split there, where something must move and the
+    batch left divides), on heads where the heads left and the groups
+    left both divide, else replicated. A query sequence or a head dim
+    split (the reference's context-parallel and head_dim layouts) is
+    redistributed to one of these: the kernel masks by index, so a
+    query shard could not know its offset."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _build.mesh_of(q, k, v)
+    pls = [_build.placements_of(x, mesh) for x in (q, k, v)]
+    b, h, g = q.shape[0], q.shape[1], k.shape[1]
+    ins = [list(p) for p in pls]
+    out = []
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            out.append(Replicate())
+            continue
+        dims = {_build.shard_dim(p[i]) for p in pls}
+        moved = any(not isinstance(p[i], Replicate) for p in pls)
+        heads = h % n == 0 and g % n == 0
+        if 0 in dims or (moved and b % n == 0):
+            pick, b = Shard(0), -(-b // n)
+        elif moved and heads:
+            pick, h, g = Shard(1), h // n, g // n
+        else:
+            pick = Replicate()
+        for p in ins:
+            p[i] = pick
+        out.append(pick)
+    return [tuple(p) for p in ins], tuple(out), mesh

@@ -54,6 +54,14 @@ in its einsums; a ``decode_attention`` that reads int8 itself is later
 device work.
 The function boundaries keep the reference's layouts: x (B, S, D), q
 (B, S, H, hd), cache (B, S_cache, Kv, hd).
+
+With ``cfg.context_parallel_attn`` and a mesh in scope
+(``common.mesh_scope``), ``_context_parallel_constraint`` lays q out
+sequence-split on ``model`` and k, v replicated on it, as the
+reference's hint does, through ``sharding.logical_axis_constraint``
+(a ``DTensor`` redistribution; a plain tensor passes as it is). The
+flash kernel's sharding rule then moves q to a batch or head split:
+the kernel masks by index, so a query shard cannot take its offset.
 """
 
 from __future__ import annotations
@@ -63,16 +71,58 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
-from repro_torch.models.common import rope
+from repro_torch.kernels import _build, ops
+from repro_torch.models.common import current_mesh, rope
 
 _NEG_INF = -1e30
+
+
+def _mergeable(w: torch.Tensor, first: int) -> torch.Tensor:
+    """``w`` ready to merge its dims from ``first`` on into one: a
+    ``DTensor`` split on a dim after ``first`` is gathered on it (the
+    merged dim could only be a strided split, which no matmul rule
+    takes) — where the reference shards head_dim on ``model`` because the
+    heads do not divide it. The QKV biases go through it too (``first``
+    0), so that a head_dim-split bias does not split the projection's
+    output, and with it the gradient its flattened matmul gets. A plain
+    tensor as it is."""
+    if not _build.dtensor_args(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    def keep(p) -> bool:
+        d = _build.shard_dim(p)
+        return p.is_replicate() or p.is_partial() or (d is not None
+                                                      and d <= first)
+
+    pl = [p if keep(p) else Replicate() for p in w.placements]
+    if tuple(pl) == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def _splittable(y: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``y`` ready to split its dim ``dim`` into (``outer``, rest): a
+    ``DTensor`` split on that dim over a mesh dim whose size does not
+    divide ``outer`` is gathered on it (the split would fall inside the
+    inner factor). A plain tensor as it is."""
+    if not _build.dtensor_args(y):
+        return y
+    from torch.distributed.tensor import Replicate
+    mesh = y.device_mesh
+    pl = [Replicate() if _build.shard_dim(p) == dim
+          and outer % mesh.size(i) else p
+          for i, p in enumerate(y.placements)]
+    if tuple(pl) == tuple(y.placements):
+        return y
+    return y.redistribute(mesh, pl)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) through w (D, heads, hd): (B, S, heads, hd)."""
     b, s, d = x.shape
-    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+    y = _splittable(x @ _mergeable(w, 1).reshape(d, -1), 2, w.shape[1])
+    return y.view(b, s, *w.shape[1:])
 
 
 def project_kv(p: dict, src: torch.Tensor):
@@ -81,8 +131,8 @@ def project_kv(p: dict, src: torch.Tensor):
     k = _project(src, p["wk"])
     v = _project(src, p["wv"])
     if "bk" in p:
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + _mergeable(p["bk"], 0)
+        v = v + _mergeable(p["bv"], 0)
     return k, v
 
 
@@ -93,14 +143,16 @@ def project_qkv(p: dict, x: torch.Tensor, *,
     hd); plus the QKV biases where the layer has them."""
     q = _project(x, p["wq"])
     if "bq" in p:
-        q = q + p["bq"]
+        q = q + _mergeable(p["bq"], 0)
     return (q, *project_kv(p, enc if enc is not None else x))
 
 
 def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) attention output -> (B, S, D)."""
     b, s = out.shape[:2]
-    return out.reshape(b, s, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    wo = _mergeable(p["wo"], 0)
+    out = _mergeable(out, 2).reshape(b, s, -1)
+    return out @ wo.reshape(-1, wo.shape[-1])
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -192,6 +244,51 @@ def _block_local_causal(q, k, v, q_positions, window: int):
     return out.reshape(b, s, g, m, e)
 
 
+def _context_parallel_constraint(q, k, v):
+    """Shard the query sequence over ``model``; keep K/V replicated
+    across it (sequence/context parallelism), where a mesh with a
+    ``model`` axis is in scope; else the identity."""
+    m = current_mesh()
+    if m is None or "model" not in m.axes:
+        return q, k, v
+    from repro_torch.models.sharding import P, logical_axis_constraint
+    U = P.UNCONSTRAINED
+    q = logical_axis_constraint(q, m, P(U, "model", None, None))
+    k = logical_axis_constraint(k, m, P(U, None, None, None))
+    v = logical_axis_constraint(v, m, P(U, None, None, None))
+    return q, k, v
+
+
+def _grouped(fn, q, k, v, positions):
+    """``fn(q, k, v, positions)`` of the windowed branches: on plain
+    tensors as it is; on ``DTensor``s on local shards (forward and
+    backward), each mesh dim splitting the batch (positions with it)
+    where q, k or v is split there or the batch divides, else the KV
+    groups (q's dim 2, k's and v's dim 2) where they divide, else
+    replicated — the einsums' (b, g) batch dims stay whole in a shard."""
+    if not _build.dtensor_args(q, k, v):
+        return fn(q, k, v, positions)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _build.mesh_of(q, k, v)
+    pls = [_build.placements_of(x, mesh) for x in (q, k, v)]
+    b, g = q.shape[0], q.shape[2]
+    ins = [[], [], [], []]
+    for i, n in enumerate(mesh.shape):
+        moved = any(not isinstance(p[i], Replicate) for p in pls)
+        if n > 1 and (any(_build.shard_dim(p[i]) == 0 for p in pls)
+                      or (moved and b % n == 0)):
+            picks, b = (Shard(0),) * 4, -(-b // n)
+        elif n > 1 and moved and g % n == 0:
+            picks, g = (Shard(2),) * 3 + (Replicate(),), g // n
+        else:
+            picks = (Replicate(),) * 4
+        for lst, pick in zip(ins, picks):
+            lst.append(pick)
+    ins = [tuple(x) for x in ins]
+    return _build.local_map(fn, (q, k, v, positions), ins, ins[0], q.shape,
+                            mesh)
+
+
 def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                    cfg: ModelConfig, causal: bool = True, window: int = 0,
                    chunk: int = 1024) -> torch.Tensor:
@@ -224,15 +321,20 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     q, k, v = project_qkv(p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if cfg.context_parallel_attn:
+        q, k, v = _context_parallel_constraint(q, k, v)
     if blocked or masked:
         g, hd = cfg.num_kv_heads, cfg.head_dim
         q = (q * (hd ** -0.5)).reshape(b, s, g, cfg.num_heads // g, hd)
         if blocked:
-            out = _block_local_causal(q, k, v, positions, window)
+            out = _grouped(lambda q_, k_, v_, p_: _block_local_causal(
+                q_, k_, v_, p_, window), q, k, v, positions)
         else:
-            qp, kp = positions[:, None, None, :, None], \
-                positions[:, None, None, None, :]
-            out = _full_attention(q, k, v, (qp >= kp) & (qp - kp < window))
+            def masked_attention(q_, k_, v_, p_):
+                qp, kp = p_[:, None, None, :, None], p_[:, None, None, None, :]
+                return _full_attention(q_, k_, v_,
+                                       (qp >= kp) & (qp - kp < window))
+            out = _grouped(masked_attention, q, k, v, positions)
         return _out_proj(p, out.reshape(b, s, cfg.num_heads, hd))
     return _flash(p, q, k, v, causal=causal)
 
@@ -242,8 +344,16 @@ def _flash(p: dict, q, k, v, *, causal: bool) -> torch.Tensor:
     kernel (``_FlashAttention``) and the output projection: (B, S, D)."""
     # the kernel's (B, H, S, hd) / (B, Kv, T, hd) as transposed views: it
     # takes strides, and writes its output in q's (B, S, H, hd) layout
-    out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _build.dtensor_args(q, k, v):
+        # forward and backward on the shards the kernel's rule picks
+        from repro_torch.kernels.flash_attention import shard_plan
+        ins, out_pl, mesh = shard_plan(q, k, v)
+        out = _build.local_map(
+            lambda q_, k_, v_: _FlashAttention.apply(q_, k_, v_, causal),
+            (q, k, v), ins, out_pl, q.shape, mesh)
+    else:
+        out = _FlashAttention.apply(q, k, v, causal)
     return _out_proj(p, out.transpose(1, 2))
 
 
@@ -274,10 +384,72 @@ def _quantize_row(x: torch.Tensor):
 
 def _dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 ``codes`` (..., hd) times ``scale`` (..., 1) through the
-    ``dequantize_rows`` kernel, one row an hd: float32 of codes' shape."""
+    ``dequantize_rows`` kernel, one row an hd: float32 of codes' shape.
+    On ``DTensor``s each shard reads its own rows (a split head dim is
+    gathered first): the rows are independent."""
+    if _build.dtensor_args(codes, scale):
+        from torch.distributed.tensor import Replicate
+        mesh = _build.mesh_of(codes, scale)
+        pc = tuple(p if p.is_replicate() or _build.shard_dim(p) in range(
+            codes.dim() - 1) else Replicate()
+            for p in _build.placements_of(codes, mesh))
+        return _build.local_map(_dequantize, (codes, scale), [pc, pc], pc,
+                                codes.shape, mesh)
     hd = codes.shape[-1]
     return ops.dequantize_rows(codes.reshape(-1, hd),
                                scale.reshape(-1, 1)).view(codes.shape)
+
+
+def _write_rows(buf: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+                rows: torch.Tensor) -> None:
+    """``buf[bidx, slot] = rows`` IN PLACE: each sequence b's new row of a
+    (B, S, ...) cache buffer, ``bidx`` = ``arange(B)``. On a ``DTensor``
+    buffer each shard writes the rows in its (batch, sequence) range
+    (``_write_rows_sharded``; ``bidx`` unused)."""
+    if not _build.dtensor_args(buf):
+        buf[bidx, slot] = rows
+        return
+    _write_rows_sharded(buf, slot, rows)
+
+
+def _write_rows_sharded(buf, slot, rows) -> None:
+    """The cache write on a ``DTensor`` buffer split on batch and sequence
+    (and heads or head dim): ``slot`` and ``rows`` follow the buffer's
+    batch split (``rows`` its other splits too) and are replicated over
+    the sequence split; each shard rewrites its (b, slot - offset) row
+    with the new row where the slot falls in its range and with its own
+    row elsewhere (a data-independent write)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    pb = buf.placements
+    ps, pr = [], []
+    for p in pb:
+        d = _build.shard_dim(p)
+        if d == 0:
+            ps.append(Shard(0))
+            pr.append(Shard(0))
+        elif d is not None and d >= 2:
+            ps.append(Replicate())
+            pr.append(Shard(d - 1))
+        elif d == 1 or p.is_replicate():
+            ps.append(Replicate())
+            pr.append(Replicate())
+        else:
+            raise ValueError(f"a cache write cannot take a buffer placed "
+                             f"{p}")
+    size, offset = _build.local_extent(buf.shape, mesh, pb)
+
+    def fn(buf_, slot_, rows_):
+        rel = slot_ - offset[1]
+        ok = (rel >= 0) & (rel < size[1])
+        rel = torch.where(ok, rel, 0)
+        bidx = torch.arange(buf_.shape[0], device=buf_.device)
+        keep = ok.view(-1, *([1] * (rows_.dim() - 1)))
+        buf_[bidx, rel] = torch.where(keep, rows_.to(buf_.dtype),
+                                      buf_[bidx, rel])
+
+    _build.local_map(fn, (buf, slot, rows), [tuple(pb), tuple(ps),
+                                              tuple(pr)], None, None, mesh)
 
 
 def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
@@ -314,13 +486,15 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
         slot = slot % window
     if "k_scale" in cache:
         k_scale, v_scale = cache["k_scale"], cache["v_scale"]
-        cache_k[bidx, slot], k_scale[bidx, slot] = _quantize_row(k[:, 0])
-        cache_v[bidx, slot], v_scale[bidx, slot] = _quantize_row(v[:, 0])
+        for buf, scale, new in ((cache_k, k_scale, k), (cache_v, v_scale, v)):
+            codes, sc = _quantize_row(new[:, 0])
+            _write_rows(buf, bidx, slot, codes)
+            _write_rows(scale, bidx, slot, sc)
         keys = _dequantize(cache_k, k_scale.to(q.dtype)).to(q.dtype)
         cache_k, cache_v = keys.float(), _dequantize(cache_v, v_scale)
     else:
-        cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+        _write_rows(cache_k, bidx, slot, k[:, 0].to(cache_k.dtype))
+        _write_rows(cache_v, bidx, slot, v[:, 0].to(cache_v.dtype))
     lengths = torch.clamp(pos + 1, max=window) if window else pos + 1
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
     return _out_proj(p, out[:, None].to(x.dtype)), cache
@@ -336,7 +510,7 @@ def decode_cross_attention(p: dict, x: torch.Tensor, xk: torch.Tensor,
     b, t = xk.shape[:2]
     q = _project(x, p["wq"])
     if "bq" in p:
-        q = q + p["bq"]
+        q = q + _mergeable(p["bq"], 0)
     lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q[:, 0], xk, xv, lengths)
     return _out_proj(p, out[:, None].to(x.dtype))

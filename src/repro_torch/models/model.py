@@ -54,7 +54,8 @@ from repro_torch.core.ps import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
-from repro_torch.models.common import dense_init, embed_tokens, rms_norm
+from repro_torch.models.common import (constrain_batch, dense_init,
+                                      embed_tokens, fsdp_gather, rms_norm)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -217,6 +218,7 @@ def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
     """One layer with its residuals: ``(x, aux_loss, expert_counts)`` as
     ``_apply_ffn`` gives them (None, None without an FFN). ``enc`` (B, T,
     D) is what a cross layer attends to."""
+    lp = fsdp_gather(lp)
     mx = lp["mixer"]
     h = rms_norm(x, mx["norm"])
     if spec.mixer == MAMBA:
@@ -230,6 +232,7 @@ def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
                                     window=window)
     if spec.ffn == NONE:
         return x, None, None
+    x = constrain_batch(x)
     dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
     return x + dx, aux, counts
 
@@ -257,6 +260,7 @@ def _run_segments(x: torch.Tensor, segments_params: list,
                 else:
                     x, aux, counts = _block(spec, per_pos[r], x, pos, enc,
                                             cfg)
+                x = constrain_batch(x)
                 if counts is not None:
                     aux_total = aux_total + aux
                     seg_counts.setdefault(f"pos{i}", []).append(counts)
@@ -269,7 +273,7 @@ def encode(params: dict, cfg: ModelConfig,
     """The encoder stack over stub frontend embeddings ``enc_input`` (B,
     T, D), cast to ``cfg.dtype``, at positions ``arange(T)``; returns the
     final-normed states (B, T, D)."""
-    x = enc_input.to(_dtype(cfg.dtype))
+    x = constrain_batch(enc_input.to(_dtype(cfg.dtype)))
     b, t = x.shape[:2]
     pos = torch.arange(t, device=x.device).expand(b, t)
     x, _, _ = _run_segments(x, params["encoder"]["segments"],
@@ -321,7 +325,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError("explicit positions: the flash kernel "
                                   "masks by index, so only arange(S) runs")
     b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
+    x = constrain_batch(embed_tokens(params["embed"], tokens).to(
+        _dtype(cfg.dtype)))
     enc = _context(params, cfg, enc_context, x.dtype)
     pos = torch.arange(s, device=x.device).expand(b, s)
     x, aux_total, per_layer = _run_segments(x, params["segments"],
@@ -345,9 +350,14 @@ def lm_head_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
 def head_logits(head: torch.Tensor, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
     """Vocab projection over the padded table; pad columns set to -1e30."""
-    logits = x @ head.T
+    logits = x @ fsdp_gather(head).T
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        if type(logits) is torch.Tensor:
+            logits[..., cfg.vocab_size:] = -1e30
+        else:           # a DTensor: no rule for the in-place fill
+            pad = torch.arange(cfg.padded_vocab,
+                               device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
     return logits
 
 
@@ -358,7 +368,7 @@ def head_logits(head: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype: torch.dtype = torch.bfloat16, *, device="cuda",
-               kv_quant: bool = False) -> dict:
+               kv_quant: bool = False, abstract: bool = False) -> dict:
     """Zeroed cache mirroring the segment structure: ``{"segments":
     [{"pos{i}": entry}]}``, an attention position's entry ``{"k", "v":
     (repeats, batch, seq_len, Kv, hd)}`` in ``dtype`` (a sliding-window
@@ -370,10 +380,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     ``kv_quant`` makes an attention position's ``k`` and ``v`` int8 and
     adds float32 ``k_scale`` and ``v_scale`` of shape ``(..., Kv, 1)``,
     one absmax scale a (token, head) row, as the reference's; cross and
-    Mamba entries stay as they are."""
-    dev = resolve_device(device)
+    Mamba entries stay as they are. ``abstract`` gives the same tree of
+    ``meta`` tensors (shapes and dtypes, no data; ``device`` unused), as
+    the reference's gives ``ShapeDtypeStruct``s."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
 
     def zeros(*shape, dt=dtype):
+        if abstract:
+            return torch.empty(shape, dtype=dt, device=dev)
         return torch.zeros(shape, dtype=dt, device=dev)
 
     def entry(spec: LayerSpec, r: int) -> dict:
@@ -428,6 +442,32 @@ def precompute_cross_cache(params: dict, cfg: ModelConfig, cache: dict,
     return cache
 
 
+def decode_layer(spec: LayerSpec, lp: dict, lc: dict, x: torch.Tensor,
+                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One layer of a decode step with its residuals: x (B, 1, D) through
+    the mixer against the layer's cache entry ``lc`` (updated IN PLACE)
+    and the FFN. Returns the new x."""
+    lp = fsdp_gather(lp)
+    mx = lp["mixer"]
+    h = rms_norm(x, mx["norm"])
+    if spec.mixer == MAMBA:
+        dx, conv, state = ssm.mamba_decode_step(mx, h, lc["conv"],
+                                                lc["state"], cfg)
+        lc["conv"].copy_(conv)
+        lc["state"].copy_(state)
+    elif spec.mixer == CROSS_ATTN:
+        dx = attn.decode_cross_attention(mx, h, lc["xk"], lc["xv"], cfg=cfg)
+    else:
+        window = min(cfg.window_size, lc["k"].shape[1]) \
+            if spec.mixer == LOCAL_ATTN else 0
+        dx, _ = attn.decode_self_attention(mx, h, pos, lc, cfg=cfg,
+                                           window=window)
+    x = constrain_batch(x + dx)
+    if spec.ffn != NONE:
+        x = constrain_batch(x + _apply_ffn(spec, lp["ffn"], x, cfg)[0])
+    return x
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """One decode step. tokens (B, 1) integer ids; pos (B,) positions of
@@ -449,31 +489,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     synchronisation — the step itself never reads back from the
     device. A cross layer attends its ``xk``, ``xv`` entry over every
     frame and leaves it as it is."""
-    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
+    x = constrain_batch(embed_tokens(params["embed"], tokens).to(
+        _dtype(cfg.dtype)))
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
                                           cache["segments"]):
         for r in range(seg.repeats):
             for i, spec in enumerate(seg.pattern):
-                lp = _layer(seg_params[f"pos{i}"], r)
-                mx, lc = lp["mixer"], _layer(seg_cache[f"pos{i}"], r)
-                h = rms_norm(x, mx["norm"])
-                if spec.mixer == MAMBA:
-                    dx, conv, state = ssm.mamba_decode_step(
-                        mx, h, lc["conv"], lc["state"], cfg)
-                    lc["conv"].copy_(conv)
-                    lc["state"].copy_(state)
-                elif spec.mixer == CROSS_ATTN:
-                    dx = attn.decode_cross_attention(mx, h, lc["xk"],
-                                                     lc["xv"], cfg=cfg)
-                else:
-                    window = min(cfg.window_size, lc["k"].shape[1]) \
-                        if spec.mixer == LOCAL_ATTN else 0
-                    dx, _ = attn.decode_self_attention(mx, h, pos, lc,
-                                                       cfg=cfg,
-                                                       window=window)
-                x = x + dx
-                if spec.ffn != NONE:
-                    x = x + _apply_ffn(spec, lp["ffn"], x, cfg)[0]
+                x = decode_layer(spec, _layer(seg_params[f"pos{i}"], r),
+                                 _layer(seg_cache[f"pos{i}"], r), x, pos,
+                                 cfg)
     x = rms_norm(x, params["final_norm"])
     logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
     return logits, cache

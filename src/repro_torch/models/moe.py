@@ -32,8 +32,11 @@ reference's group-local dispatch: capacity and slot ranks per group of
 T/G consecutive tokens. Here the groups' buffers sit side by side in one
 (E, G*C, D) buffer, ranked by a stable sort on the key ``g * E +
 expert``, so one gather, one batched product a weight and one combine
-serve all groups. The reference's ``_maybe_wsc`` sharding hints have no
-counterpart: one card has no mesh.
+serve all groups. The reference's ``_maybe_wsc`` sharding hints on the
+grouped buffers become ``_maybe_wsc`` on the port's layout, inert
+without a mesh in scope: the (E, G*C, D) buffers and expert outputs
+experts on ``model`` and group slots on ``data`` (the reference's (G,
+E, C, D) on ``(data, model)``), the combined (T, D) tokens on ``data``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import gather_rows
+from repro_torch.kernels import _build
+from repro_torch.models.common import current_mesh, gather_rows
+
+
+def _maybe_wsc(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Sharding constraint if a mesh is in scope (the dry-run sets one),
+    through ``sharding.logical_axis_constraint``; the identity
+    otherwise. Axes the mesh lacks are dropped, as in the reference."""
+    m = current_mesh()
+    if m is None:
+        return x
+    from repro_torch.models.sharding import P, logical_axis_constraint
+    spec = P(*[a if (a is None or a in m.axes) else None for a in axes])
+    return logical_axis_constraint(x, m, spec)
 
 
 def moe_capacity(num_tokens: int, cfg: ModelConfig) -> int:
@@ -53,12 +69,28 @@ def moe_capacity(num_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8
 
 
+def _topk(probs: torch.Tensor, k: int):
+    """``torch.topk(probs, k, dim=-1)``; on a ``DTensor`` on each shard's
+    rows (the experts gathered first): DTensor's cached rule for
+    ``topk`` does not key on ``k``, so two models' routings would share
+    an output shape."""
+    if not _build.dtensor_args(probs):
+        return torch.topk(probs, k, dim=-1)
+    from torch.distributed.tensor import Replicate
+    mesh = probs.device_mesh
+    pl = tuple(p if _build.shard_dim(p) == 0 else Replicate()
+               for p in probs.placements)
+    shape = (probs.shape[0], k)
+    return _build.local_map(lambda p_: torch.topk(p_, k, dim=-1), (probs,),
+                            [pl], [pl, pl], [shape, shape], mesh)
+
+
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     """x (T, D) -> (expert_idx (T, k) int64, combine gates (T, k) float32,
     aux_loss scalar float32)."""
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)  # (T, k)
+    gate, idx = _topk(probs, cfg.experts_per_token)              # (T, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance aux loss
     me = probs.mean(dim=0)                                       # (E,)
@@ -105,6 +137,11 @@ def _dispatch(xt: torch.Tensor, idx: torch.Tensor, cap: int,
     e, k = cfg.num_experts, cfg.experts_per_token
     tk, dev = t * k, xt.device
     flat_e = idx.reshape(-1)
+    if _build.dtensor_args(flat_e):
+        # the slot arithmetic on the whole routing, replicated (a sort and
+        # a search over every assignment; DTensor has no rule for
+        # ``searchsorted``)
+        flat_e = flat_e.full_tensor()
     grp = torch.arange(tk, device=dev) // (tk // groups)
     key = grp * e + flat_e                      # (group, expert)
     order, sorted_key, starts = _expert_order(key, groups * e)
@@ -120,6 +157,10 @@ def _dispatch(xt: torch.Tensor, idx: torch.Tensor, cap: int,
                       order[(first + c).clamp_max(tk - 1)] // k, t)
     xt0 = torch.cat([xt, xt.new_zeros((1, d))])             # row t: zeros
     buf = gather_rows(xt0, src.reshape(-1)).view(e, groups * cap, d)
+    # on a mesh, experts on ``model``: a real redistribution, so the
+    # gradient comes back replicated before the view's backward (a split
+    # (E, C') flattened would give a strided split no rule takes)
+    buf = _maybe_wsc(buf, "model", None, None)
     counts = n_key.clamp_max(cap).view(groups, e).sum(0).to(torch.int32)
     return buf, rows, keep, counts
 
@@ -130,6 +171,9 @@ def _combine(out_buf: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
     (0 when dropped), a token's k rows added onto zeros in order j = 0 …
     k-1, as the reference's scatter-add runs them."""
     d = out_buf.shape[-1]
+    # a DTensor buffer replicated first: flattening a split (E, C') would
+    # give a strided split no rule takes
+    out_buf = _maybe_wsc(out_buf, None, None, None)
     picked = gather_rows(out_buf.reshape(-1, d), rows)         # (T*k, D)
     picked = picked * (gate.reshape(-1, 1)
                        * keep[:, None]).to(picked.dtype)
@@ -155,7 +199,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     groups = g if g > 1 and t % g == 0 else 1
     cap = moe_capacity(t // groups, cfg)
     buf, rows, keep, counts = _dispatch(xt, idx, cap, cfg, groups)
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    if groups > 1:
+        buf = _maybe_wsc(buf, "model", "data", None)
+    h_gate, h_up = torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"])
+    if groups > 1:
+        h_gate = _maybe_wsc(h_gate, "model", "data", None)
+        h_up = _maybe_wsc(h_up, "model", "data", None)
+    h = F.silu(h_gate) * h_up
     out_buf = torch.bmm(h, p["w_down"])
+    if groups > 1:
+        out_buf = _maybe_wsc(out_buf, "model", "data", None)
     out = _combine(out_buf, rows, keep, gate, t)
+    if groups > 1:
+        out = _maybe_wsc(out, "data", None)
     return out.reshape(b, s, d), aux, counts

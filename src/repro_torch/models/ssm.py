@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _build
 from repro_torch.models.common import rms_norm
 
 
@@ -136,6 +137,43 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     return y[:, :s_orig].to(x.dtype), carry
 
 
+def _ssd_sharded(x, dt, A, B, C, chunk: int, initial_state=None):
+    """``ssd_chunked`` on ``DTensor``s, forward and backward on local
+    shards: the scan is independent a (sequence, head), so each mesh dim
+    splits the batch (where x's batch is split, or where x must move and
+    the batch divides) or the heads (where x's heads are split or the
+    heads divide), else replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _build.mesh_of(x)
+    px = _build.placements_of(x, mesh)
+    b, h = x.shape[0], x.shape[2]
+    tensors = (x, dt, A, B, C, initial_state)
+    batch = (Shard(0), Shard(0), Replicate()) + (Shard(0),) * 5
+    heads = (Shard(2), Shard(2), Shard(0), Replicate(), Replicate(),
+             Shard(1), Shard(2), Shard(1))
+    picks = []
+    for i, n in enumerate(mesh.shape):
+        d = _build.shard_dim(px[i])
+        if n == 1:
+            pick = (Replicate(),) * 8
+        elif d == 0 or (d != 2 and b % n == 0):
+            pick, b = batch, -(-b // n)
+        elif h % n == 0:
+            pick, h = heads, h // n
+        else:
+            pick = (Replicate(),) * 8
+        picks.append(pick)
+    pl = [tuple(p[j] for p in picks) for j in range(8)]
+    ins = [pl[j] if isinstance(t, torch.Tensor) else None
+           for j, t in enumerate(tensors)]
+    # x, dt, A, B, C in order; ssd_chunked's ``chunk`` rides in the closure
+    return _build.local_map(
+        lambda x_, dt_, a_, b_, c_, s_: ssd_chunked(
+            x_, dt_, a_, b_, c_, chunk, initial_state=s_),
+        tensors, ins, [pl[6], pl[7]],
+        [x.shape, (x.shape[0], x.shape[2], x.shape[3], B.shape[-1])], mesh)
+
+
 def ssd_decode_step(state, x, dt, A, B, C):
     """Single-token recurrence. state (b,h,p,n); x (b,h,p); dt (b,h);
     A (h,); B, C (b,n). Returns (y (b,h,p) in x's dtype, new_state)."""
@@ -143,7 +181,12 @@ def ssd_decode_step(state, x, dt, A, B, C):
     upd = (x * dt[..., None]).float()[..., None] \
         * B.float()[:, None, None, :]                        # (b,h,p,n)
     new_state = state * decay[:, :, None, None] + upd
-    y = (new_state @ C.float()[:, None, :, None])[..., 0]
+    if _build.dtensor_args(new_state):
+        # the product without folding (b, h) into one batch dim: DTensor
+        # cannot fold a head split under a batch split into a bmm
+        y = (new_state * C.float()[:, None, None, :]).sum(-1)
+    else:
+        y = (new_state @ C.float()[:, None, :, None])[..., 0]
     return y.to(x.dtype), new_state
 
 
@@ -181,8 +224,12 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dt = _softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(b, s, nh, hp)
-    y, final_state = ssd_chunked(xh, dt, A, Bv, Cv, cfg.ssm_chunk,
-                                 initial_state=initial_state)
+    if _build.dtensor_args(xh):
+        y, final_state = _ssd_sharded(xh, dt, A, Bv, Cv, cfg.ssm_chunk,
+                                      initial_state)
+    else:
+        y, final_state = ssd_chunked(xh, dt, A, Bv, Cv, cfg.ssm_chunk,
+                                     initial_state=initial_state)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     out = _gate_out(p, y.reshape(b, s, di), z)
     if return_state:

@@ -336,6 +336,9 @@ class Adafactor(Optimizer):
             param.copy_(param.float()
                         - (g * v.clamp_min(self.eps).rsqrt()).mul_(self.lr))
             return
+        if type(param) is not torch.Tensor:
+            self._update_whole(param, slots["vr"], slots["vc"], grad, beta)
+            return
         a, b = param.shape[-2:]
         # views: the chunks' in-place writes land in the leaf and its slots
         p3, g3 = param.view(-1, a, b), grad.reshape(-1, a, b)
@@ -344,6 +347,19 @@ class Adafactor(Optimizer):
         for i in range(0, p3.shape[0], step_n):
             j = slice(i, i + step_n)
             self._update_slices(p3[j], vr[j], vc[j], g3[j], beta)
+
+    def _update_whole(self, param, vr, vc, grad, beta: float) -> None:
+        """The same update on a ``DTensor`` leaf, whole and out of place
+        (merging a split leading axis into the chunks' axis would give a
+        strided split, and DTensor has no rule for every in-place op),
+        each result copied into the leaf and its slots."""
+        sq = grad.float() * grad.float() + self.eps
+        vr.copy_(vr * beta + sq.mean(dim=-1) * (1 - beta))
+        vc.copy_(vc * beta + sq.mean(dim=-2) * (1 - beta))
+        rfac = vr / vr.mean(dim=-1, keepdim=True).clamp_min(self.eps)
+        v = rfac[..., None] * vc[..., None, :]
+        upd = v.clamp_min(self.eps).rsqrt() * grad * self.lr
+        param.copy_(param - upd)
 
     def _update_slices(self, param, vr, vc, grad, beta: float) -> None:
         """The factored update of (n, a, b) slices in one float32 buffer."""

@@ -67,7 +67,14 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
     s = hidden.shape[1]
     chunk = cfg.loss_chunk
     pad = (-s) % chunk
-    if pad:
+    if pad and type(hidden) is not torch.Tensor:
+        # DTensors: the same padding as a concatenation (DTensor's
+        # redistribution planner fails on ``F.pad`` in some torch versions)
+        b, _, d = hidden.shape
+        hidden = torch.cat([hidden, hidden.new_zeros((b, pad, d))], dim=1)
+        targets = torch.cat([targets, targets.new_full((b, pad), -1)],
+                            dim=1)
+    elif pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad), value=-1)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -123,7 +130,18 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict,
         loss, metrics = loss_fn(params, cfg, batch, aux_weight)
         grads = torch.autograd.grad(loss, leaves)
     metrics = tree.map_like(torch.Tensor.detach, metrics)
-    return loss.detach(), metrics, tree.unflatten_like(params, list(grads))
+    grads = [g if type(g) is torch.Tensor else _as_param(g, p)
+             for g, p in zip(grads, leaves)]
+    return loss.detach(), metrics, tree.unflatten_like(params, grads)
+
+
+def _as_param(grad, param):
+    """A ``DTensor`` gradient laid out as its param (DTensor's
+    reduce-scatter or all-reduce of a partial sum), as the optimizer's
+    elementwise update needs it."""
+    if tuple(grad.placements) == tuple(param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,

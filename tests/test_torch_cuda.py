@@ -1623,3 +1623,22 @@ def test_sliced_adafactor_on_card_matches_cpu(cuda, shape):
     print(f"{shape}: transient {peaks[0]} bytes chunked, {peaks[1]} whole; "
           f"a float32 copy of the leaf is {4 * p0.numel()}")
     assert peaks[0] <= peaks[1] - 2 * 4 * p0.numel()
+
+
+@pytest.mark.cuda
+def test_dryrun_local_pass_real_counts_equal_fake_on_card(cuda):
+    """The dry-run's route on real tensors: qwen2-1.5b at full width, a
+    2 x 256 bf16 prefill counted on real ``DTensor``s on
+    ``make_local_mesh(1, 1)`` (the kernels behind their custom ops)
+    equals its count on fake ones, op for op; every layer launches the
+    flash kernel once."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    _build.build()
+    cfg = get_config("qwen2-1.5b")
+    port_ops.reset_launches()
+    r = dryrun.local_pass(cfg, InputShape("x", 256, 2, "prefill"))
+    assert r["real"] == r["fake"]
+    assert r["real_mode"].op_counts == r["fake_mode"].op_counts
+    assert port_ops.launch_counts()["flash_attention"] == cfg.num_layers

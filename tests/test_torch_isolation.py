@@ -50,6 +50,9 @@ SLICE_MODULES = {
     "repro_torch.configs.gemma3_4b",
     "repro_torch.configs.whisper_medium",
     "repro_torch.configs.llama_3_2_vision_90b",
+    "repro_torch.configs.shapes", "repro_torch.models.sharding",
+    "repro_torch.launch.dryrun", "repro_torch.launch.cost_model",
+    "repro_torch.launch.hlo_analysis",
 }
 
 
