@@ -36,6 +36,14 @@ dtype — the reference's two branches. With ``init_cache(kv_quant=True)``
 the global and sliding-window positions cache int8 K/V rows with a
 float32 scale each (``attention.decode_self_attention`` quantizes and
 reads them).
+
+Each layer's mixer (its norm included) and the head run inside spans of
+``obs.trace``: ``layer.mixer`` (``kind`` attention, cross_attention or
+ssm; under remat the recompute's too) and ``model.head``, with device
+intervals in ``forward`` and host-only in a decode step (two event
+records a span would cost a step more than its shares are worth; its
+spans say what the host was doing). They record only under a profiler
+or a tracer turned on.
 """
 
 from __future__ import annotations
@@ -56,8 +64,19 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.common import (constrain_batch, dense_init,
                                       embed_tokens, fsdp_gather, rms_norm)
+from repro_torch.obs import trace as obs_trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the ``kind`` of a ``layer.mixer`` span, by the layer's mixer
+_MIXER_KIND = {MAMBA: "ssm", CROSS_ATTN: "cross_attention"}
+
+
+def _mixer_span(spec: LayerSpec, device: bool):
+    """The span of a layer's mixer (its norm included); ``device``: with
+    its device interval."""
+    return obs_trace.get_tracer().span(
+        "layer.mixer", device=device,
+        kind=_MIXER_KIND.get(spec.mixer, "attention"))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -220,16 +239,17 @@ def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
     D) is what a cross layer attends to."""
     lp = fsdp_gather(lp)
     mx = lp["mixer"]
-    h = rms_norm(x, mx["norm"])
-    if spec.mixer == MAMBA:
-        x = x + ssm.mamba_block(mx, h, cfg)
-    elif spec.mixer == CROSS_ATTN:
-        x = x + attn.cross_attention(mx, h, enc, cfg=cfg)
-    else:
-        window = cfg.window_size if spec.mixer == LOCAL_ATTN else 0
-        x = x + attn.self_attention(mx, h, pos, cfg=cfg,
-                                    causal=spec.mixer != ENC_ATTN,
-                                    window=window)
+    with _mixer_span(spec, device=True):
+        h = rms_norm(x, mx["norm"])
+        if spec.mixer == MAMBA:
+            x = x + ssm.mamba_block(mx, h, cfg)
+        elif spec.mixer == CROSS_ATTN:
+            x = x + attn.cross_attention(mx, h, enc, cfg=cfg)
+        else:
+            window = cfg.window_size if spec.mixer == LOCAL_ATTN else 0
+            x = x + attn.self_attention(mx, h, pos, cfg=cfg,
+                                        causal=spec.mixer != ENC_ATTN,
+                                        window=window)
     if spec.ffn == NONE:
         return x, None, None
     x = constrain_batch(x)
@@ -340,7 +360,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         metrics["expert_counts_per_layer"] = per_layer
     if return_hidden:
         return x, metrics
-    return head_logits(lm_head_weights(params, cfg), cfg, x), metrics
+    with obs_trace.get_tracer().span("model.head", device=True):
+        return head_logits(lm_head_weights(params, cfg), cfg, x), metrics
 
 
 def lm_head_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -449,19 +470,21 @@ def decode_layer(spec: LayerSpec, lp: dict, lc: dict, x: torch.Tensor,
     and the FFN. Returns the new x."""
     lp = fsdp_gather(lp)
     mx = lp["mixer"]
-    h = rms_norm(x, mx["norm"])
-    if spec.mixer == MAMBA:
-        dx, conv, state = ssm.mamba_decode_step(mx, h, lc["conv"],
-                                                lc["state"], cfg)
-        lc["conv"].copy_(conv)
-        lc["state"].copy_(state)
-    elif spec.mixer == CROSS_ATTN:
-        dx = attn.decode_cross_attention(mx, h, lc["xk"], lc["xv"], cfg=cfg)
-    else:
-        window = min(cfg.window_size, lc["k"].shape[1]) \
-            if spec.mixer == LOCAL_ATTN else 0
-        dx, _ = attn.decode_self_attention(mx, h, pos, lc, cfg=cfg,
-                                           window=window)
+    with _mixer_span(spec, device=False):
+        h = rms_norm(x, mx["norm"])
+        if spec.mixer == MAMBA:
+            dx, conv, state = ssm.mamba_decode_step(mx, h, lc["conv"],
+                                                    lc["state"], cfg)
+            lc["conv"].copy_(conv)
+            lc["state"].copy_(state)
+        elif spec.mixer == CROSS_ATTN:
+            dx = attn.decode_cross_attention(mx, h, lc["xk"], lc["xv"],
+                                             cfg=cfg)
+        else:
+            window = min(cfg.window_size, lc["k"].shape[1]) \
+                if spec.mixer == LOCAL_ATTN else 0
+            dx, _ = attn.decode_self_attention(mx, h, pos, lc, cfg=cfg,
+                                               window=window)
     x = constrain_batch(x + dx)
     if spec.ffn != NONE:
         x = constrain_batch(x + _apply_ffn(spec, lp["ffn"], x, cfg)[0])
@@ -499,5 +522,6 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                                  _layer(seg_cache[f"pos{i}"], r), x, pos,
                                  cfg)
     x = rms_norm(x, params["final_norm"])
-    logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
+    with obs_trace.get_tracer().span("model.head"):
+        logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
     return logits, cache

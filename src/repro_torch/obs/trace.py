@@ -1,23 +1,44 @@
-"""Low-overhead span tracer for the streaming update path.
+"""Low-overhead span tracer of the port: the CTR paths (runtime, sync
+stream, serving cache, SLO harness) and the LM hot paths (train step,
+backward, optimizer, each layer's mixer, the head, prefill and decode).
 
 Design constraints, in order:
 
-* **~zero cost disabled.** The module-global tracer starts disabled;
-  hot paths guard with ``if tr.enabled:`` (one attribute read) or call
-  ``tr.begin(...)`` unconditionally and get back a shared no-op span.
-  `benchmarks/obs_overhead.py` gates both regimes.
-* **Low overhead enabled.** Spans land in a preallocated ring buffer of
-  plain tuples — no allocation beyond the tuple itself, no locks (each
-  OS process owns its tracer; the runtime merges exports), no I/O until
-  ``export()``.
-* **Cross-process causality.** Span/trace ids are salted with the pid
-  so merged dumps never collide, and the default clock is
-  ``time.perf_counter`` — CLOCK_MONOTONIC on Linux, which is
-  system-wide, so timestamps from different processes line up on one
-  Perfetto timeline. The Pusher stamps ``trace``/``span``/``t_push``
-  into ``Record.meta``, which crosses the FileQueue for free (records
-  are whole-pickled frames), letting the consumer reconstruct the
-  queue-dwell span and parent the apply under it.
+* **~zero cost when not recording.** The module-global tracer follows
+  ``torch.profiler``: it records while a profiler session records, and
+  always once ``configure()`` turns it on (``configure(enabled=False)``
+  keeps it off even under a profiler). Otherwise ``begin`` costs one
+  check of torch's own profiler flag and returns a shared no-op span;
+  hot paths may also guard with ``if tr.enabled:``. Any profile of the
+  program thus carries its spans, and nothing outside the program has
+  to switch them on.
+* **Low overhead enabled.** Spans land in a ring buffer of plain tuples,
+  allocated at the first span — no allocation beyond the tuple itself,
+  one short lock (the ring is shared by the process's threads), no I/O
+  until ``export()``.
+* **One clock with the device trace.** The default clock is
+  ``time.time``: the wall clock that ``torch.profiler`` stamps its host
+  events with, and onto which it puts CUPTI's device timestamps, so a
+  span lies beside the profiler's operations. The wall clock is
+  system-wide, as CLOCK_MONOTONIC is, so timestamps from different
+  processes line up on one Perfetto timeline (``obs.perfetto`` rebases
+  to the earliest span). Span/trace ids are salted with the pid so
+  merged dumps never collide. The Pusher stamps ``trace``/``span``/
+  ``t_push`` into ``Record.meta``, which crosses the FileQueue for free
+  (records are whole-pickled frames), letting the consumer reconstruct
+  the queue-dwell span and parent the apply under it.
+* **Nesting per thread.** Open spans nest per thread (autograd runs a
+  CUDA backward, and so the remat recompute, on its own device thread),
+  and each span records the native id of its thread.
+* **Device intervals.** A span begun with ``device=True`` while CUDA is
+  initialised records a pair of timing CUDA events, from a pool, on the
+  current stream. ``export()`` synchronises, reads them and puts them on
+  the tracer's clock through the anchor of their recording session
+  (sync, record an event, wait for it, read the clock: the try, of up
+  to 20, that took least since a reading before the record; at the
+  session's first device span) and the mark that ``export`` takes the
+  same way, between which it interpolates. On the CPU a device span has
+  no device interval.
 
 ``summarize`` renders exported spans as per-stage span counts and
 p50/p99 durations, plus the slowest trace printed as a causal tree;
@@ -28,13 +49,29 @@ trace.json [--slowest N]``.
 
 from __future__ import annotations
 
+import itertools
 import os
+import sys
+import threading
 import time
 from typing import Callable, Optional
 
 
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session is recording: the flag torch
+    keeps for fast checks (False where torch is not loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _on_card() -> bool:
+    """Whether CUDA is initialised in this process."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.cuda.is_initialized()
+
+
 class _NullSpan:
-    """Shared no-op returned by a disabled tracer's ``begin``/``span``."""
+    """Shared no-op returned by ``begin``/``span`` when not recording."""
 
     __slots__ = ()
     id = 0
@@ -52,7 +89,8 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "trace", "id", "parent", "t0", "attrs")
+    __slots__ = ("_tracer", "_stack", "name", "trace", "id", "parent", "t0",
+                 "attrs", "tid", "dev")
 
     def __enter__(self):
         return self
@@ -62,13 +100,103 @@ class _Span:
         return False
 
 
+class _DeviceSpan:
+    """A span's two timing events until ``export`` reads them, then its
+    device interval ``(t0, t1)`` on the tracer's clock."""
+
+    __slots__ = ("anchor", "start", "stop", "t0", "t1")
+
+    def __init__(self, anchor, start):
+        self.anchor, self.start, self.stop = anchor, start, None
+        self.t0 = self.t1 = None
+
+
+class _DeviceEvents:
+    """Timing CUDA events for device spans, and the anchors that put them
+    on the tracer's clock. Past ``limit`` stopped spans not yet read it
+    reads them (a sync), so a tracer left on holds a bounded number."""
+
+    def __init__(self, clock: Callable[[], float], limit: int):
+        import torch
+        self._cuda = torch.cuda
+        self.clock = clock
+        self.limit = limit
+        self._lock = threading.Lock()  # threads stop spans into _pending
+        self._pool: list = []
+        self._pending: list = []       # stopped, not yet read
+        self._anchor = None            # (event, clock) of the open session
+
+    def _event(self):
+        ev = self._pool.pop() if self._pool else \
+            self._cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _mark(self, tries: int = 20, tight: float = 50e-6) -> tuple:
+        """``(event, clock)``: sync; then record an event, wait for it and
+        read the clock, also reading it before the record, until the two
+        readings lie within ``tight`` seconds (at most ``tries`` times:
+        under a profiler a record can take a millisecond); the tightest
+        try, timed by its second reading."""
+        self._cuda.synchronize()
+        best = None
+        for _ in range(tries):
+            ev = self._cuda.Event(enable_timing=True)
+            t0 = self.clock()
+            ev.record()
+            ev.synchronize()
+            t1 = self.clock()
+            if best is None or t1 - t0 < best[2] - best[1]:
+                best = (ev, t0, t1)
+            if t1 - t0 <= tight:
+                break
+        return best[0], best[2]
+
+    def start(self) -> _DeviceSpan:
+        if self._anchor is None:
+            self._anchor = self._mark()
+        return _DeviceSpan(self._anchor, self._event())
+
+    def stop(self, ds: _DeviceSpan) -> None:
+        ds.stop = self._event()
+        with self._lock:
+            self._pending.append(ds)
+            full = len(self._pending) >= self.limit
+        if full:
+            self.resolve()
+
+    def resolve(self) -> None:
+        """Read every stopped span's events onto the clock, between its
+        session's anchor and a mark taken now; the next device span opens
+        a new session."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+            if not pending:
+                return
+            self._anchor = None
+        end_ev, end_t = self._mark()
+        scale: dict = {}
+        for ds in pending:
+            a_ev, a_t = ds.anchor
+            if id(ds.anchor) not in scale:
+                dev_s = a_ev.elapsed_time(end_ev) * 1e-3
+                scale[id(ds.anchor)] = (end_t - a_t) / dev_s \
+                    if dev_s > 0 else 1.0
+            k = scale[id(ds.anchor)] * 1e-3
+            ds.t0 = a_t + a_ev.elapsed_time(ds.start) * k
+            ds.t1 = a_t + a_ev.elapsed_time(ds.stop) * k
+            self._pool += (ds.start, ds.stop)
+            ds.anchor = ds.start = ds.stop = None
+
+
 class Tracer:
     """Ring-buffered span recorder. One per OS process.
 
-    Spans are stored as ``(name, trace, span, parent, t0, t1, attrs)``
-    tuples; ``t1 is None`` marks an instant annotation. ``export()``
-    returns dicts in ring order (oldest first) tagged with this
-    tracer's process name.
+    Spans are stored as ``(name, trace, span, parent, t0, t1, attrs, tid,
+    device)`` tuples; ``t1 is None`` marks an instant annotation.
+    ``export()`` returns dicts in ring order (oldest first) tagged with
+    this tracer's process name. ``enabled``: True records always, False
+    never, None while a ``torch.profiler`` session records.
     """
 
     def __init__(
@@ -77,34 +205,52 @@ class Tracer:
         capacity: int = 1 << 15,
         clock: Optional[Callable[[], float]] = None,
         process: str = "main",
-        enabled: bool = True,
+        enabled: Optional[bool] = True,
     ):
-        self.enabled = enabled
-        self.clock = clock or time.perf_counter
+        self._enabled = enabled
+        self.clock = clock or time.time
         self.process = process
         self.capacity = int(capacity)
-        self._buf: list = [None] * self.capacity
+        self._buf: Optional[list] = None  # allocated at the first span
         self._n = 0  # spans ever recorded (ring wraps past capacity)
-        self._ctx: list = []  # (trace, span) stack for implicit parenting
+        self._lock = threading.Lock()
+        self._local = threading.local()  # .state: see _thread
         self._open: dict = {}  # id -> _Span, begun but not yet ended
         # pid-salted id base: spans from different processes never
         # collide when their exports are merged supervisor-side
         self._base = (os.getpid() & 0xFFFF) << 32
-        self._next = 0
+        self._ids = itertools.count(1)
+        self._events: Optional[_DeviceEvents] = None
+
+    @property
+    def enabled(self) -> bool:
+        """Whether a span begun now is recorded."""
+        on = self._enabled
+        return _profiling() if on is None else on
 
     # -- ids ----------------------------------------------------------
 
     def _new_id(self) -> int:
-        self._next += 1
-        return self._base | self._next
+        return self._base | next(self._ids)
 
     def new_trace(self) -> int:
         """Fresh trace id for a new causal chain (one pusher flush)."""
         return self._new_id()
 
+    def _thread(self) -> tuple:
+        """This thread's stack of open (trace, span) and its native id,
+        read once a thread (a system call)."""
+        try:
+            return self._local.state
+        except AttributeError:
+            state = self._local.state = ([], threading.get_native_id())
+            return state
+
     def current(self) -> tuple:
-        """(trace, span) of the innermost open span, or (0, 0)."""
-        return self._ctx[-1] if self._ctx else (0, 0)
+        """(trace, span) of this thread's innermost open span, or
+        (0, 0)."""
+        stack = self._thread()[0]
+        return stack[-1] if stack else (0, 0)
 
     @property
     def dropped(self) -> int:
@@ -114,28 +260,34 @@ class Tracer:
     # -- recording ----------------------------------------------------
 
     def begin(self, name: str, *, trace: Optional[int] = None,
-              parent: Optional[int] = None, **attrs):
+              parent: Optional[int] = None, device: bool = False, **attrs):
         """Open a span; close it with ``end`` or use as a context
         manager (``span`` is an alias). Unspecified trace/parent come
-        from the innermost open span, so nesting is implicit."""
+        from this thread's innermost open span, so nesting is implicit.
+        ``device``: also time the device work the span enqueues on the
+        current stream (on a card)."""
         if not self.enabled:
             return _NULL_SPAN
+        stack, tid = self._thread()
         if trace is None:
-            trace, ctx_parent = self.current()
+            trace, ctx_parent = stack[-1] if stack else (0, 0)
             if parent is None:
                 parent = ctx_parent
         elif parent is None:
             parent = 0
         sp = _Span()
         sp._tracer = self
+        sp._stack = stack
         sp.name = name
         sp.trace = trace
         sp.parent = parent
         sp.id = self._new_id()
         sp.attrs = attrs or None
-        self._ctx.append((trace, sp.id))
+        sp.tid = tid
+        stack.append((trace, sp.id))
         self._open[sp.id] = sp
         sp.t0 = self.clock()
+        sp.dev = self._device().start() if device and _on_card() else None
         return sp
 
     span = begin
@@ -143,28 +295,33 @@ class Tracer:
     def end(self, sp) -> None:
         if sp is _NULL_SPAN:
             return
+        if sp.dev is not None:
+            self._events.stop(sp.dev)
         t1 = self.clock()
         self._open.pop(sp.id, None)
-        if self._ctx:
-            if self._ctx[-1][1] == sp.id:          # common case: LIFO
-                self._ctx.pop()
+        stack = sp._stack
+        if stack:
+            if stack[-1][1] == sp.id:              # common case: LIFO
+                stack.pop()
             else:                                  # out-of-order end
-                for i in range(len(self._ctx) - 1, -1, -1):
-                    if self._ctx[i][1] == sp.id:
-                        del self._ctx[i]
+                for i in range(len(stack) - 1, -1, -1):
+                    if stack[i][1] == sp.id:
+                        del stack[i]
                         break
-        self._put(sp.name, sp.trace, sp.id, sp.parent, sp.t0, t1, sp.attrs)
+        self._put(sp.name, sp.trace, sp.id, sp.parent, sp.t0, t1, sp.attrs,
+                  sp.tid, sp.dev)
 
     def record(self, name: str, *, t0: float, t1: float, trace: int = 0,
                parent: int = 0, **attrs) -> int:
         """Record a completed span with explicit timestamps — used for
         spans reconstructed after the fact, like queue dwell measured
         from a record's ``t_push`` stamp at the consumer. Returns the
-        new span id (0 when disabled)."""
+        new span id (0 when not recording)."""
         if not self.enabled:
             return 0
         sid = self._new_id()
-        self._put(name, trace, sid, parent, t0, t1, attrs or None)
+        self._put(name, trace, sid, parent, t0, t1, attrs or None,
+                  self._thread()[1], None)
         return sid
 
     def instant(self, name: str, *, trace: Optional[int] = None,
@@ -177,66 +334,84 @@ class Tracer:
             trace = ctx_trace
         sid = self._new_id()
         self._put(name, trace, sid, ctx_parent, self.clock(), None,
-                  attrs or None)
+                  attrs or None, self._thread()[1], None)
         return sid
 
-    def _put(self, name, trace, sid, parent, t0, t1, attrs) -> None:
-        self._buf[self._n % self.capacity] = (
-            name, trace, sid, parent, t0, t1, attrs)
-        self._n += 1
+    def _put(self, *entry) -> None:
+        with self._lock:
+            if self._buf is None:
+                self._buf = [None] * self.capacity
+            self._buf[self._n % self.capacity] = entry
+            self._n += 1
+
+    def _device(self) -> _DeviceEvents:
+        if self._events is None:
+            self._events = _DeviceEvents(self.clock, self.capacity)
+        return self._events
 
     # -- export -------------------------------------------------------
 
     def export(self) -> list:
-        """Span dicts, oldest first."""
-        n, cap = self._n, self.capacity
-        if n <= cap:
-            entries = self._buf[:n]
-        else:
-            k = n % cap
-            entries = self._buf[k:] + self._buf[:k]
+        """Span dicts, oldest first; a device span's interval on the
+        tracer's clock as ``device: (t0, t1)``."""
+        if self._events is not None:
+            self._events.resolve()
+        with self._lock:
+            n, cap, buf = self._n, self.capacity, self._buf or []
+            if n <= cap:
+                entries = buf[:n]
+            else:
+                k = n % cap
+                entries = buf[k:] + buf[:k]
         out = []
-        for name, trace, sid, parent, t0, t1, attrs in entries:
+        for name, trace, sid, parent, t0, t1, attrs, tid, dev in entries:
             d = {"name": name, "proc": self.process, "trace": trace,
-                 "span": sid, "parent": parent, "t0": t0, "t1": t1}
+                 "span": sid, "parent": parent, "t0": t0, "t1": t1,
+                 "tid": tid}
             if attrs:
                 d["args"] = dict(attrs)
+            if dev is not None and dev.t0 is not None:
+                d["device"] = (dev.t0, dev.t1)
             out.append(d)
         # still-open spans export too, clipped at "now" and flagged
         # partial — a SIGKILL mid-span (the pre-kill dump hook) must
         # not orphan children whose parent never reached the ring
         if self._open:
             t1 = self.clock()
-            for sp in sorted(self._open.values(), key=lambda s: s.t0):
+            for sp in sorted(list(self._open.values()), key=lambda s: s.t0):
                 d = {"name": sp.name, "proc": self.process,
                      "trace": sp.trace, "span": sp.id,
                      "parent": sp.parent, "t0": sp.t0, "t1": t1,
+                     "tid": sp.tid,
                      "args": dict(sp.attrs or (), partial=True)}
                 out.append(d)
         return out
 
     def clear(self) -> None:
-        self._buf = [None] * self.capacity
-        self._n = 0
-        self._ctx = []
+        with self._lock:
+            self._buf = None
+            self._n = 0
+        self._local = threading.local()
         self._open = {}
 
 
 # -- module-global tracer ---------------------------------------------
-# Disabled by default with a 1-slot ring so an untraced process pays
-# one tiny object. configure() swaps in a live tracer.
+# Follows torch.profiler; its ring is allocated at its first span, so an
+# untraced process pays one tiny object. configure() swaps in another.
 
-_tracer = Tracer(enabled=False, capacity=1)
+_tracer = Tracer(enabled=None)
 
 
 def get_tracer() -> Tracer:
     return _tracer
 
 
-def configure(*, enabled: bool = True, capacity: int = 1 << 15,
+def configure(*, enabled: Optional[bool] = True, capacity: int = 1 << 15,
               clock: Optional[Callable[[], float]] = None,
               process: str = "main") -> Tracer:
-    """Install (and return) a fresh process-global tracer."""
+    """Install (and return) a fresh process-global tracer: ``enabled``
+    True records always, False never (not even under a profiler), None
+    while a ``torch.profiler`` session records."""
     global _tracer
     _tracer = Tracer(capacity=capacity, clock=clock, process=process,
                      enabled=enabled)
@@ -244,8 +419,8 @@ def configure(*, enabled: bool = True, capacity: int = 1 << 15,
 
 
 def disable() -> Tracer:
-    """Back to the zero-cost disabled state."""
-    return configure(enabled=False, capacity=1)
+    """Back to the default: recording only under a profiler."""
+    return configure(enabled=None)
 
 
 # -- viewer / summarizer ----------------------------------------------

@@ -13,6 +13,13 @@ PyTorch runs eagerly, so the factories return plain functions (the
 reference jits them). The reference's serve step donates its cache
 (``donate_argnums=(1,)``); the port's writes the new K/V rows into the
 cache IN PLACE and returns it.
+
+A prefill step runs inside an ``obs.trace`` span with its device
+interval (``prefill.step``); a driver's decode step inside
+``decode.step``, split into ``decode.dispatch`` (entry to the argmax)
+and ``decode.readback`` (the tokens' copy to the host, which waits for
+the device). They record only under a profiler or a tracer turned on.
+``hot_swap`` assigns a dict and has no span.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ps import resolve_device
 from repro_torch.models import decode_step, forward, init_cache
+from repro_torch.obs import trace as obs_trace
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
@@ -41,8 +49,9 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
         """``batch["tokens"]`` (B, S) -> logits (B, S, V)."""
-        logits, _ = forward(params, cfg, batch["tokens"],
-                            enc_context=batch.get("enc_context"))
+        with obs_trace.get_tracer().span("prefill.step", device=True):
+            logits, _ = forward(params, cfg, batch["tokens"],
+                                enc_context=batch.get("enc_context"))
         return logits
 
     return prefill_step
@@ -80,11 +89,16 @@ class ServeDriver:
         self.params = new_params
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
-        logits, self.cache = self.step_fn(self.params, self.cache, tokens,
-                                          self.pos)
-        self.pos = self.pos + 1
-        nxt = logits.argmax(dim=-1).to(torch.int32)
-        self.generated.append(nxt.cpu().numpy())
+        tr = obs_trace.get_tracer()
+        with tr.span("decode.step"):
+            with tr.span("decode.dispatch"):
+                logits, self.cache = self.step_fn(self.params, self.cache,
+                                                  tokens, self.pos)
+                self.pos = self.pos + 1
+                nxt = logits.argmax(dim=-1).to(torch.int32)
+            with tr.span("decode.readback"):
+                out = nxt.cpu()
+            self.generated.append(out.numpy())
         return nxt[:, None]
 
     def generate(self, prompt_token: torch.Tensor, steps: int) -> np.ndarray:

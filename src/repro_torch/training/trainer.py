@@ -14,6 +14,11 @@ PyTorch runs eagerly, so the step is a plain function (the reference
 jits it), and the optimizer updates params and slots IN PLACE where the
 reference's jitted step donates its state: the ``TrainState`` passed in
 shares its tensors with the one returned.
+
+The step, its backward and its optimizer update run inside spans of
+``obs.trace`` with device intervals (``train.step``, ``train.backward``,
+``train.optimizer``), recorded only under a profiler or a tracer turned
+on.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.models import forward, head_logits, init_params
 from repro_torch.models import lm_head_weights
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import Optimizer, get_optimizer
 
 
@@ -128,7 +134,8 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict,
     leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(params, cfg, batch, aux_weight)
-        grads = torch.autograd.grad(loss, leaves)
+        with obs_trace.get_tracer().span("train.backward", device=True):
+            grads = torch.autograd.grad(loss, leaves)
     metrics = tree.map_like(torch.Tensor.detach, metrics)
     grads = [g if type(g) is torch.Tensor else _as_param(g, p)
              for g, p in zip(grads, leaves)]
@@ -154,10 +161,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     opt = optimizer or get_optimizer(cfg.optimizer)
 
     def train_step(state: TrainState, batch: dict):
-        _, metrics, grads = loss_and_grads(state.params, cfg, batch,
-                                           aux_weight)
-        params, slots = opt.update_tree(state.params, state.slots, grads,
-                                        state.step)
+        tr = obs_trace.get_tracer()
+        with tr.span("train.step", device=True):
+            _, metrics, grads = loss_and_grads(state.params, cfg, batch,
+                                               aux_weight)
+            with tr.span("train.optimizer", device=True):
+                params, slots = opt.update_tree(state.params, state.slots,
+                                                grads, state.step)
         return TrainState(params=params, slots=slots,
                           step=state.step + 1), metrics
 
