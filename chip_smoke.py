@@ -3139,12 +3139,14 @@ def prefill_phase(cfg, params, tokens, reps: int, device,
 def _recording(step_fn, records: list, caches: Optional[list] = None):
     """``step_fn`` that also keeps each step's params, tokens, positions
     and logits, so the plain path can replay the kernel path's steps;
-    with ``caches``, a copy of the cache before each step there too."""
+    with ``caches``, a copy of the cache before each step there too. The
+    tokens and positions are copied: the driver's buffers change in
+    place from step to step."""
     def step(params, cache, tokens, pos):
         if caches is not None:
             caches.append(_tree_map(lambda t: t.clone(), cache))
         logits, cache = step_fn(params, cache, tokens, pos)
-        records.append((params, tokens, pos, logits))
+        records.append((params, tokens.clone(), pos.clone(), logits))
         return logits, cache
     return step
 
