@@ -33,6 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``index_copy_``; never used by the port), and at D = 9 with a cold
    L2 too: 16 id batches in turn, whose rows touch more sectors than the
    50 MB L2 holds.
+   Then the dropless MoE layer's grouped expert products
+   (``torch._grouped_mm``) at the granite-4.0-h-small training cell's
+   shapes against a float32 loop (``grouped_expert_line``).
 2. The loop: FM_FTRL (32 fields, embed 8, groups w:1 + v:8 with FTRL
    slots (z, n), feature space 2^22) on 4 master shards, 2 slave shards
    x 2 replicas, 8 partitions, int8 codec, realtime gather. The ids are
@@ -682,7 +685,91 @@ def phase_kernels(dev, rng) -> list[dict]:
     gather_row(table, ids, f"{what} token ids ({LM_ARCH}'s token gather)")
     scatter_row(table, uniq, upd, f"{what} unique ids")
     del table, ids, uniq, upd
+    grouped_expert_line(dev)
     return rows
+
+
+def grouped_expert_line(dev, rel_tol: float = 1e-2) -> dict:
+    """The dropless MoE layer's grouped expert products
+    (``models/moe._grouped``, one ``torch._grouped_mm`` a weight) at the
+    granite-4.0-h-small training cell's shapes: 16,384 tokens routed
+    top-10 over 72 experts, the 9 held experts' rows (~20,000) at the
+    head of a 147,456-row buffer, 4,096 -> 768 bf16. The forward, the
+    input gradient (against the weights' transpose) and the weight
+    gradient, each against a float32 loop over the segments within
+    ``rel_tol`` of its largest value (bf16 rounds the output once; a
+    wrong segment or expert misses by the whole value), and the two
+    gradients equal to what autograd gives. The buffer's rows past the
+    held segments are NaN, so a product that read them would fail. Each
+    timed beside its least time (the operations at the bf16 peak, or
+    the bytes); the products are the library's, so the library time is
+    the time."""
+    import torch
+
+    from repro_torch.models import moe
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t, k, experts, held, d, f = 16384, 10, 72, 9, 4096, 768
+    logits = torch.randn((t, experts), generator=g, device=dev)
+    idx = logits.topk(k, dim=-1).indices.reshape(-1)
+    bounds = torch.searchsorted(torch.sort(idx).values, torch.arange(
+        held + 1, device=dev)).to(torch.int32)
+    rows, ends = t * min(k, held), bounds.tolist()
+    n = ends[-1]
+    a = torch.randn((rows, d), generator=g, device=dev).bfloat16()
+    dy = torch.randn((rows, f), generator=g, device=dev).bfloat16()
+    a[n:], dy[n:] = float("nan"), float("nan")
+    w = (torch.randn((held, d, f), generator=g, device=dev)
+         * d ** -0.5).bfloat16()
+    wt = w.transpose(1, 2)
+
+    def plain(x, wx):
+        out = torch.zeros((n, wx.shape[-1]), device=dev)
+        for e in range(held):
+            lo, hi = ends[e], ends[e + 1]
+            out[lo:hi] = x[lo:hi].float() @ wx[e].float()
+        return out
+
+    def plain_wgrad():
+        return torch.stack([a[lo:hi].float().T @ dy[lo:hi].float()
+                            for lo, hi in zip(ends[:-1], ends[1:])])
+
+    cases = {"forward": (lambda: moe._grouped(a, w, bounds),
+                         lambda: plain(a, w)),
+             "input_grad": (lambda: moe._grouped(dy, wt, bounds),
+                            lambda: plain(dy, wt)),
+             "weight_grad": (lambda: torch._grouped_mm(a.T, dy, bounds[1:]),
+                             plain_wgrad)}
+    aa, ww = a.clone().requires_grad_(), w.clone().requires_grad_()
+    auto = dict(zip(("input_grad", "weight_grad"), torch.autograd.grad(
+        moe._grouped(aa, ww, bounds), (aa, ww), dy)))
+    by_ops = 2.0 * n * d * f / BF16_PEAK_FLOPS * 1e3
+    by_bytes = _bound_ms(2 * (n * d + held * d * f + n * f))
+    bound = max(by_ops, by_bytes)
+    bound_by = "ops" if by_ops >= by_bytes else "bytes"
+    out = {"rows": n, "buffer_rows": rows, "bound_ms": bound}
+    for name, (fn, want_fn) in cases.items():
+        got, want = fn(), want_fn()
+        got = got[:n] if got.dim() == 2 else got
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        if name in auto and not torch.equal(auto[name][:n] if got.dim() == 2
+                                            else auto[name], got):
+            raise AssertionError(f"grouped product's {name}: autograd "
+                                 f"differs from the direct call")
+        if not err <= rel_tol:
+            raise AssertionError(f"grouped product's {name} at {n} of "
+                                 f"{rows} rows: {err:.3g} of the largest "
+                                 f"value from the float32 loop, over "
+                                 f"{rel_tol}")
+        ms = _device_ms(fn)
+        out[name] = {"max_rel_err": err, "ms": ms, "library_ms": ms,
+                     "plain_ms": _call_ms(want_fn, iters=3, warmup=1),
+                     "roofline_pct": 100 * bound / ms}
+        print(f"grouped expert product {name} (torch._grouped_mm) at {n} "
+              f"of {rows} rows, {d}->{f}, {held} experts: {err:.3g} of "
+              f"the largest value from the float32 loop; {ms:.5f} ms on "
+              f"the device (the library's), bound {bound:.5f} ({bound_by}), "
+              f"plain {out[name]['plain_ms']:.5f}", flush=True)
+    return out
 
 
 def gather_row(table, ids, what: str) -> dict:

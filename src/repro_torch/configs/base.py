@@ -11,8 +11,9 @@ loops over it).
 
 The registry knows every architecture id of the reference, and the port
 has a config for each (``PORTED_ARCH_IDS``, the ids of ``ARCH_IDS``);
-``get_config`` imports an id's module on first use and raises
-``KeyError`` for an unknown id.
+``PORT_ONLY_ARCH_IDS`` are the port's own, which the reference lacks
+(``PortModelConfig``s). ``get_config`` imports an id's module on first
+use and raises ``KeyError`` for an unknown id.
 """
 
 from __future__ import annotations
@@ -124,6 +125,20 @@ class ModelConfig:
     supports_decode: bool = True
     tie_embeddings: bool = False
 
+    # The settings of the port's own architectures, at their neutral values:
+    # class attributes here, fields of ``PortModelConfig``, so that
+    # ``dataclasses.asdict`` of every config the reference has stays its
+    # own. At these values they add no operation.
+    shared_expert_ff = 0             # width of a shared gated-SiLU expert
+    embedding_multiplier = 1.0       # on the token embeddings
+    residual_multiplier = 1.0        # on both residual branches of a layer
+    attention_multiplier = 0.0       # softmax scale; 0: head_dim ** -0.5
+    logits_scaling = 1.0             # the logits divided by it
+    use_rope = True                  # False: no positional embedding (NoPE)
+    moe_dropless = False             # True: every assignment computed
+    experts_held = 0                 # experts this card holds; 0: all of them
+    norm_eps = 1e-6                  # every RMSNorm's epsilon
+
     # ---- derived -----------------------------------------------------
     @property
     def padded_vocab(self) -> int:
@@ -131,6 +146,18 @@ class ModelConfig:
         shards evenly on any production mesh axis (logits beyond
         ``vocab_size`` are masked in forward/decode)."""
         return -(-self.vocab_size // 256) * 256
+
+    @property
+    def held_experts(self) -> int:
+        """Experts the MoE layers hold here: ``[0, held_experts)`` of the
+        router's ``num_experts``."""
+        return self.experts_held or self.num_experts
+
+    @property
+    def attention_scale(self) -> float:
+        """The attention softmax's scale: ``attention_multiplier``, or
+        ``head_dim ** -0.5`` where it is 0."""
+        return self.attention_multiplier or self.head_dim ** -0.5
 
     @property
     def num_layers(self) -> int:
@@ -168,7 +195,10 @@ class ModelConfig:
         specs = self.layer_specs()
         checks = []
         if any(s.ffn == MOE for s in specs):
-            checks.append(self.num_experts > 0 and self.experts_per_token > 0)
+            checks.append(self.num_experts > 0 and self.experts_per_token > 0
+                          and 0 <= self.experts_held <= self.num_experts)
+            checks.append(self.moe_dropless or self.experts_held in
+                          (0, self.num_experts))
         if any(s.mixer == MAMBA for s in specs):
             checks.append(self.ssm_state > 0
                           and self.d_inner % self.ssm_head_dim == 0)
@@ -181,7 +211,10 @@ class ModelConfig:
 
     # ---- parameter counting (for roofline MODEL_FLOPS) ---------------
     def param_counts(self) -> dict[str, int]:
-        """Returns {'total': N, 'active': N_active} parameter counts."""
+        """Returns {'total': N, 'active': N_active} parameter counts. A MoE
+        layer counts the experts it holds and its shared expert; its
+        active count takes the held experts at their expected share
+        ``experts_per_token * held / num_experts`` of a token's routes."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         h, kv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         total = v * d  # embedding
@@ -202,8 +235,11 @@ class ModelConfig:
         def moe_params() -> tuple[int, int]:
             router = d * self.num_experts
             per_expert = 3 * d * ff
-            tot = router + self.num_experts * per_expert + d
-            act = router + self.experts_per_token * per_expert + d
+            held = self.held_experts
+            shared = 3 * d * self.shared_expert_ff
+            tot = router + held * per_expert + shared + d
+            act = router + self.experts_per_token * held * per_expert \
+                // self.num_experts + shared + d
             return tot, act
 
         def mamba_params() -> int:
@@ -233,6 +269,22 @@ class ModelConfig:
         return {"total": total, "active": active}
 
 
+@dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` of an architecture the port has and the reference
+    lacks: ``ModelConfig``'s class-level settings as fields (see there)."""
+
+    shared_expert_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    use_rope: bool = True
+    moe_dropless: bool = False
+    experts_held: int = 0
+    norm_eps: float = 1e-6
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -258,8 +310,14 @@ PORTED_ARCH_IDS = ("mamba2-1.3b", "qwen1.5-4b", "dbrx-132b", "qwen2-7b",
                    "whisper-medium", "llama-3.2-vision-90b",
                    "jamba-1.5-large-398b")
 
+# the port's own architectures, which the reference lacks; each module
+# may register more than one id (a deployment's share of one card)
+PORT_ONLY_ARCH_IDS = ("granite-4.0-h-small", "granite-4.0-h-small-ep8")
+
 _MODULE_FOR_ARCH = {a: a.replace("-", "_").replace(".", "_")
                     for a in PORTED_ARCH_IDS}
+_MODULE_FOR_ARCH.update({a: "granite_4_0_h_small"
+                         for a in PORT_ONLY_ARCH_IDS})
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -274,16 +332,15 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         mod = _MODULE_FOR_ARCH.get(name)
         if mod is None:
-            raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
+            raise KeyError(f"unknown architecture {name!r}; known: "
+                           f"{ARCH_IDS + PORT_ONLY_ARCH_IDS}")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[name]
 
 
 def all_configs() -> dict[str, ModelConfig]:
     """Every config the port has (``PORTED_ARCH_IDS``)."""
-    for a in PORTED_ARCH_IDS:
-        get_config(a)
-    return dict(_REGISTRY)
+    return {a: get_config(a) for a in PORTED_ARCH_IDS}
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 256, layers_per_segment: int = 1,

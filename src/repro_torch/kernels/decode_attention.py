@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -67,13 +68,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """One query token per sequence against its first ``lengths[b]`` cache
     rows.
 
     Args:
-      q: (B, H, D) queries, NOT pre-scaled (``D^-0.5`` is applied inside,
-        on float32 values); float32 or bfloat16.
+      q: (B, H, D) queries, NOT pre-scaled (``scale``, default ``D^-0.5``,
+        is applied inside, on float32 values); float32 or bfloat16.
       k, v: (B, S, G, D) cache with ``H % G == 0``; head h reads group
         ``h // (H // G)``; float32 or bfloat16 (may differ from q's).
       lengths: (B,) integer valid lengths, each in ``[1, S]``. The TPU
@@ -99,23 +101,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lengths must be (B,) integers, got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
     if _build.direct(q, k, v, lengths):
-        return _run(q, k, v, lengths)
+        return _run(q, k, v, lengths, scale)
     if _build.dtensor_args(q, k, v, lengths):
-        return _sharded(q, k, v, lengths)
-    return torch.ops.repro_torch.decode_attention(q, k, v, lengths)
+        return _sharded(q, k, v, lengths, scale)
+    return torch.ops.repro_torch.decode_attention(q, k, v, lengths, scale)
 
 
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         lengths: torch.Tensor) -> torch.Tensor:
+         lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """The checked call on plain tensors: the plain version on the CPU,
     the kernel on the card."""
     b, h, d = q.shape
     s, g = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
     if _build.on_cpu(q, k, v, lengths):
         if b and not bool(((lengths >= 1) & (lengths <= s)).all()):
             raise ValueError(f"lengths must lie in [1, {s}], got "
                              f"{lengths.tolist()}")
-        return ref.decode_attention(q, k, v, lengths)
+        return ref.decode_attention(q, k, v, lengths, scale=scale)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported on the card "
                          f"({HEAD_DIMS})")
@@ -142,7 +145,7 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.launch("decode_attention", _lib().decode_attention, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), strides, b, h, g, s, d,
-                  codes[q.dtype], codes[k.dtype], d ** -0.5, part.data_ptr(),
+                  codes[q.dtype], codes[k.dtype], scale, part.data_ptr(),
                   tickets.data_ptr(), splits, rows)
     decode_attention.launches += 1
     return out
@@ -153,12 +156,12 @@ decode_attention.launches = 0
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
 def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        lengths: torch.Tensor) -> torch.Tensor:
-    return _run(q, k, v, lengths)
+        lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    return _run(q, k, v, lengths, scale)
 
 
 @_op.register_fake
-def _(q, k, v, lengths):
+def _(q, k, v, lengths, scale=None):
     return q.new_empty(q.shape)
 
 
@@ -178,7 +181,7 @@ _build.OP_BYTES[torch.ops.repro_torch.decode_attention.default] = \
     lambda args, kwargs, out: _build.nbytes(*args[:4], out)
 
 
-def _sharded(q, k, v, lengths):
+def _sharded(q, k, v, lengths, scale: Optional[float] = None):
     """The sharding rule: a mesh dim of size 1 keeps every placement;
     else everything is split on batch where any of q, the cache or the
     lengths is (or, if none is, where something must move and the batch
@@ -208,5 +211,6 @@ def _sharded(q, k, v, lengths):
             p[i] = pick
         out.append(picks[0])
     return _build.local_map(
-        torch.ops.repro_torch.decode_attention, (q, k, v, lengths),
+        lambda q_, k_, v_, n_: torch.ops.repro_torch.decode_attention(
+            q_, k_, v_, n_, scale), (q, k, v, lengths),
         [tuple(p) for p in ins], tuple(out), q.shape, mesh)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -73,14 +74,15 @@ def _tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Blocked online-softmax GQA attention.
 
     Args:
-      q: (B, H, S, D) queries, NOT pre-scaled (``D^-0.5`` is applied
-        inside: to q on float32 values, or on the card in bfloat16 to the
-        float32 scores, whose probabilities are then rounded to bfloat16
-        for P.V).
+      q: (B, H, S, D) queries, NOT pre-scaled (``scale``, default
+        ``D^-0.5``, is applied inside: to q on float32 values, or on the
+        card in bfloat16 to the float32 scores, whose probabilities are
+        then rounded to bfloat16 for P.V).
       k, v: (B, G, T, D) with ``H % G == 0``; head h reads group
         ``h // (H // G)``. One dtype for q, k and v: float32 or bfloat16.
       causal: mask key index > query index (by index, as the TPU kernel).
@@ -98,20 +100,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}: need (B, G, T >= 1, D), H % G "
                          f"== 0")
     if _build.direct(q, k, v):
-        return _run(q, k, v, causal)
+        return _run(q, k, v, causal, scale)
     if _build.dtensor_args(q, k, v):
-        return _sharded(q, k, v, causal)
-    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+        return _sharded(q, k, v, causal, scale)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, scale)
 
 
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         causal: bool) -> torch.Tensor:
+         causal: bool, scale: Optional[float] = None) -> torch.Tensor:
     """The checked call on plain tensors: the plain version on the CPU,
     the kernel on the card."""
     b, h, s, d = q.shape
     g, t = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
     if _build.on_cpu(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal)
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported on the card "
                          f"({HEAD_DIMS})")
@@ -131,14 +134,14 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       _lib_sm90().flash_attention_sm90, q.device,
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), strides, b, h, g, s, t, d, int(causal),
-                      d ** -0.5)
+                      scale)
     else:
         strides = (ctypes.c_longlong * 12)(*(
             st for x in (q, k, v, out) for st in x.stride()[:3]))
         _build.launch("flash_attention", _lib().flash_attention, q.device,
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), strides, b, h, g, s, t, d, int(causal),
-                      _build.DTYPE_CODES[q.dtype], d ** -0.5)
+                      _build.DTYPE_CODES[q.dtype], scale)
     flash_attention.launches += 1
     return out
 
@@ -148,15 +151,15 @@ flash_attention.launches = 0
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        causal: bool) -> torch.Tensor:
-    out = _run(q, k, v, causal)
+        causal: bool, scale: Optional[float] = None) -> torch.Tensor:
+    out = _run(q, k, v, causal, scale)
     if out.stride() != q.stride():      # the fake's layout: q's strides
         out = torch.empty_like(q).copy_(out)
     return out
 
 
 @_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, scale=None):
     return torch.empty_like(q)
 
 
@@ -185,12 +188,12 @@ _build.OP_BYTES[torch.ops.repro_torch.flash_attention.default] = \
     lambda args, kwargs, out: _build.nbytes(*args[:3], out)
 
 
-def _sharded(q, k, v, causal: bool):
+def _sharded(q, k, v, causal: bool, scale: Optional[float] = None):
     """The op on ``DTensor``s through ``shard_plan``."""
     ins, out, mesh = shard_plan(q, k, v)
     return _build.local_map(
         lambda q_, k_, v_: torch.ops.repro_torch.flash_attention(
-            q_, k_, v_, causal),
+            q_, k_, v_, causal, scale),
         (q, k, v), ins, out, q.shape, mesh)
 
 

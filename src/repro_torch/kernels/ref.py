@@ -311,15 +311,17 @@ def _softmax_v(scores: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale: float = None) -> torch.Tensor:
     """GQA attention with the flash kernel's arithmetic. q (B, H, S, D);
     k, v (B, G, T, D) with H = G * m, head h reading KV group h // m.
-    Scores are ``(q * D^-0.5) . k`` in float32 (q scaled on float32
-    values); causal masks key index > query index with -1e30; the softmax
-    and P.V run in float32; the output is cast to ``q.dtype``."""
+    Scores are ``(q * scale) . k`` in float32 (q scaled on float32
+    values; ``scale`` by default ``D^-0.5``); causal masks key index >
+    query index with -1e30; the softmax and P.V run in float32; the
+    output is cast to ``q.dtype``."""
     b, h, s, d = q.shape
     g, t = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, g, h // g, s, d) * _f32(d ** -0.5, q)
+    scale = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, g, h // g, s, d) * _f32(scale, q)
     scores = torch.einsum("bgmsd,bgtd->bgmst", qf, k.float())
     if causal:
         keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
@@ -329,17 +331,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, scale: float = None) -> torch.Tensor:
     """One query token per sequence against a KV cache, with the decode
     kernel's arithmetic. q (B, H, D); k, v (B, S, G, D); lengths (B,):
-    cache rows ``>= lengths[b]`` score -1e30. Scores ``(q * D^-0.5) . k``,
-    softmax and P.V in float32; the output (B, H, D) in ``q.dtype``."""
+    cache rows ``>= lengths[b]`` score -1e30. Scores ``(q * scale) . k``
+    (``scale`` by default ``D^-0.5``), softmax and P.V in float32; the
+    output (B, H, D) in ``q.dtype``."""
     b, h, d = q.shape
     s, g = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, g, h // g, d) * _f32(d ** -0.5, q)
+    scale = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, g, h // g, d) * _f32(scale, q)
     scores = torch.einsum("bgmd,bsgd->bgms", qf, k.float())
     valid = (torch.arange(s, device=q.device)[None, :]
              < lengths.to(q.device, torch.long)[:, None])
     scores = scores.masked_fill(~valid[:, None, None, :], _NEG_INF)
     out = _softmax_v(scores, v, "bgms,bsgd->bgmd")
     return out.reshape(b, h, d).to(q.dtype)
+

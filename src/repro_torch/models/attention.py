@@ -52,6 +52,12 @@ to q's dtype, the product rounded to q's dtype — the reference's
 so the float32 product is exact). The reference reads the int8 cache
 in its einsums; a ``decode_attention`` that reads int8 itself is later
 device work.
+A configuration without rotary embeddings (``cfg.use_rope`` False, a
+NoPE model) skips ``rope`` in prefill and decode, and every path takes
+its softmax scale from ``cfg.attention_scale`` (``hd ** -0.5`` unless
+the configuration sets one): the flash forward, its float32 backward,
+the windowed branches and decode attention.
+
 The function boundaries keep the reference's layouts: x (B, S, D), q
 (B, S, H, hd), cache (B, S_cache, Kv, hd).
 
@@ -164,13 +170,14 @@ class _FlashAttention(torch.autograd.Function):
     else every key), then ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``,
     and ``dq``, ``dk``, ``dv``, summing k's and v's over the heads of
     their group. q (B, H, S, hd); k, v (B, G, T, hd), T any length when
-    not ``causal``."""
+    not ``causal``; ``scale`` the softmax scale (``cfg.attention_scale``:
+    ``hd ** -0.5`` unless the configuration sets one)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = ops.flash_attention(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, scale):
+        out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
@@ -178,7 +185,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         b, h, s, hd = q.shape
         g, t = k.shape[1], k.shape[2]
-        scale = hd ** -0.5
+        scale = ctx.scale
         grouped = (b, g, h // g, s, hd)
         qf = q.float().reshape(grouped) * scale
         kf, vf = k.float(), v.float()
@@ -197,7 +204,7 @@ class _FlashAttention(torch.autograd.Function):
         dq = torch.einsum("bgmst,bgtd->bgmsd", ds, kf).mul_(scale)
         dk = torch.einsum("bgmst,bgmsd->bgtd", ds, qf)
         return (dq.reshape(b, h, s, hd).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None)
+                dv.to(v.dtype), None, None)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -319,13 +326,15 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
             f"windowed attention requires s % window == 0 past one chunk "
             f"(s {s}, window {window}, chunk {chunk})")
     q, k, v = project_qkv(p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cfg.context_parallel_attn:
         q, k, v = _context_parallel_constraint(q, k, v)
     if blocked or masked:
         g, hd = cfg.num_kv_heads, cfg.head_dim
-        q = (q * (hd ** -0.5)).reshape(b, s, g, cfg.num_heads // g, hd)
+        q = (q * cfg.attention_scale).reshape(b, s, g, cfg.num_heads // g,
+                                              hd)
         if blocked:
             out = _grouped(lambda q_, k_, v_, p_: _block_local_causal(
                 q_, k_, v_, p_, window), q, k, v, positions)
@@ -336,12 +345,13 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                                        (qp >= kp) & (qp - kp < window))
             out = _grouped(masked_attention, q, k, v, positions)
         return _out_proj(p, out.reshape(b, s, cfg.num_heads, hd))
-    return _flash(p, q, k, v, causal=causal)
+    return _flash(p, q, k, v, causal=causal, scale=cfg.attention_scale)
 
 
-def _flash(p: dict, q, k, v, *, causal: bool) -> torch.Tensor:
+def _flash(p: dict, q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
     """q (B, S, H, hd), k, v (B, T, Kv, hd), unscaled, through the flash
-    kernel (``_FlashAttention``) and the output projection: (B, S, D)."""
+    kernel (``_FlashAttention``, softmax scale ``scale``) and the output
+    projection: (B, S, D)."""
     # the kernel's (B, H, S, hd) / (B, Kv, T, hd) as transposed views: it
     # takes strides, and writes its output in q's (B, S, H, hd) layout
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -350,10 +360,11 @@ def _flash(p: dict, q, k, v, *, causal: bool) -> torch.Tensor:
         from repro_torch.kernels.flash_attention import shard_plan
         ins, out_pl, mesh = shard_plan(q, k, v)
         out = _build.local_map(
-            lambda q_, k_, v_: _FlashAttention.apply(q_, k_, v_, causal),
+            lambda q_, k_, v_: _FlashAttention.apply(q_, k_, v_, causal,
+                                                     scale),
             (q, k, v), ins, out_pl, q.shape, mesh)
     else:
-        out = _FlashAttention.apply(q, k, v, causal)
+        out = _FlashAttention.apply(q, k, v, causal, scale)
     return _out_proj(p, out.transpose(1, 2))
 
 
@@ -364,7 +375,7 @@ def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor, *,
     in the reference. Every query attends every frame: the flash kernel
     unmasked at S against T."""
     q, k, v = project_qkv(p, x, enc=enc)
-    return _flash(p, q, k, v, causal=False)
+    return _flash(p, q, k, v, causal=False, scale=cfg.attention_scale)
 
 
 def _quantize_row(x: torch.Tensor):
@@ -479,8 +490,9 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"a windowed layer decodes against a ring of "
                          f"window = {window} rows, not {cache_k.shape[1]}")
     q, k, v = project_qkv(p, x)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    if cfg.use_rope:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
     bidx, slot = torch.arange(b, device=x.device), pos.long()
     if window:
         slot = slot % window
@@ -496,7 +508,8 @@ def decode_self_attention(p: dict, x: torch.Tensor, pos: torch.Tensor,
         _write_rows(cache_k, bidx, slot, k[:, 0].to(cache_k.dtype))
         _write_rows(cache_v, bidx, slot, v[:, 0].to(cache_v.dtype))
     lengths = torch.clamp(pos + 1, max=window) if window else pos + 1
-    out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
+    out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths,
+                               cfg.attention_scale)
     return _out_proj(p, out[:, None].to(x.dtype)), cache
 
 
@@ -512,5 +525,5 @@ def decode_cross_attention(p: dict, x: torch.Tensor, xk: torch.Tensor,
     if "bq" in p:
         q = q + _mergeable(p["bq"], 0)
     lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
-    out = ops.decode_attention(q[:, 0], xk, xv, lengths)
+    out = ops.decode_attention(q[:, 0], xk, xv, lengths, cfg.attention_scale)
     return _out_proj(p, out[:, None].to(x.dtype))

@@ -156,6 +156,36 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(table, ids)
 
 
+class _ScatterRows(torch.autograd.Function):
+    """The transpose of ``_GatherRows``: ``rows`` added into zeros of
+    (n, D) at ``ids``, forward through ``ops.embedding_scatter_add`` (a
+    row's duplicates in input order, rounding to the rows' dtype after
+    every add; no atomics), backward through ``ops.embedding_lookup``."""
+
+    @staticmethod
+    def forward(ctx, rows: torch.Tensor, ids: torch.Tensor, n: int):
+        ids = ids.reshape(-1).to(torch.int32)
+        ctx.save_for_backward(ids)
+        out = torch.zeros((n, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        ops.embedding_scatter_add(out, ids, rows)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        return ops.embedding_lookup(grad.contiguous(), ids), None, None
+
+
+def scatter_rows(rows: torch.Tensor, ids: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """``out[ids[i]] += rows[i]`` into zeros of (n, D): (N, D) rows, (N,)
+    integer ids in ``[0, n)``. Forward through ``embedding_scatter_add``,
+    gradient through ``embedding_lookup`` (plain versions on CPU
+    tensors)."""
+    return _ScatterRows.apply(rows, ids, n)
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``: (V, D) table, integer tokens of any shape ->
     tokens.shape + (D,), in the table's dtype, through ``gather_rows``."""

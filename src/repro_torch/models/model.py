@@ -37,17 +37,28 @@ the global and sliding-window positions cache int8 K/V rows with a
 float32 scale each (``attention.decode_self_attention`` quantizes and
 reads them).
 
-Each layer's mixer (its norm included) and the head run inside spans of
+Each layer's mixer (its norm included), a MoE layer's FFN (its norm,
+routed and shared experts) and the head run inside spans of
 ``obs.trace``: ``layer.mixer`` (``kind`` attention, cross_attention or
-ssm; under remat the recompute's too) and ``model.head``, with device
-intervals in ``forward`` and host-only in a decode step (two event
-records a span would cost a step more than its shares are worth; its
-spans say what the host was doing). They record only under a profiler
-or a tracer turned on.
+ssm; under remat the recompute's too), ``layer.moe`` (in ``forward``
+with ``held_rows`` and ``max_rows``, device scalars the tracer reads at
+export) and ``model.head``, with device intervals in ``forward`` and
+host-only in a decode step (two event records a span would cost a step
+more than its shares are worth; its spans say what the host was doing).
+They record only under a profiler or a tracer turned on.
+
+The port's own architectures (``configs.PortModelConfig``) add muP-style
+scalars: the embeddings times ``embedding_multiplier``, both residual
+branches of a layer times ``residual_multiplier``, the logits divided by
+``logits_scaling`` (``head_logits``, so training, prefill and decode
+alike), every norm at ``norm_eps``; a MoE layer's shared expert under
+``ffn["shared"]``. At the neutral values every other config has, none
+adds an operation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -119,17 +130,25 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
 
 
 def _init_moe(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
-    """The router in float32 whatever ``param_dtype``, as the reference
-    draws it."""
+    """The router (over all ``num_experts``) in float32 whatever
+    ``param_dtype``, as the reference draws it; the held experts; a
+    shared expert where the configuration has one."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    held = cfg.held_experts
     pd = _dtype(cfg.param_dtype)
-    return {
+    p = {
         "norm": torch.zeros((r, d), dtype=pd, device=gen.device),
         "router": dense_init(gen, (r, d, e), d, torch.float32),
-        "w_gate": dense_init(gen, (r, e, d, f), d, pd),
-        "w_up": dense_init(gen, (r, e, d, f), d, pd),
-        "w_down": dense_init(gen, (r, e, f, d), f, pd),
+        "w_gate": dense_init(gen, (r, held, d, f), d, pd),
+        "w_up": dense_init(gen, (r, held, d, f), d, pd),
+        "w_down": dense_init(gen, (r, held, f, d), f, pd),
     }
+    if cfg.shared_expert_ff:
+        fs = cfg.shared_expert_ff
+        p["shared"] = {"w_gate": dense_init(gen, (r, d, fs), d, pd),
+                       "w_up": dense_init(gen, (r, d, fs), d, pd),
+                       "w_down": dense_init(gen, (r, fs, d), fs, pd)}
+    return p
 
 
 def _init_mamba(gen: torch.Generator, cfg: ModelConfig, r: int) -> dict:
@@ -221,11 +240,26 @@ def _unbind(tree: dict, repeats: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+def _residual(dx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A residual branch's output times ``cfg.residual_multiplier`` (no
+    operation at 1)."""
+    m = cfg.residual_multiplier
+    return dx if m == 1.0 else dx * m
+
+
+def _ffn_span(spec: LayerSpec, device: bool):
+    """The span of a MoE layer's FFN (its norm included), ``layer.moe``;
+    ``device``: with its device interval. An MLP's FFN has none."""
+    if spec.ffn == MOE:
+        return obs_trace.get_tracer().span("layer.moe", device=device)
+    return contextlib.nullcontext()
+
+
 def _apply_ffn(spec: LayerSpec, p: dict, x: torch.Tensor,
                cfg: ModelConfig):
     """Returns ``(out, aux_loss, expert_counts)``: the last two None for
     an MLP. Not called for a ``NONE`` FFN (the reference adds zeros)."""
-    h = rms_norm(x, p["norm"])
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
     if spec.ffn == MOE:
         return moe_lib.moe_ffn(p, h, cfg)
     return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"], \
@@ -240,21 +274,26 @@ def _block(spec: LayerSpec, lp: dict, x: torch.Tensor, pos: torch.Tensor,
     lp = fsdp_gather(lp)
     mx = lp["mixer"]
     with _mixer_span(spec, device=True):
-        h = rms_norm(x, mx["norm"])
+        h = rms_norm(x, mx["norm"], cfg.norm_eps)
         if spec.mixer == MAMBA:
-            x = x + ssm.mamba_block(mx, h, cfg)
+            dx = ssm.mamba_block(mx, h, cfg)
         elif spec.mixer == CROSS_ATTN:
-            x = x + attn.cross_attention(mx, h, enc, cfg=cfg)
+            dx = attn.cross_attention(mx, h, enc, cfg=cfg)
         else:
             window = cfg.window_size if spec.mixer == LOCAL_ATTN else 0
-            x = x + attn.self_attention(mx, h, pos, cfg=cfg,
-                                        causal=spec.mixer != ENC_ATTN,
-                                        window=window)
+            dx = attn.self_attention(mx, h, pos, cfg=cfg,
+                                     causal=spec.mixer != ENC_ATTN,
+                                     window=window)
+        x = x + _residual(dx, cfg)
     if spec.ffn == NONE:
         return x, None, None
     x = constrain_batch(x)
-    dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
-    return x + dx, aux, counts
+    with _ffn_span(spec, device=True) as sp:
+        dx, aux, counts = _apply_ffn(spec, lp["ffn"], x, cfg)
+        if counts is not None and sp.id:
+            # device scalars, read when the tracer exports, never here
+            sp.set(held_rows=counts.sum(), max_rows=counts.max())
+    return x + _residual(dx, cfg), aux, counts
 
 
 def _run_segments(x: torch.Tensor, segments_params: list,
@@ -345,13 +384,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError("explicit positions: the flash kernel "
                                   "masks by index, so only arange(S) runs")
     b, s = tokens.shape
-    x = constrain_batch(embed_tokens(params["embed"], tokens).to(
-        _dtype(cfg.dtype)))
+    x = constrain_batch(_embed(params, cfg, tokens))
     enc = _context(params, cfg, enc_context, x.dtype)
     pos = torch.arange(s, device=x.device).expand(b, s)
     x, aux_total, per_layer = _run_segments(x, params["segments"],
                                             cfg.segments, cfg, pos, enc)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     metrics = {"moe_aux": aux_total}
     if cfg.num_experts:
         metrics["expert_counts"] = sum(
@@ -364,14 +402,27 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return head_logits(lm_head_weights(params, cfg), cfg, x), metrics
 
 
+def _embed(params: dict, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings in ``cfg.dtype``, times
+    ``cfg.embedding_multiplier`` (no operation at 1)."""
+    x = embed_tokens(params["embed"], tokens).to(_dtype(cfg.dtype))
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
 def lm_head_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
 def head_logits(head: torch.Tensor, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
-    """Vocab projection over the padded table; pad columns set to -1e30."""
+    """Vocab projection over the padded table, divided by
+    ``cfg.logits_scaling`` (no operation at 1); pad columns set to -1e30.
+    Training, prefill and decode all take their logits here."""
     logits = x @ fsdp_gather(head).T
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.padded_vocab != cfg.vocab_size:
         if type(logits) is torch.Tensor:
             logits[..., cfg.vocab_size:] = -1e30
@@ -471,7 +522,7 @@ def decode_layer(spec: LayerSpec, lp: dict, lc: dict, x: torch.Tensor,
     lp = fsdp_gather(lp)
     mx = lp["mixer"]
     with _mixer_span(spec, device=False):
-        h = rms_norm(x, mx["norm"])
+        h = rms_norm(x, mx["norm"], cfg.norm_eps)
         if spec.mixer == MAMBA:
             dx, conv, state = ssm.mamba_decode_step(mx, h, lc["conv"],
                                                     lc["state"], cfg)
@@ -485,9 +536,11 @@ def decode_layer(spec: LayerSpec, lp: dict, lc: dict, x: torch.Tensor,
                 if spec.mixer == LOCAL_ATTN else 0
             dx, _ = attn.decode_self_attention(mx, h, pos, lc, cfg=cfg,
                                                window=window)
-    x = constrain_batch(x + dx)
+    x = constrain_batch(x + _residual(dx, cfg))
     if spec.ffn != NONE:
-        x = constrain_batch(x + _apply_ffn(spec, lp["ffn"], x, cfg)[0])
+        with _ffn_span(spec, device=False):
+            dx = _apply_ffn(spec, lp["ffn"], x, cfg)[0]
+        x = constrain_batch(x + _residual(dx, cfg))
     return x
 
 
@@ -512,8 +565,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     synchronisation — the step itself never reads back from the
     device. A cross layer attends its ``xk``, ``xv`` entry over every
     frame and leaves it as it is."""
-    x = constrain_batch(embed_tokens(params["embed"], tokens).to(
-        _dtype(cfg.dtype)))
+    x = constrain_batch(_embed(params, cfg, tokens))
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
                                           cache["segments"]):
         for r in range(seg.repeats):
@@ -521,7 +573,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 x = decode_layer(spec, _layer(seg_params[f"pos{i}"], r),
                                  _layer(seg_cache[f"pos{i}"], r), x, pos,
                                  cfg)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     with obs_trace.get_tracer().span("model.head"):
         logits = head_logits(lm_head_weights(params, cfg), cfg, x)[:, 0]
     return logits, cache

@@ -1,9 +1,13 @@
 """Mixture-of-Experts FFN with capacity-based dispatch — the counterpart of
-the reference's ``models/moe.py``.
+the reference's ``models/moe.py`` — and, for the port's own
+architectures, dropless dispatch over the experts a card holds, beside a
+shared expert.
 
 Routing (``route``) is the reference's: float32 logits, a softmax, the
 top k (``torch.topk``, sorted descending as ``jax.lax.top_k``), gates
 normalised by ``max(sum, 1e-9)`` and the Switch load-balance aux loss.
+The renormalised top k of the softmax equal the softmax over the top k
+logits (HF's granitemoe gating): both are ``exp(l_i) / sum_top exp(l_j)``.
 Slot ranks (``_slot_positions``) come from a stable sort by expert:
 first come, first served in ``(token, k)`` order, so a full expert drops
 the same assignments as the reference's, and an assignment is kept when
@@ -37,6 +41,29 @@ grouped buffers become ``_maybe_wsc`` on the port's layout, inert
 without a mesh in scope: the (E, G*C, D) buffers and expert outputs
 experts on ``model`` and group slots on ``data`` (the reference's (G,
 E, C, D) on ``(data, model)``), the combined (T, D) tokens on ``data``.
+
+Dropless dispatch (``cfg.moe_dropless``; ``_dropless``) computes every
+assignment routed to the experts the layer holds, ``[0,
+cfg.held_experts)`` of the router's ``num_experts`` (a card's share
+under expert parallelism; the router keeps its full width and top k).
+It sorts the assignments by expert (``_expert_order``); held experts come
+first, each a contiguous segment whose bounds stay on the device. The
+first ``T * min(k, held)`` sorted assignments, the most that can be
+held, are gathered through ``gather_rows`` into one buffer; each weight
+is one grouped product over the held segments (``torch._grouped_mm``,
+bf16 on the card; its work stops at the last held row), which leaves
+the rows past the last segment unwritten. Those rows, the assignments
+of absent experts, read and write their token's spare row (row T + i
+for token i), which the scatter's output drops: their part of the
+result is left out, with no stand-in for the cards that hold them, and
+their gradients reach no token, gate or weight. The gates scale the
+gated hidden rows before the down product (the same function as
+scaling its output, on 768-wide rows instead of D-wide ones), and
+``scatter_rows`` adds each token's rows into the output, in sorted
+order. Nothing is read back to the host, so a decode step still
+captures into a CUDA graph. A shared gated-SiLU expert
+(``cfg.shared_expert_ff``) runs on every token beside the routed ones
+and its output is added to theirs.
 """
 
 from __future__ import annotations
@@ -48,7 +75,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _build
-from repro_torch.models.common import current_mesh, gather_rows
+from repro_torch.models.common import current_mesh, gather_rows, scatter_rows
 
 
 def _maybe_wsc(x: torch.Tensor, *axes) -> torch.Tensor:
@@ -184,17 +211,61 @@ def _combine(out_buf: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
     return out
 
 
+def _grouped(a: torch.Tensor, w: torch.Tensor,
+             bounds: torch.Tensor) -> torch.Tensor:
+    """Rows ``[bounds[g], bounds[g + 1])`` of ``a`` times ``w[g]``: one
+    ``torch._grouped_mm`` over the segments, whose ends stay on the
+    device. Rows from ``bounds[-1]`` on are left unwritten, in the
+    product and in its input gradient alike."""
+    return torch._grouped_mm(a, w, bounds[1:])
+
+
+def _dropless(p: dict, xt: torch.Tensor, idx: torch.Tensor,
+              gate: torch.Tensor, cfg: ModelConfig):
+    """Every assignment to a held expert, computed: xt (T, D), idx and
+    gate (T, k) -> (out (T, D), counts (held,) int32 rows a held expert
+    took)."""
+    t = xt.shape[0]
+    k, held = cfg.experts_per_token, cfg.held_experts
+    order, _, bounds = _expert_order(idx.reshape(-1), held + 1)
+    bounds = bounds.to(torch.int32)        # held expert g: [bounds[g], [g+1])
+    pick = order[:t * min(k, held)]
+    live = torch.arange(pick.shape[0], device=xt.device) < bounds[-1]
+    # a row past the held segments reads and writes its token's spare row
+    # t + i, dropped after the scatter: the products leave such rows
+    # unwritten, so neither they nor their gradients reach a token
+    tok = pick // k + torch.where(live, 0, t)
+    buf = gather_rows(torch.cat([xt, torch.zeros_like(xt)]), tok)
+    h = F.silu(_grouped(buf, p["w_gate"], bounds)) \
+        * _grouped(buf, p["w_up"], bounds)
+    h = h * torch.where(live, gate.reshape(-1)[pick], 0)[:, None].to(h.dtype)
+    out = scatter_rows(_grouped(h, p["w_down"], bounds), tok, 2 * t)[:t]
+    return out, bounds[1:] - bounds[:-1]
+
+
+def _shared_expert(p: dict, xt: torch.Tensor) -> torch.Tensor:
+    return (F.silu(xt @ p["w_gate"]) * (xt @ p["w_up"])) @ p["w_down"]
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x (B, S, D) -> (out (B, S, D), aux_loss float32 scalar,
-    expert_counts (E,) int32 kept assignments).
+    expert_counts int32: (E,) kept assignments, or with dropless
+    dispatch (held,) assignments routed to each held expert).
 
-    ``p``: ``router`` (D, E), ``w_gate`` and ``w_up`` (E, D, F),
-    ``w_down`` (E, F, D). ``expert_counts`` feeds the WeiPS sync engine
-    (touched-expert ids)."""
+    ``p``: ``router`` (D, E), ``w_gate`` and ``w_up`` (E', D, F),
+    ``w_down`` (E', F, D) with E' the held experts, and with a shared
+    expert ``shared`` (``w_gate``, ``w_up`` (D, F_s), ``w_down`` (F_s,
+    D)). ``expert_counts`` feeds the WeiPS sync engine (touched-expert
+    ids)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     idx, gate, aux = route(p["router"], xt, cfg)
+    if cfg.moe_dropless:
+        out, counts = _dropless(p, xt, idx, gate, cfg)
+        if cfg.shared_expert_ff:
+            out = out + _shared_expert(p["shared"], xt)
+        return out.reshape(b, s, d), aux, counts
     g = max(1, cfg.moe_dispatch_groups)
     groups = g if g > 1 and t % g == 0 else 1
     cap = moe_capacity(t // groups, cfg)

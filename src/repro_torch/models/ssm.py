@@ -199,10 +199,12 @@ def _projections(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return z, xin, Bv, Cv, dt_raw
 
 
-def _gate_out(p: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The gated norm and the output projection: the gate in float32,
-    cast back to y's dtype before ``rms_norm``."""
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"])
+def _gate_out(p: dict, y: torch.Tensor, z: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """The gated norm (at ``cfg.norm_eps``) and the output projection: the
+    gate in float32, cast back to y's dtype before ``rms_norm``."""
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"],
+                 cfg.norm_eps)
     return _mm(y, p["out_proj"])
 
 
@@ -231,7 +233,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y, final_state = ssd_chunked(xh, dt, A, Bv, Cv, cfg.ssm_chunk,
                                      initial_state=initial_state)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
-    out = _gate_out(p, y.reshape(b, s, di), z)
+    out = _gate_out(p, y.reshape(b, s, di), z, cfg)
     if return_state:
         return out, final_state
     return out
@@ -260,5 +262,5 @@ def mamba_decode_step(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
     xh = xin[:, 0].reshape(b, nh, hp)
     y, ssm_state = ssd_decode_step(ssm_state, xh, dt, A, Bv[:, 0], Cv[:, 0])
     y = y + p["D"].to(y.dtype)[None, :, None] * xh
-    out = _gate_out(p, y.reshape(b, 1, di), z)
+    out = _gate_out(p, y.reshape(b, 1, di), z, cfg)
     return out.to(x.dtype), conv_state, ssm_state

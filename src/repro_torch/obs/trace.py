@@ -30,6 +30,10 @@ Design constraints, in order:
 * **Nesting per thread.** Open spans nest per thread (autograd runs a
   CUDA backward, and so the remat recompute, on its own device thread),
   and each span records the native id of its thread.
+* **Device scalars.** ``span.set(name=tensor)`` attaches a value the
+  step computes on the device (a MoE layer's routed rows); the tracer
+  keeps the tensor and reads it at ``export()``, so a traced step never
+  waits on a read-back.
 * **Device intervals.** A span begun with ``device=True`` while CUDA is
   initialised records a pair of timing CUDA events, from a pool, on the
   current stream. ``export()`` synchronises, reads them and puts them on
@@ -84,6 +88,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -98,6 +105,21 @@ class _Span:
     def __exit__(self, *exc):
         self._tracer.end(self)
         return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes to the open span. A tensor (a device scalar the
+        step computed) is kept as it is and read at ``export()``, so the
+        step never waits for it."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+
+
+def _read_attrs(attrs: dict) -> dict:
+    """``attrs`` with each tensor read to a Python number, in place (the
+    next export reads the number, and the tensor is freed)."""
+    for k, v in attrs.items():
+        if hasattr(v, "item"):
+            attrs[k] = v.item()
+    return attrs
 
 
 class _DeviceSpan:
@@ -369,7 +391,7 @@ class Tracer:
                  "span": sid, "parent": parent, "t0": t0, "t1": t1,
                  "tid": tid}
             if attrs:
-                d["args"] = dict(attrs)
+                d["args"] = dict(_read_attrs(attrs))
             if dev is not None and dev.t0 is not None:
                 d["device"] = (dev.t0, dev.t1)
             out.append(d)
@@ -383,7 +405,8 @@ class Tracer:
                      "trace": sp.trace, "span": sp.id,
                      "parent": sp.parent, "t0": sp.t0, "t1": t1,
                      "tid": sp.tid,
-                     "args": dict(sp.attrs or (), partial=True)}
+                     "args": dict(_read_attrs(sp.attrs or {}),
+                                  partial=True)}
                 out.append(d)
         return out
 

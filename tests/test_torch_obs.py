@@ -237,3 +237,34 @@ def test_decode_step_spans_and_tokens(arch):
     plain, _ = _profiled(lambda: _serve(cfg, params, steps))
     assert obs_trace.get_tracer().export() == []
     np.testing.assert_array_equal(traced, plain)
+
+
+class _Scalar:
+    """A stand-in for a device scalar: counts its reads."""
+
+    def __init__(self, value):
+        self.value, self.reads = value, 0
+
+    def item(self):
+        self.reads += 1
+        return self.value
+
+
+def test_device_scalar_attribute_read_at_export_not_before():
+    """``span.set`` keeps a tensor as it is; ``export()`` reads it once,
+    and a later export gives the number without reading again."""
+    tr = obs_trace.configure(enabled=True)
+    rows = _Scalar(7)
+    with tr.span("layer.moe") as sp:
+        sp.set(held_rows=rows, kind="moe")
+    with tr.span("after"):
+        pass
+    assert rows.reads == 0
+    first = tr.export()
+    assert rows.reads == 1
+    assert first[0]["args"] == {"held_rows": 7, "kind": "moe"}
+    assert tr.export()[0]["args"]["held_rows"] == 7 and rows.reads == 1
+    with torch.no_grad():
+        with tr.span("layer.moe") as sp:
+            sp.set(max_rows=torch.tensor([3, 9]).max())
+    assert tr.export()[-1]["args"] == {"max_rows": 9}
