@@ -35,7 +35,14 @@ Phases (any failure exits non-zero and prints no result line):
    50 MB L2 holds.
    Then the dropless MoE layer's grouped expert products
    (``torch._grouped_mm``) at the granite-4.0-h-small training cell's
-   shapes against a float32 loop (``grouped_expert_line``).
+   shapes against a float32 loop (``grouped_expert_line``), and
+   ``decode_attention`` at the qwen2-1.5b decode cell's shape (bf16 q
+   and cache, B 128, S 16,384, lengths 6,145-12,241): the tensor-core
+   kernel within one bf16 ulp of its plain version (a planted fault, one
+   cache row left out at a split boundary, fails that check), timed
+   beside the CUDA-core kernel on the same cache (an fp32 query), the
+   bound from the live rows, the plain version and SDPA
+   (``decode_cell_line``).
 2. The loop: FM_FTRL (32 fields, embed 8, groups w:1 + v:8 with FTRL
    slots (z, n), feature space 2^22) on 4 master shards, 2 slave shards
    x 2 replicas, 8 partitions, int8 codec, realtime gather. The ids are
@@ -401,7 +408,7 @@ TRAIN_KERNELS = ("ftrl_row_update", "quantize_rows", "dequantize_rows")
 PTXAS_FULL = ("flash_attention_sm90", "decode_attention")
 # the attention kernels' symbols, whose device time each profile sums
 ATTENTION_KERNELS = ("flash_attention_sm90_kernel", "flash_attention_kernel",
-                     "decode_attention_kernel")
+                     "decode_attention_kernel", "decode_attention_mma_kernel")
 # the scatter-add kernel's symbol
 SCATTER_ADD_KERNEL = "scatter_add_rows_kernel"
 
@@ -686,7 +693,102 @@ def phase_kernels(dev, rng) -> list[dict]:
     scatter_row(table, uniq, upd, f"{what} unique ids")
     del table, ids, uniq, upd
     grouped_expert_line(dev)
+    decode_cell_line(dev)
     return rows
+
+
+# A bf16 output against its plain version: both are float32 sums that
+# agree to ~1e-6 of the largest term, each rounded to bf16 once, so they
+# lie at most one bf16 ulp apart (2^-7 of |want| at most), plus 1e-5 for
+# outputs near zero, whose ulps are finer than the sums' drift. At the
+# decode cell's shape a typical output is ~0.017 and a cache row weighs
+# ~1e-4 of it: a kernel that leaves out one row moves hundreds of outputs
+# past this, where it stays inside a flat 2e-2.
+BF16_ULP_RTOL, BF16_ULP_ATOL = 2 ** -7, 1e-5
+
+
+def bf16_ulp_excess(got, want) -> float:
+    """The largest ``|got - want| - (ATOL + RTOL |want|)``: > 0 fails."""
+    want = want.float()
+    return float(((got.float() - want).abs() - BF16_ULP_ATOL
+                  - BF16_ULP_RTOL * want.abs()).max())
+
+
+def plain_decode_without_row(q, k, v, lengths, i: int, r: int):
+    """The plain ``decode_attention`` of sequence ``i`` with its cache row
+    ``r`` left out: what a kernel that skips that row gives."""
+    import torch
+
+    from repro_torch.kernels import ref
+    k1, v1 = (torch.cat([t[i:i + 1, :r], t[i:i + 1, r + 1:]], 1)
+              for t in (k, v))
+    return ref.decode_attention(q[i:i + 1], k1, v1, lengths[i:i + 1] - 1)
+
+
+def decode_cell_line(dev) -> dict:
+    """``decode_attention`` at the qwen2-1.5b decode cell's shape: q (128,
+    12, 128) against a (128, 16,384, 2, 128) cache, both bf16, at the
+    cell's first lengths (6,145-12,241, evenly spaced), on the
+    tensor-core kernel, within one bf16 ulp of its plain version, where
+    the plain version of the longest sequence with the last row of a
+    split, or the first of the next, left out (a planted fault: a typical
+    output is ~0.017 and a row weighs ~1e-4 of it) must fail; timed beside
+    its bound (the live K and V rows, q and the output, over the memory
+    rate), the plain version, SDPA over the valid rows (a boolean mask;
+    the port never calls it) and the CUDA-core kernel on the same cache
+    (an fp32 query: the pair that keeps that kernel, with the same cache
+    bytes and inner loop as the bf16 query had there)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    b, h, g, d, s = 128, 12, 2, 128, 16384
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    n = 6144 + 6144 * np.arange(b) // b + 1
+    lengths = torch.tensor(n, dtype=torch.int32, device=dev)
+    before = da.decode_attention.tensor_core_launches
+    got = da.decode_attention(q, k, v, lengths)
+    if da.decode_attention.tensor_core_launches != before + 1:
+        raise AssertionError("bf16 decode_attention did not take the "
+                             "tensor-core kernel")
+    want = ref.decode_attention(q, k, v, lengths)
+    err = float((got.float() - want.float()).abs().max())
+    if bf16_ulp_excess(got, want) > 0:
+        raise AssertionError(f"decode_attention: deviates from its plain "
+                             f"version by {err:.3g}, over one bf16 ulp")
+    i, (_, rows) = int(n.argmax()), da.mma_split_plan(s, b, g)
+    for r in (rows - 1, rows):
+        fault = plain_decode_without_row(q, k, v, lengths, i, r)
+        if bf16_ulp_excess(fault, want[i:i + 1]) <= 0:
+            raise AssertionError(f"decode_attention's check passes the "
+                                 f"plain version without row {r}")
+    del got, want, fault
+    q4, top = q[:, :, None], int(n.max())
+    k4, v4 = (t[:, :top].transpose(1, 2) for t in (k, v))
+    mask = (torch.arange(top, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    row = _row("decode_attention", "decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:63", err,
+               lambda: da.decode_attention(q, k, v, lengths),
+               lambda: ref.decode_attention(q, k, v, lengths),
+               lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask, enable_gqa=True),
+               int(n.sum()) * 2 * g * d * 2 + 2 * b * h * d * 2,
+               f"q ({b}, {h}, {d}) vs cache ({b}, {s}, {g}, {d}), both "
+               f"bf16, lengths {n.min()}-{n.max()} (the decode cell's)",
+               agreement="within one bf16 ulp of its plain version, which "
+                         "a row left out at a split boundary is not")
+    qf = q.float()
+    row["cuda_core_ms"] = _device_ms(
+        lambda: da.decode_attention(qf, k, v, lengths))
+    print(f"kernel decode_attention, the CUDA-core kernel on the same cache "
+          f"(fp32 q): {row['cuda_core_ms']:.5f} ms on the device, against "
+          f"the tensor-core kernel's {row['ms']:.5f}", flush=True)
+    return row
 
 
 def grouped_expert_line(dev, rel_tol: float = 1e-2) -> dict:
@@ -3250,6 +3352,7 @@ def decode_run(cfg, driver, params, args, gen, device,
     goes) and takes the kernel path's routes (``replay_routes``)."""
     import torch
 
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.launch import serve
     from repro_torch.models import decode_step
     records: list = []
@@ -3259,10 +3362,12 @@ def decode_run(cfg, driver, params, args, gen, device,
     plain_cache = None if local else _tree_map(lambda t: t.clone(),
                                                driver.cache)
     kr: list = []
+    tensor_core = da.decode_attention.tensor_core_launches
     t0 = time.perf_counter()
     with record_routes(kr, gaps=False):
         tokens, lat = serve.run(driver, params, args, gen)
     wall = time.perf_counter() - t0
+    tensor_core = da.decode_attention.tensor_core_launches - tensor_core
     layers = len(kr) // max(1, len(records))       # MoE layers a step
     devs, agree, routes, every = [], [], [], []
     finite = all(bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
@@ -3296,7 +3401,8 @@ def decode_run(cfg, driver, params, args, gen, device,
             "steps": len(records), "routes": merge_routes(routes),
             "finite": finite, "max_len": driver.max_len,
             "all_dev": max(d for d, _ in every),
-            "all_agree": float(np.mean([a for _, a in every]))}
+            "all_agree": float(np.mean([a for _, a in every])),
+            "tensor_core_launches": tensor_core}
 
 
 def drive_lm(device, serve_argv, *, prefill_batch: int, prefill_len: int,
@@ -3654,7 +3760,8 @@ def report_lm(lm: dict) -> None:
               f"{4 / np.percentile(lat, 50) * 1e3:.1f} tokens/s), "
               f"{run['wall_s']:.2f} s with hot swaps; decode_attention "
               f"launches {run['launches']} ({run['launches'] / run['steps']:g}"
-              f" per step); teacher-forced logits vs the plain path: max "
+              f" per step, {run['tensor_core_launches']} on the tensor-core "
+              f"kernel); teacher-forced logits vs the plain path: max "
               f"deviation {run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), "
               f"greedy tokens agree {run['agree']:.4f}", flush=True)
     print(_profile_line(f"bf16 prefill ({pb} x {pl})",
@@ -5554,7 +5661,9 @@ def report_hybrid_serving(cfg, pre, long, launcher, check, launches,
               f" {np.percentile(lat, 50):.3f} ms, p99 "
               f"{np.percentile(lat, 99):.3f} ms per step (every expert read "
               f"a step: {param_bytes} bytes, bound "
-              f"{_bound_ms(param_bytes):.3f} ms); teacher-forced logits vs "
+              f"{_bound_ms(param_bytes):.3f} ms); decode_attention launches "
+              f"on the tensor-core kernel {run['tensor_core_launches']}; "
+              f"teacher-forced logits vs "
               f"the plain path, each step from the kernel path's cache "
               f"before it and on its routes: max deviation "
               f"{run['max_dev']:.3g} (limit {BF16_LOGIT_BOUND}), greedy "

@@ -4,16 +4,20 @@ wrapper — counterpart of the reference's Pallas
 
 The port's ``models/attention.py`` ``decode_self_attention`` calls it for
 global layers against a full-precision cache, where the reference's model
-writes the same function inline. The CUDA kernel
-(``csrc/decode_attention.cu``) splits each sequence's cache across blocks
-(``split_plan``), reads only the cache rows below each sequence's length,
-combines the splits in a fixed order within the same launch, and takes q
-and the cache in their own dtypes (float32 or bfloat16 each).
+writes the same function inline. The CUDA source
+(``csrc/decode_attention.cu``) splits each sequence's cache across blocks,
+reads only the cache rows below each sequence's length, combines the
+splits in a fixed order within the same launch, and takes q and the cache
+in their own dtypes (float32 or bfloat16 each). The dtypes choose one of
+two kernels: a bfloat16 query against a bfloat16 cache runs the
+tensor-core kernel under ``mma_split_plan``; every other pair runs the
+CUDA-core kernel under ``split_plan``.
 
 The wrapper dispatches on its tensors' device: CPU tensors take the
 plain version in ``kernels/ref.py``; CUDA tensors launch the kernel (or
 raise — there is no fallback). ``decode_attention.launches`` counts its
-kernel launches.
+kernel launches, ``decode_attention.tensor_core_launches`` those of the
+tensor-core kernel (the rest ran the CUDA-core kernel).
 
 It is also the custom op ``repro_torch::decode_attention`` (fake: an
 empty (B, H, D) tensor of q's dtype; FLOPs ``4 D`` a cache row a head;
@@ -42,6 +46,10 @@ HEAD_DIMS = (64, 128, 256)                  # the kernel's instantiations
 MAX_HEADS = 16                      # query heads per KV group on the card
 CHUNK = 32                          # cache rows the kernel copies at once
 TARGET_BLOCKS = 2 * 132             # twice the H100's SMs
+# the tensor-core path (bfloat16 q and cache)
+TILE = 64                           # cache rows a block takes a step
+MIN_ROWS = 256                      # fewest rows a split holds
+MAX_ROWS = 1024                     # most rows a split holds
 
 
 def split_plan(s: int, b: int, g: int) -> tuple[int, int]:
@@ -54,6 +62,23 @@ def split_plan(s: int, b: int, g: int) -> tuple[int, int]:
     which stay on the card."""
     want = -(-TARGET_BLOCKS // (b * g))
     rows = CHUNK * max(1, s // (want * CHUNK))
+    return -(-s // rows), rows
+
+
+def mma_split_plan(s: int, b: int, g: int) -> tuple[int, int]:
+    """The tensor-core path's ``(splits, rows)``, ``splits * rows >= S``:
+    ``rows`` is ``S * B * G / TARGET_BLOCKS`` rounded up to a multiple of
+    ``TILE``, held within ``[MIN_ROWS, MAX_ROWS]``. A short or narrow
+    cache then runs about one wave of blocks (two a SM), each walking
+    four steps or more, since a block's set-up, its warps' merge and its
+    partial cost as much as a few steps; a long one (the decode cell's)
+    runs many waves of ``MAX_ROWS``, and no block walks more than that
+    alone. Each used split's partial, written and read once, adds about
+    ``2 m / rows`` of its rows' bytes (m query heads a group; 1.2% at
+    m = 6 and 1,024 rows). Depends on the capacity S, never on the
+    lengths."""
+    tiles = -(-s * b * g // (TARGET_BLOCKS * TILE))
+    rows = TILE * min(MAX_ROWS // TILE, max(MIN_ROWS // TILE, tiles))
     return -(-s // rows), rows
 
 
@@ -138,7 +163,8 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(1))
-    splits, rows = split_plan(s, b, g)
+    mma = q.dtype == k.dtype == torch.bfloat16
+    splits, rows = (mma_split_plan if mma else split_plan)(s, b, g)
     part = torch.empty(b * g * splits * -(-(h // g) * (d + 2) // 4) * 4,
                        dtype=torch.float32, device=q.device)
     tickets = torch.zeros(b * g, dtype=torch.int32, device=q.device)
@@ -148,10 +174,12 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   codes[q.dtype], codes[k.dtype], scale, part.data_ptr(),
                   tickets.data_ptr(), splits, rows)
     decode_attention.launches += 1
+    decode_attention.tensor_core_launches += int(mma)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.tensor_core_launches = 0
 
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())

@@ -660,6 +660,21 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, t, d,
     assert torch.equal(strided, got)
 
 
+def _decode_counts(port_da) -> tuple[int, int]:
+    """``decode_attention``'s launches, and those of its tensor-core
+    kernel (the CUDA-core kernel's are the difference)."""
+    fn = port_da.decode_attention
+    return fn.launches, fn.tensor_core_launches
+
+
+def _assert_one_decode_launch(port_da, before, q_dtype, kv_dtype) -> None:
+    """One launch since ``before``, on the tensor-core kernel exactly when
+    q and the cache are both bfloat16."""
+    now = _decode_counts(port_da)
+    mma = int(q_dtype == kv_dtype == torch.bfloat16)
+    assert (now[0] - before[0], now[1] - before[1]) == (1, mma)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,g,s,d", [
     (4, 12, 2, 512, 128),             # qwen2-1.5b heads
@@ -680,10 +695,10 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, b, h, g, s, d,
             .to(kv_dtype) for _ in range(2))
     lengths = torch.tensor([1, s, 65, 64][:b], device=cuda,
                            dtype=torch.int32)          # mixed, 1 and S
-    before = port_da.decode_attention.launches
+    before = _decode_counts(port_da)
     got = port_da.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert port_da.decode_attention.launches == before + 1
+    _assert_one_decode_launch(port_da, before, q_dtype, kv_dtype)
     assert got.dtype == q_dtype and got.shape == q.shape
     want = port_ref.decode_attention(q, k, v, lengths)
     torch.testing.assert_close(got.float(), want.float(), rtol=_tol(q_dtype),
@@ -868,14 +883,19 @@ def _to(tree, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
 def test_decode_attention_split_boundaries_on_card(cuda, q_dtype, kv_dtype):
     """Lengths that end exactly on, just before and just after the split
-    boundaries of ``split_plan``; rows past each length are poison."""
+    boundaries of the plan the dtypes choose (``split_plan``, or
+    ``mma_split_plan`` for bf16 q and cache); rows past each length are
+    poison."""
     from repro_torch.kernels import decode_attention as port_da
     b, h, g, s, d = 8, 12, 2, 4096, 128
-    splits, rows = port_da.split_plan(s, b, g)
-    assert b * g * splits >= 264
+    mma = q_dtype == kv_dtype == torch.bfloat16
+    splits, rows = (port_da.mma_split_plan if mma
+                    else port_da.split_plan)(s, b, g)
+    assert splits >= 8 if mma else b * g * splits >= 264
     gen = torch.Generator(device=cuda).manual_seed(5)
     q = torch.randn((b, h, d), generator=gen, device=cuda).to(q_dtype)
     k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda)
@@ -886,24 +906,114 @@ def test_decode_attention_split_boundaries_on_card(cuda, q_dtype, kv_dtype):
     want = port_ref.decode_attention(q, k, v, lengths)
     for i, n in enumerate(lengths.tolist()):
         k[i, n:], v[i, n:] = 1e6, float("nan")
+    before = _decode_counts(port_da)
     got = port_da.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
+    _assert_one_decode_launch(port_da, before, q_dtype, kv_dtype)
     torch.testing.assert_close(got.float(), want.float(), rtol=_tol(q_dtype),
                                atol=_tol(q_dtype))
 
 
+def _mma_lengths(b: int, s: int, rows: int, splits: int) -> list[int]:
+    """Lengths 1 and S, then on, just before and just after the bf16
+    plan's split boundaries, cycled up to ``b`` sequences."""
+    picks = [1, s, rows, rows - 1, rows + 1, 2 * rows, (splits - 1) * rows,
+             (splits - 1) * rows + 1, s - 1]
+    return [min(max(n, 1), s) for n in (picks * b)[:b]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash_bf16", "flash_f32", "decode"])
+@pytest.mark.parametrize("b,h,g,s,d", [
+    (128, 12, 2, 16384, 128),         # the qwen2-1.5b decode cell
+    (8, 8, 8, 2048, 128),             # 1 head a group
+    (8, 12, 2, 4096, 128),            # 6
+    (8, 28, 4, 2048, 128),            # 7 (qwen2-7b)
+    (8, 16, 2, 2048, 128),            # 8
+    (4, 16, 1, 2048, 128),            # 16, the most a group holds
+    (8, 24, 8, 4096, 64),             # D 64 (granite-moe's heads)
+    (8, 8, 4, 4096, 256),             # D 256 (gemma3's heads)
+])
+def test_decode_attention_tensor_core_path_on_card(cuda, b, h, g, s, d):
+    """bf16 q against a bf16 cache runs the tensor-core kernel (its
+    counter advances) within one bf16 ulp of the plain version
+    (``chip_smoke.bf16_ulp_excess``), at lengths on and beside
+    ``mma_split_plan``'s boundaries (at the decode cell's shape: its
+    lengths, spread over [6,144, 12,288), with those);
+    rows past each length, set to 1e6 in K and NaN in V, change no bit.
+    A planted fault, the plain version of the length-S sequence with the
+    last row of its first split or the first of its second left out,
+    fails the same check."""
+    from repro_torch.kernels import decode_attention as port_da
+    splits, rows = port_da.mma_split_plan(s, b, g)
+    assert rows < s
+    gen = torch.Generator(device=cuda).manual_seed(b + h + s + d)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    n = _mma_lengths(b, s, rows, splits)
+    if b == 128:
+        n = n[:9] + [6144 + 6144 * i // b + 1 for i in range(9, b)]
+    lengths = torch.tensor(n, device=cuda, dtype=torch.int32)
+    before = port_da.decode_attention.tensor_core_launches
+    got = port_da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert port_da.decode_attention.tensor_core_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = port_ref.decode_attention(q, k, v, lengths)
+    assert smoke.bf16_ulp_excess(got, want) <= 0, \
+        f"max deviation {float((got.float() - want.float()).abs().max())}"
+    i = n.index(s)
+    for r in (rows - 1, rows):
+        fault = smoke.plain_decode_without_row(q, k, v, lengths, i, r)
+        assert smoke.bf16_ulp_excess(fault, want[i:i + 1]) > 0, r
+    del want, fault
+    for i, x in enumerate(n):
+        k[i, x:], v[i, x:] = 1e6, float("nan")
+    assert torch.equal(port_da.decode_attention(q, k, v, lengths), got)
+
+
+@pytest.mark.cuda
+def test_decode_attention_tensor_core_path_in_a_cuda_graph_on_card(cuda):
+    """The bf16 path captured in a CUDA graph and replayed equals the
+    eager call bit for bit, also after new queries and lengths are
+    copied into the captured inputs (as a replayed decode step does)."""
+    from repro_torch.kernels import decode_attention as port_da
+    b, h, g, s, d = 16, 12, 2, 4096, 128
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    port_da.decode_attention(q, k, v, lengths)           # warm, built
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = port_da.decode_attention(q, k, v, lengths)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, port_da.decode_attention(q, k, v, lengths))
+        q.copy_(torch.randn((b, h, d), generator=gen, device=cuda))
+        lengths.copy_(torch.randint(1, s + 1, (b,), generator=gen,
+                                    device=cuda, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bf16", "flash_f32", "decode",
+                                    "decode_bf16"])
 def test_attention_kernels_repeat_bit_equal_on_card(cuda, kernel):
     """Two calls on the same inputs give the same bits: no atomics in the
-    sums, the split-KV combine in split order."""
+    sums, the split-KV combine in split order (``decode_bf16``: the
+    tensor-core kernel, bf16 q and cache)."""
     from repro_torch.kernels import decode_attention as port_da
     from repro_torch.kernels import flash_attention as port_fa
     gen = torch.Generator(device=cuda).manual_seed(9)
-    if kernel == "decode":
-        q = torch.randn((4, 12, 128), generator=gen, device=cuda)
+    if kernel.startswith("decode"):
+        dtype = torch.bfloat16 if kernel == "decode_bf16" else torch.float32
+        q = torch.randn((4, 12, 128), generator=gen, device=cuda).to(dtype)
         k, v = (torch.randn((4, 4096, 2, 128), generator=gen, device=cuda)
-                for _ in range(2))
+                .to(dtype) for _ in range(2))
         lengths = torch.tensor([4001, 1, 2048, 4096], device=cuda,
                                dtype=torch.int32)
         first = port_da.decode_attention(q, k, v, lengths)
